@@ -1,0 +1,204 @@
+"""AmpOptimizer: fp32 master weights, unscale, overflow skip.
+
+Counterpart of ``apex_tpu/amp/_process_optimizer.py`` on its flat,
+non-ZeRO path.  At :meth:`AmpOptimizer.bind` (called by
+``amp.initialize``) the model's parameters are laid out, in the JAX
+package's leaf order, in one flat fp32 master buffer, plus one flat
+buffer of the half dtype when the model has one (O2).  The model's half
+parameters then become views into the half buffer and its fp32
+parameters (BatchNorm under O2; everything under O0) views into the
+master buffer.  The fused Adam kernel updates the masters in place and
+writes the half copy in the same pass, so the model is updated in place
+with no rebuild copy: the in-place update the port allows where it saves
+memory (here the whole per-step params rebuild of
+``_FlatLayout.rebuild``).
+
+A step is free of host syncs: unscale and overflow check in one kernel,
+the scaler's transition on device tensors, and a skipped step is the
+Adam kernel's no-op flag (the JAX package's ``lax.cond``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from .. import ops
+from ..multi_tensor_apply import pack_flat
+from ..optimizers.base import Optimizer
+from .scaler import LossScaler, ScalerState
+from .stateful import GradStash
+
+__all__ = ["AmpOptimizer", "FlatMasters", "jax_leaf_order"]
+
+
+def jax_leaf_order(names: Sequence[str]) -> List[str]:
+    """``jax.tree_util`` flattens nested dicts with the keys of each level
+    sorted as strings (so a Bottleneck's leaves go bn1, bn2, bn3, conv1,
+    ..., downsample, and a Sequential's child "10" comes before "2").
+    Sorting dotted names by their tuple of components gives that order."""
+    return sorted(names, key=lambda n: tuple(n.split(".")))
+
+
+class _FlatLayout:
+    """Static description of the flattening, computed once at bind."""
+
+    def __init__(self, named_params: Sequence[Tuple[str, torch.Tensor]]):
+        by_name = dict(named_params)
+        self.names = tuple(jax_leaf_order(by_name))
+        leaves = [by_name[n] for n in self.names]
+        self.shapes = tuple(tuple(l.shape) for l in leaves)
+        self.dtypes = tuple(l.dtype for l in leaves)
+        self.is_float = tuple(l.is_floating_point() for l in leaves)
+        sizes, offsets, off = [], [], 0
+        for shape, f in zip(self.shapes, self.is_float):
+            n = int(math.prod(shape)) if f else 0
+            sizes.append(n)
+            offsets.append(off)
+            off += n
+        self.sizes = tuple(sizes)
+        self.offsets = tuple(offsets)
+        self.total = off
+        halves = {d for d, f in zip(self.dtypes, self.is_float)
+                  if f and d != torch.float32}
+        # the single non-fp32 float dtype (O2's cast_model_type), if any:
+        # the fused Adam kernel writes the half model copy in its pass
+        self.half_dtype = halves.pop() if len(halves) == 1 else None
+
+    def pack(self, tensors: Sequence[torch.Tensor],
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Float leaves (in layout order) -> one flat fp32 buffer."""
+        parts = [t for t, f in zip(tensors, self.is_float) if f]
+        return pack_flat(parts, torch.float32, out=out)
+
+    def pieces(self, flat: torch.Tensor) -> List[Optional[torch.Tensor]]:
+        """Per-leaf views of a flat buffer (None for non-float leaves)."""
+        return [flat[off:off + n].view(shape) if f else None
+                for shape, f, off, n in zip(self.shapes, self.is_float,
+                                            self.offsets, self.sizes)]
+
+
+class FlatMasters:
+    """fp32 master weights as one flat buffer, the optional flat half
+    copy the model's half parameters view, and their layout."""
+
+    def __init__(self, buf: torch.Tensor, half: Optional[torch.Tensor],
+                 layout: _FlatLayout):
+        self.buf = buf
+        self.half = half
+        self.layout = layout
+
+    def as_list(self) -> List[torch.Tensor]:
+        return [p for p in self.layout.pieces(self.buf) if p is not None]
+
+
+class AmpOptimizer:
+    """Wraps a port optimizer with loss scaling and flat fp32 masters, in
+    the torch shape::
+
+        with amp.scale_loss(loss, optimizer) as scaled_loss:
+            scaled_loss.backward()
+        optimizer.step()
+        optimizer.zero_grad()
+
+    After each step, ``last_info`` holds ``found_inf``, ``loss_scale``,
+    ``steps_skipped`` and ``grad_norm`` (the l2norm of the unscaled
+    grads) as device tensors."""
+
+    def __init__(self, inner: Optimizer, scaler: LossScaler,
+                 master_weights: bool, num_losses: int = 1):
+        self.inner = inner
+        self.scaler = scaler
+        self.master_weights = bool(master_weights)
+        self.num_losses = int(num_losses)
+        self.masters: Optional[FlatMasters] = None
+        self.state = None
+        self.scalers: List[ScalerState] = []
+        self.last_info: Dict[str, torch.Tensor] = {}
+        self._params: List[torch.nn.Parameter] = []
+        self._stash: Optional[GradStash] = None
+
+    # -- set-up ---------------------------------------------------------------
+    def bind(self, model: torch.nn.Module) -> None:
+        if self.masters is not None:
+            raise RuntimeError("this optimizer is already bound to a model")
+        named = list(model.named_parameters())
+        if not named:
+            raise ValueError("the model has no parameters")
+        layout = _FlatLayout(named)
+        by_name = dict(named)
+        params = [by_name[n] for n in layout.names]
+        device = params[0].device
+        buf = layout.pack([p.detach() for p in params])
+        half = (None if layout.half_dtype is None
+                else buf.to(layout.half_dtype))
+        # the model's parameters become views into the flat buffers (the
+        # casts above are exact: fp32 holds every bf16/fp16 value)
+        for p, p32, ph in zip(params, layout.pieces(buf),
+                              layout.pieces(half) if half is not None
+                              else [None] * len(params)):
+            p.data = p32 if p.dtype == torch.float32 else ph
+        self.masters = FlatMasters(buf, half, layout)
+        self.state = self.inner.init(buf)
+        self.scalers = [self.scaler.init_state(device)
+                        for _ in range(self.num_losses)]
+        self._params = params
+        self._stash = GradStash(layout.total, device)
+        # without masters the update starts from the half params each step
+        # (the JAX package's no-master path): the spans to refresh
+        self._half_spans = [
+            (off, n) for d, off, n in zip(layout.dtypes, layout.offsets,
+                                          layout.sizes)
+            if d == layout.half_dtype and n]
+
+    def _require_bound(self) -> None:
+        if self.masters is None:
+            raise RuntimeError("AmpOptimizer is not bound to a model: get it "
+                               "from amp.initialize(model, optimizer)")
+
+    def loss_scale(self, loss_id: int = 0) -> torch.Tensor:
+        self._require_bound()
+        return self.scalers[loss_id].loss_scale
+
+    # -- driven by amp.scale_loss ----------------------------------------------
+    def _prepare_backward(self) -> None:
+        self._require_bound()
+        for p in self._params:
+            p.grad = None
+
+    def _post_backward(self, loss_id: int, delay_unscale: bool) -> None:
+        self._stash.add(self._params, self.scaler, self.scalers[loss_id])
+        if not delay_unscale:
+            self.scalers[loss_id] = self.scaler.update(
+                self.scalers[loss_id], self._stash.found_inf)
+
+    # -- torch-shaped methods ---------------------------------------------------
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self._require_bound()
+        for p in self._params:
+            p.grad = None
+        self._stash.clear()
+
+    def step(self) -> None:
+        self._require_bound()
+        if not self._stash.has_grads:
+            raise RuntimeError("step() called before backward()")
+        masters, stash = self.masters, self._stash
+        grads, found = stash.grads, stash.found_inf
+        # of the unscaled fp32 grads, before the no-master path rounds them
+        grad_norm = ops.multi_tensor_l2norm(grads)
+        if not self.master_weights:
+            for off, n in self._half_spans:
+                masters.buf[off:off + n].copy_(masters.half[off:off + n])
+                grads[off:off + n] = grads[off:off + n].to(
+                    masters.half.dtype).float()
+        self.inner.step(masters.buf, self.state, grads, half=masters.half,
+                        noop=found)
+        s = self.scalers[0]
+        self.last_info = {"found_inf": found.clone(),
+                          "loss_scale": s.loss_scale,
+                          "steps_skipped": s.steps_skipped,
+                          "grad_norm": grad_norm}
+        stash.clear()

@@ -1,0 +1,92 @@
+"""Functional ops ResNet needs, with the JAX package's numerics.
+
+Counterpart of the ResNet subset of ``apex_tpu/nn/functional.py``.
+Convolution and linear stay ``torch.nn.functional`` calls (the JAX package
+leaves them to XLA, outside any Pallas kernel).  Batch norm is written out
+in torch ops with the JAX formula: single-pass fp32 statistics
+E[x^2] - mean^2 clamped at 0, and ``y = x*scale + shift`` in fp32 cast
+back to the input dtype.  cuDNN's ``F.batch_norm`` is not used: its
+Welford statistics round differently.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as _F
+
+__all__ = ["conv2d", "linear", "relu", "batch_norm_stats", "batch_norm_apply",
+           "max_pool2d", "adaptive_avg_pool2d", "cross_entropy"]
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, stride=1, padding=0,
+           dilation=1, groups: int = 1) -> torch.Tensor:
+    """NCHW convolution with OIHW weights."""
+    return _F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ weight.T + bias``, weight (out, in)."""
+    return _F.linear(x, weight, bias)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+def batch_norm_stats(x: torch.Tensor, axes: Sequence[int]
+                     ) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """Per-channel (count, mean, biased var) over ``axes``, in fp32 from
+    one pass over x (mean and mean of squares)."""
+    axes = tuple(axes)
+    x32 = x.float()
+    n = math.prod(x.shape[a] for a in axes)
+    mean = x32.mean(dim=axes)
+    mean_sq = torch.square(x32).mean(dim=axes)
+    var = torch.clamp_min(mean_sq - torch.square(mean), 0.0)
+    return n, mean, var
+
+
+def batch_norm_apply(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                     weight: Optional[torch.Tensor],
+                     bias: Optional[torch.Tensor], eps: float,
+                     channel_axis: int = 1) -> torch.Tensor:
+    shape = [1] * x.dim()
+    shape[channel_axis] = x.shape[channel_axis]
+    inv = torch.rsqrt(var.float() + eps)
+    scale = inv if weight is None else inv * weight.float()
+    shift = -mean.float() * scale
+    if bias is not None:
+        shift = shift + bias.float()
+    y = x.float() * scale.view(shape) + shift.view(shape)
+    return y.to(x.dtype)
+
+
+def max_pool2d(x: torch.Tensor, kernel_size, stride=None, padding=0
+               ) -> torch.Tensor:
+    """NCHW max pool; padding counts as -inf, as in the JAX package."""
+    return _F.max_pool2d(x, kernel_size, stride, padding)
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, output_size=1) -> torch.Tensor:
+    """Global average pool (output_size 1 only, as in the JAX package),
+    summed in fp32 and cast back."""
+    if output_size not in (1, (1, 1)):
+        raise NotImplementedError("adaptive_avg_pool2d supports output_size=1")
+    return x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  reduction: str = "mean") -> torch.Tensor:
+    """Softmax cross entropy computed in fp32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    if reduction == "mean":
+        return nll.mean()
+    if reduction == "sum":
+        return nll.sum()
+    return nll

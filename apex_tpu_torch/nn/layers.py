@@ -1,0 +1,120 @@
+"""Layers ResNet needs, as ``torch.nn.Module``s.
+
+Counterpart of the ResNet subset of ``apex_tpu/nn/layers.py``.
+Parameters are made on the CPU from an explicit ``torch.Generator``
+(uniform in +-sqrt(1/fan_in), as the JAX package draws them) and moved to
+``device``.  ``BatchNorm2d`` sets ``fp32_params = True``: amp keeps its
+parameters fp32 under ``keep_batchnorm_fp32``.  Its running statistics
+follow the JAX package: momentum 0.1, unbiased running variance, an int32
+``num_batches_tracked``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple, Union
+
+import numpy as np
+import torch
+
+from . import functional as F
+
+__all__ = ["Conv2d", "Linear", "BatchNorm2d", "MaxPool2d",
+           "AdaptiveAvgPool2d"]
+
+
+def _uniform(shape, fan_in: int, generator: torch.Generator,
+             device) -> torch.nn.Parameter:
+    bound = math.sqrt(1.0 / fan_in)
+    w = torch.empty(shape, dtype=torch.float32)
+    w.uniform_(-bound, bound, generator=generator)
+    return torch.nn.Parameter(w.to(device))
+
+
+class Conv2d(torch.nn.Module):
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Union[int, Tuple[int, int]], stride=1,
+                 padding=0, bias: bool = True, *, device=None,
+                 generator: torch.Generator):
+        super().__init__()
+        if isinstance(kernel_size, int):
+            kernel_size = (kernel_size, kernel_size)
+        self.stride = stride
+        self.padding = padding
+        fan_in = in_channels * kernel_size[0] * kernel_size[1]
+        self.weight = _uniform((out_channels, in_channels, *kernel_size),
+                               fan_in, generator, device)
+        self.bias = (_uniform((out_channels,), fan_in, generator, device)
+                     if bias else None)
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class Linear(torch.nn.Module):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 *, device=None, generator: torch.Generator):
+        super().__init__()
+        self.weight = _uniform((out_features, in_features), in_features,
+                               generator, device)
+        self.bias = (_uniform((out_features,), in_features, generator, device)
+                     if bias else None)
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+class BatchNorm2d(torch.nn.Module):
+    fp32_params = True
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1, *, device=None):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        f32 = dict(dtype=torch.float32, device=device)
+        self.weight = torch.nn.Parameter(torch.ones(num_features, **f32))
+        self.bias = torch.nn.Parameter(torch.zeros(num_features, **f32))
+        self.register_buffer("running_mean", torch.zeros(num_features, **f32))
+        self.register_buffer("running_var", torch.ones(num_features, **f32))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.int32, device=device))
+
+    def forward(self, x):
+        if self.training:
+            count, mean, var = F.batch_norm_stats(x, (0, 2, 3))
+            with torch.no_grad():
+                m = self.momentum
+                # count/(count-1) rounded in fp32, as the JAX package forms
+                # it from fp32 arrays
+                c = np.float32(count)
+                factor = float(c / max(c - np.float32(1), np.float32(1)))
+                unbiased = var.detach() * factor
+                self.running_mean.copy_(
+                    (1 - m) * self.running_mean + m * mean.detach())
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * unbiased)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return F.batch_norm_apply(x, mean, var, self.weight, self.bias,
+                                  self.eps)
+
+
+class MaxPool2d(torch.nn.Module):
+    def __init__(self, kernel_size, stride=None, padding=0):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+
+    def forward(self, x):
+        return F.max_pool2d(x, self.kernel_size, self.stride, self.padding)
+
+
+class AdaptiveAvgPool2d(torch.nn.Module):
+    def __init__(self, output_size=1):
+        super().__init__()
+        self.output_size = output_size
+
+    def forward(self, x):
+        return F.adaptive_avg_pool2d(x, self.output_size)
+

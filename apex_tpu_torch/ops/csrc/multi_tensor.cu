@@ -1,0 +1,143 @@
+// Multi-tensor kernels over one flat fp32 buffer: scale, axpby, l2norm.
+//
+// Replaces apex_tpu/ops/pallas_multi_tensor.py: _scale_kernel (:45),
+// _axpby_kernel (:89) and _l2norm_kernel (:142).
+//
+// Bound: device-memory bytes.  Each kernel does a few flops per element,
+// far below the ~20 flops/byte an H100 needs before arithmetic limits it:
+//   scale   reads x, writes out          8 bytes/element
+//   axpby   reads x and y, writes out   12 bytes/element
+//   l2norm  reads x                      4 bytes/element
+// Design: one pass, each thread moving 16 bytes per load (float4) in a
+// grid-stride loop, with a scalar loop for the n % 4 tail.  The
+// found-inf flag is a per-thread bool stored once as 1.0f: the OR is
+// order-free, so plain stores replace the TPU's sequential (1,1) SMEM
+// accumulator.  l2norm cannot carry a sum across blocks as the TPU grid
+// does, so it runs two passes: per-block fp32 partial sums, then one
+// block that adds the partials in a fixed order and takes the sqrt (no
+// float atomics: the same bits on every run).
+//
+// Scalars (scale, a and b) are read from device memory, so the loss
+// scaler never brings a value to the host.  `out` may alias `x`.
+// Each entry point returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+using namespace apex_tpu_torch;
+
+__global__ void scale_kernel(const float* x, float* out, long long n,
+                             const float* scale_p, float* flag) {
+  const float s = *scale_p;
+  const long long n4 = n >> 2;
+  const long long stride = grid_stride();
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  bool bad = false;
+  for (long long i = global_tid(); i < n4; i += stride) {
+    float4 a = x4[i];
+    bad |= !finite4(a);
+    a.x = a.x * s; a.y = a.y * s; a.z = a.z * s; a.w = a.w * s;
+    o4[i] = a;
+  }
+  for (long long i = (n4 << 2) + global_tid(); i < n; i += stride) {
+    const float a = x[i];
+    bad |= !isfinite(a);
+    out[i] = a * s;
+  }
+  if (bad) *flag = 1.0f;
+}
+
+__global__ void axpby_kernel(const float* x, const float* y, float* out,
+                             long long n, const float* ab,
+                             int arg_to_check, float* flag) {
+  const float a = ab[0];
+  const float b = ab[1];
+  const bool chk_x = arg_to_check != 1;    // 0: x, 1: y, -1: both
+  const bool chk_y = arg_to_check != 0;
+  const long long n4 = n >> 2;
+  const long long stride = grid_stride();
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const float4* y4 = reinterpret_cast<const float4*>(y);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  bool bad = false;
+  for (long long i = global_tid(); i < n4; i += stride) {
+    const float4 xv = x4[i];
+    const float4 yv = y4[i];
+    if (chk_x) bad |= !finite4(xv);
+    if (chk_y) bad |= !finite4(yv);
+    float4 r;
+    r.x = a * xv.x + b * yv.x;
+    r.y = a * xv.y + b * yv.y;
+    r.z = a * xv.z + b * yv.z;
+    r.w = a * xv.w + b * yv.w;
+    o4[i] = r;
+  }
+  for (long long i = (n4 << 2) + global_tid(); i < n; i += stride) {
+    const float xv = x[i];
+    const float yv = y[i];
+    if (chk_x) bad |= !isfinite(xv);
+    if (chk_y) bad |= !isfinite(yv);
+    out[i] = a * xv + b * yv;
+  }
+  if (bad) *flag = 1.0f;
+}
+
+__global__ void l2norm_partial_kernel(const float* x, long long n,
+                                      float* partials) {
+  const long long n4 = n >> 2;
+  const long long stride = grid_stride();
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float acc = 0.0f;
+  for (long long i = global_tid(); i < n4; i += stride) {
+    const float4 a = x4[i];
+    acc += a.x * a.x;
+    acc += a.y * a.y;
+    acc += a.z * a.z;
+    acc += a.w * a.w;
+  }
+  for (long long i = (n4 << 2) + global_tid(); i < n; i += stride) {
+    const float a = x[i];
+    acc += a * a;
+  }
+  const float tot = block_sum(acc);
+  if (threadIdx.x == 0) partials[blockIdx.x] = tot;
+}
+
+__global__ void l2norm_final_kernel(const float* partials, int nparts,
+                                    float* out) {
+  float acc = 0.0f;
+  for (int i = threadIdx.x; i < nparts; i += blockDim.x) acc += partials[i];
+  const float tot = block_sum(acc);
+  if (threadIdx.x == 0) *out = sqrtf(tot);
+}
+
+extern "C" {
+
+int apex_scale(const float* x, float* out, long long n, const float* scale,
+               float* flag, int blocks, cudaStream_t stream) {
+  scale_kernel<<<blocks, kThreads, 0, stream>>>(x, out, n, scale, flag);
+  return (int)cudaGetLastError();
+}
+
+int apex_axpby(const float* x, const float* y, float* out, long long n,
+               const float* ab, int arg_to_check, float* flag, int blocks,
+               cudaStream_t stream) {
+  axpby_kernel<<<blocks, kThreads, 0, stream>>>(x, y, out, n, ab,
+                                                arg_to_check, flag);
+  return (int)cudaGetLastError();
+}
+
+// `blocks` partial sums land in `partials` (at least `blocks` floats,
+// blocks <= 1024), then one 1024-thread block reduces them into *out.
+int apex_l2norm(const float* x, long long n, float* partials, int blocks,
+                float* out, cudaStream_t stream) {
+  l2norm_partial_kernel<<<blocks, kThreads, 0, stream>>>(x, n, partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  l2norm_final_kernel<<<1, 1024, 0, stream>>>(partials, blocks, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,162 @@
+"""Kernel wrappers for scale, axpby and l2norm over one flat fp32 buffer,
+each beside its plain PyTorch version.
+
+Counterpart of ``apex_tpu/ops/pallas_multi_tensor.py``; the kernels are
+``csrc/multi_tensor.cu``.  A wrapper given CUDA tensors launches the
+kernel (and adds one to its ``launches`` count); given CPU tensors it
+runs the plain version; anything else raises.  Scalars may be Python
+floats or 0-d fp32 tensors on the buffer's device: the loss scaler hands
+over device tensors, so no value comes back to the host.
+
+The found-inf flag is a 0-d fp32 tensor, 1.0 when any checked input
+element is inf or nan, else 0.0 (the TPU kernels' (1, 1) flag).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from . import _build
+
+__all__ = ["multi_tensor_scale", "multi_tensor_axpby", "multi_tensor_l2norm",
+           "as_scalar"]
+
+Scalar = Union[float, torch.Tensor]
+
+
+def as_scalar(s: Scalar, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d fp32 tensor on ``like``'s device.  A Python float rounds to
+    fp32, as JAX's weak-typed scalars do, and is written by a fill kernel
+    (no host-to-device copy, so no sync)."""
+    if isinstance(s, torch.Tensor):
+        if s.device != like.device:
+            raise ValueError(f"scalar on {s.device}, buffer on {like.device}")
+        return s.reshape(()).to(torch.float32)
+    return torch.full((), float(s), dtype=torch.float32, device=like.device)
+
+
+def _flat_f32(x: torch.Tensor, name: str) -> None:
+    _build.require(x, name, torch.float32, x.numel(),
+                   align=16 if x.is_cuda else 1)
+    if x.dim() != 1:
+        raise ValueError(f"{name} must be a flat 1-D buffer, got "
+                         f"shape {tuple(x.shape)}")
+
+
+def _nonfinite(x: torch.Tensor) -> torch.Tensor:
+    return (~torch.isfinite(x)).any().to(torch.float32)
+
+
+# -- scale -------------------------------------------------------------------
+
+def _scale_plain(x, scale, out):
+    found = _nonfinite(x)              # from the input, before out is written
+    torch.mul(x, scale, out=out)
+    return out, found
+
+
+def multi_tensor_scale(x: torch.Tensor, scale: Scalar,
+                       out: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``out = x * scale`` and the found-inf flag of ``x``.  ``out`` may
+    be ``x`` (in place)."""
+    _flat_f32(x, "x")
+    out = torch.empty_like(x) if out is None else out
+    _flat_f32(out, "out")
+    if out.numel() != x.numel():
+        raise ValueError("out and x differ in length")
+    scale = as_scalar(scale, x)
+    if not _build.use_kernel(x, out, scale):
+        return _scale_plain(x, scale, out)
+    flag = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = x.numel()
+    if n:
+        lib = _build.library("multi_tensor")
+        _build.check(lib.apex_scale(x.data_ptr(), out.data_ptr(), n,
+                                    scale.data_ptr(), flag.data_ptr(),
+                                    _build.grid_blocks(n),
+                                    _build.stream_ptr(x)), "apex_scale")
+        multi_tensor_scale.launches += 1
+    return out, flag
+
+
+multi_tensor_scale.launches = 0
+
+
+# -- axpby -------------------------------------------------------------------
+
+def _axpby_plain(a, b, x, y, arg_to_check, out):
+    if arg_to_check == 0:
+        found = _nonfinite(x)
+    elif arg_to_check == 1:
+        found = _nonfinite(y)
+    else:
+        found = torch.maximum(_nonfinite(x), _nonfinite(y))
+    torch.add(a * x, b * y, out=out)
+    return out, found
+
+
+def multi_tensor_axpby(a: Scalar, b: Scalar, x: torch.Tensor,
+                       y: torch.Tensor, arg_to_check: int = -1,
+                       out: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``out = a*x + b*y`` with the finite check on x (0), y (1) or both
+    (-1).  ``out`` may be ``x`` or ``y``."""
+    if arg_to_check not in (0, 1, -1):
+        raise ValueError(f"arg_to_check must be 0, 1 or -1, got "
+                         f"{arg_to_check!r}")
+    _flat_f32(x, "x")
+    _flat_f32(y, "y")
+    out = torch.empty_like(x) if out is None else out
+    _flat_f32(out, "out")
+    if not x.numel() == y.numel() == out.numel():
+        raise ValueError("x, y and out differ in length")
+    a, b = as_scalar(a, x), as_scalar(b, x)
+    if not _build.use_kernel(x, y, out, a):
+        return _axpby_plain(a, b, x, y, arg_to_check, out)
+    flag = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = x.numel()
+    if n:
+        ab = torch.stack([a, b])
+        lib = _build.library("multi_tensor")
+        _build.check(lib.apex_axpby(x.data_ptr(), y.data_ptr(),
+                                    out.data_ptr(), n, ab.data_ptr(),
+                                    int(arg_to_check), flag.data_ptr(),
+                                    _build.grid_blocks(n),
+                                    _build.stream_ptr(x)), "apex_axpby")
+        multi_tensor_axpby.launches += 1
+    return out, flag
+
+
+multi_tensor_axpby.launches = 0
+
+
+# -- l2norm ------------------------------------------------------------------
+
+def _l2norm_plain(x):
+    return torch.sqrt(torch.sum(x * x))
+
+
+def multi_tensor_l2norm(x: torch.Tensor) -> torch.Tensor:
+    """fp32 global L2 norm of the flat buffer, as a 0-d tensor.  On the
+    card the sum runs in a fixed order (per-block partials, then one
+    block), so the result is the same on every run."""
+    _flat_f32(x, "x")
+    if not _build.use_kernel(x):
+        return _l2norm_plain(x)
+    out = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = x.numel()
+    if n:
+        blocks = _build.grid_blocks(n)
+        partials = torch.empty(blocks, dtype=torch.float32, device=x.device)
+        lib = _build.library("multi_tensor")
+        _build.check(lib.apex_l2norm(x.data_ptr(), n, partials.data_ptr(),
+                                     blocks, out.data_ptr(),
+                                     _build.stream_ptr(x)), "apex_l2norm")
+        multi_tensor_l2norm.launches += 1
+    return out
+
+
+multi_tensor_l2norm.launches = 0
