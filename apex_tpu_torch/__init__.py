@@ -20,7 +20,7 @@ import importlib
 __version__ = "0.1.0"
 
 _SUBPACKAGES = ("amp", "models", "multi_tensor_apply", "nn", "ops",
-                "optimizers", "utils")
+                "optimizers", "parallel", "utils")
 
 __all__ = list(_SUBPACKAGES) + ["resolve_device"]
 

@@ -16,12 +16,23 @@ memory (here the whole per-step params rebuild of
 A step is free of host syncs: unscale and overflow check in one kernel,
 the scaler's transition on device tensors, and a skipped step is the
 Adam kernel's no-op flag (the JAX package's ``lax.cond``).
+
+The masters are the source of truth for the parameters.  A write of
+parameter values after ``bind`` goes through :meth:`AmpOptimizer.
+write_masters`, which sets the fp32 masters and re-derives the half copy
+from them.  ``load_state_dict`` does so through pre-hooks that ``bind``
+installs on every module that holds parameters, so a load reaches the
+masters at full precision (not rounded through the half views) whether it
+is called on the bound model, on one of its submodules, or on a wrapper
+that holds it (``parallel.DistributedDataParallel``'s ``module.*`` keys);
+``DistributedDataParallel``'s rank-0 broadcast takes the same route.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -152,6 +163,61 @@ class AmpOptimizer:
             (off, n) for d, off, n in zip(layout.dtypes, layout.offsets,
                                           layout.sizes)
             if d == layout.half_dtype and n]
+        self._index = {n: i for i, n in enumerate(layout.names)}
+        model._amp_optimizer = self
+        for mname, mod in model.named_modules():
+            if any(p is not None for p in mod._parameters.values()):
+                mod.register_load_state_dict_pre_hook(functools.partial(
+                    self._load_state_dict_hook, mname + "." if mname else ""))
+
+    # -- parameter values after bind ------------------------------------------
+    def refresh_masters(self) -> None:
+        """Without master weights the half params are the source of truth:
+        copy them into the masters' spans (the no-master path's update
+        starts from them).  With master weights, nothing to do."""
+        self._require_bound()
+        if not self.master_weights:
+            m = self.masters
+            for off, n in self._half_spans:
+                m.buf[off:off + n].copy_(m.half[off:off + n])
+
+    def write_masters(self, values: Mapping[str, torch.Tensor]) -> None:
+        """Set parameter values after ``bind``: ``values`` maps parameter
+        names (as the bound model's ``named_parameters`` gives them) to
+        tensors; names of no parameter, and ``None`` values, are ignored.
+        Each value is written into the fp32 masters, then its span of the
+        half copy, which the model's half parameters view, is re-derived
+        from the masters."""
+        self._require_bound()
+        m = self.masters
+        lay = m.layout
+        for name, v in values.items():
+            i = self._index.get(name)
+            if v is None or i is None or not lay.is_float[i]:
+                continue
+            off, n = lay.offsets[i], lay.sizes[i]
+            m.buf[off:off + n].copy_(v.detach().reshape(-1))
+            if m.half is not None:
+                m.half[off:off + n].copy_(m.buf[off:off + n])
+
+    def _load_state_dict_hook(self, qualified: str, module, state_dict,
+                              prefix, local_metadata, strict, missing_keys,
+                              unexpected_keys, error_msgs) -> None:
+        """``module``'s own parameters: ``prefix + name`` in the state dict
+        is the bound model's ``qualified + name``."""
+        if local_metadata.get("assign_to_params_buffers", False):
+            raise RuntimeError("load_state_dict(assign=True) would replace "
+                               "the parameters, which are views into the "
+                               "optimizer's flat buffers after "
+                               "amp.initialize")
+        values = {}
+        for name, p in module._parameters.items():
+            v = state_dict.get(prefix + name)
+            # a mismatched shape is left to the default load to report
+            if (p is not None and isinstance(v, torch.Tensor)
+                    and v.shape == p.shape):
+                values[qualified + name] = v
+        self.write_masters(values)
 
     def _require_bound(self) -> None:
         if self.masters is None:
@@ -190,8 +256,8 @@ class AmpOptimizer:
         # of the unscaled fp32 grads, before the no-master path rounds them
         grad_norm = ops.multi_tensor_l2norm(grads)
         if not self.master_weights:
+            self.refresh_masters()   # the update starts from the half params
             for off, n in self._half_spans:
-                masters.buf[off:off + n].copy_(masters.half[off:off + n])
                 grads[off:off + n] = grads[off:off + n].to(
                     masters.half.dtype).float()
         self.inner.step(masters.buf, self.state, grads, half=masters.half,

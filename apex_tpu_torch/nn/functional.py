@@ -2,11 +2,13 @@
 
 Counterpart of the ResNet subset of ``apex_tpu/nn/functional.py``.
 Convolution and linear stay ``torch.nn.functional`` calls (the JAX package
-leaves them to XLA, outside any Pallas kernel).  Batch norm is written out
-in torch ops with the JAX formula: single-pass fp32 statistics
-E[x^2] - mean^2 clamped at 0, and ``y = x*scale + shift`` in fp32 cast
-back to the input dtype.  cuDNN's ``F.batch_norm`` is not used: its
-Welford statistics round differently.
+leaves them to XLA, outside any Pallas kernel).  Batch norm follows the JAX
+formula: single-pass fp32 statistics E[x^2] - mean^2 clamped at 0, in
+torch ops, then the apply in fp32 cast back to the input dtype.  On NCHW
+input the apply is ``ops.batch_norm_apply_fused`` (the syncbn kernels on
+the card, their plain versions on the CPU); any other layout keeps
+``y = x*scale + shift`` in torch ops.  cuDNN's ``F.batch_norm`` is not
+used: its Welford statistics round differently.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as _F
+
+from .. import ops
 
 __all__ = ["conv2d", "linear", "relu", "batch_norm_stats", "batch_norm_apply",
            "max_pool2d", "adaptive_avg_pool2d", "cross_entropy"]
@@ -55,6 +59,16 @@ def batch_norm_apply(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
                      weight: Optional[torch.Tensor],
                      bias: Optional[torch.Tensor], eps: float,
                      channel_axis: int = 1) -> torch.Tensor:
+    """``(x - mean) * rsqrt(var + eps) * weight + bias`` per channel.  NCHW
+    input goes through the fused op: the JAX package's ``pallas_forced()``
+    branch (nn/functional.py:250-258 there), which eager PyTorch needs on
+    the main path since nothing fuses the torch ops below."""
+    if x.dim() == 4 and channel_axis == 1:
+        C = x.shape[1]
+        f32 = dict(dtype=torch.float32, device=x.device)
+        w = weight if weight is not None else torch.ones(C, **f32)
+        b = bias if bias is not None else torch.zeros(C, **f32)
+        return ops.batch_norm_apply_fused(x, mean, var, w, b, float(eps))
     shape = [1] * x.dim()
     shape[channel_axis] = x.shape[channel_axis]
     inv = torch.rsqrt(var.float() + eps)

@@ -6,7 +6,8 @@ Parameters are made on the CPU from an explicit ``torch.Generator``
 ``device``.  ``BatchNorm2d`` sets ``fp32_params = True``: amp keeps its
 parameters fp32 under ``keep_batchnorm_fp32``.  Its running statistics
 follow the JAX package: momentum 0.1, unbiased running variance, an int32
-``num_batches_tracked``.
+``num_batches_tracked``; ``affine``, ``track_running_stats`` and
+``channel_axis`` are the JAX module's options.
 """
 
 from __future__ import annotations
@@ -65,40 +66,77 @@ class Linear(torch.nn.Module):
 
 
 class BatchNorm2d(torch.nn.Module):
+    """Batch norm over every axis but ``channel_axis`` (1 for NCHW, -1 for
+    channels-last), with running statistics as buffers.  ``_sync_stats``
+    is the hook SyncBatchNorm overrides to combine the statistics across
+    ranks; here it returns its input."""
+
     fp32_params = True
 
     def __init__(self, num_features: int, eps: float = 1e-5,
-                 momentum: float = 0.1, *, device=None):
+                 momentum: float = 0.1, affine: bool = True,
+                 track_running_stats: bool = True, channel_axis: int = 1, *,
+                 device=None):
         super().__init__()
+        self.num_features = num_features
         self.eps = eps
         self.momentum = momentum
+        self.affine = affine
+        self.track_running_stats = track_running_stats
+        self.channel_axis = channel_axis
         f32 = dict(dtype=torch.float32, device=device)
-        self.weight = torch.nn.Parameter(torch.ones(num_features, **f32))
-        self.bias = torch.nn.Parameter(torch.zeros(num_features, **f32))
-        self.register_buffer("running_mean", torch.zeros(num_features, **f32))
-        self.register_buffer("running_var", torch.ones(num_features, **f32))
-        self.register_buffer("num_batches_tracked",
-                             torch.zeros((), dtype=torch.int32, device=device))
+        if affine:
+            self.weight = torch.nn.Parameter(torch.ones(num_features, **f32))
+            self.bias = torch.nn.Parameter(torch.zeros(num_features, **f32))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
+        if track_running_stats:
+            self.register_buffer("running_mean",
+                                 torch.zeros(num_features, **f32))
+            self.register_buffer("running_var",
+                                 torch.ones(num_features, **f32))
+            self.register_buffer("num_batches_tracked", torch.zeros(
+                (), dtype=torch.int32, device=device))
+        else:
+            self.register_buffer("running_mean", None)
+            self.register_buffer("running_var", None)
+            self.register_buffer("num_batches_tracked", None)
+
+    def _sync_stats(self, count, mean, var):
+        return count, mean, var
 
     def forward(self, x):
-        if self.training:
-            count, mean, var = F.batch_norm_stats(x, (0, 2, 3))
-            with torch.no_grad():
-                m = self.momentum
-                # count/(count-1) rounded in fp32, as the JAX package forms
-                # it from fp32 arrays
-                c = np.float32(count)
-                factor = float(c / max(c - np.float32(1), np.float32(1)))
-                unbiased = var.detach() * factor
-                self.running_mean.copy_(
-                    (1 - m) * self.running_mean + m * mean.detach())
-                self.running_var.copy_((1 - m) * self.running_var
-                                       + m * unbiased)
-                self.num_batches_tracked.add_(1)
+        if self.training or not self.track_running_stats:
+            ca = self.channel_axis % x.dim()
+            axes = tuple(a for a in range(x.dim()) if a != ca)
+            count, mean, var = F.batch_norm_stats(x, axes)
+            count, mean, var = self._sync_stats(count, mean, var)
+            if self.training and self.track_running_stats:
+                self._update_running_stats(count, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         return F.batch_norm_apply(x, mean, var, self.weight, self.bias,
-                                  self.eps)
+                                  self.eps, channel_axis=self.channel_axis)
+
+    @torch.no_grad()
+    def _update_running_stats(self, count, mean, var):
+        m = self.momentum
+        if isinstance(count, torch.Tensor):
+            # a synced count: count/(count-1) formed in fp32 on the device,
+            # as the JAX package forms it, so no step waits on the host
+            c = count.float()
+            factor = c / torch.clamp_min(c - 1.0, 1.0)
+        else:
+            # count/(count-1) rounded in fp32, as the JAX package forms it
+            # from fp32 arrays
+            c = np.float32(count)
+            factor = float(c / max(c - np.float32(1), np.float32(1)))
+        unbiased = var.detach() * factor
+        self.running_mean.copy_(
+            (1 - m) * self.running_mean + m * mean.detach())
+        self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+        self.num_batches_tracked.add_(1)
 
 
 class MaxPool2d(torch.nn.Module):

@@ -31,9 +31,10 @@ __all__ = ["SOURCES", "build_all", "library", "check", "use_kernel",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
 
-# -fmad=false: a*x+b*y and the Adam EMAs round after each multiply and
-# each add, like the plain PyTorch versions (no FMA contraction).  No
-# --use_fast_math: division and sqrt stay IEEE round-to-nearest.
+# -fmad=false: a*x+b*y, the Adam EMAs and the BatchNorm apply round after
+# each multiply and each add, like the plain PyTorch versions (no FMA
+# contraction).  No --use_fast_math: division and sqrt stay IEEE
+# round-to-nearest.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -53,6 +54,11 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
     "adam": {
         "apex_adam": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P,
                       _F, _F, _F, _F, _F, _I, _F, _I, _P),
+    },
+    "syncbn": {
+        "apex_bn_fwd": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+        "apex_bn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _P),
     },
 }
 

@@ -10,15 +10,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
 3. kernels  each kernel against its plain PyTorch version on the card, at
             ResNet-50's flat length (25,557,032) and an odd length, with
             timings (kernel, plain version, nearest library call) and the
-            bound (bytes over the card's memory rate).
-4. train    the main path: ResNet-50 under amp O2 + FusedAdam at batch 128,
-            3x224x224, then two steps of two micro-batches (axpby); the
-            device time of three more steps by kernel (torch.profiler);
-            and a small ResNet trained on the card against the same run
-            on the CPU (plain versions), in fp32.
-5. overflow one fp16 step with an inf in the input: the loss scale halves
+            bound (bytes over the card's memory rate); the syncbn forward
+            and backward at every BatchNorm shape of ResNet-50 at batch
+            128 (y and dx bitwise; the row sums within
+            f(hw)*2^-24*sum|term| of their fp64 sums) and at odd
+            shapes, timed as one training step's 53 layers.
+4. train    the single-card path: ResNet-50 under amp O2 + FusedAdam at
+            batch 128, 3x224x224, then two steps of two micro-batches
+            (axpby); the device time of three more steps by kernel
+            (torch.profiler); and a small ResNet trained on the card
+            against the same run on the CPU (plain versions), in fp32.
+5. ddp      the data-parallel path on a one-rank NCCL group: ResNet-50 ->
+            convert_syncbn_model -> O2 + FusedAdam -> DistributedDataParallel
+            at batch 128, 12 steps and two of two micro-batches, the
+            rank-0 broadcast checked, and three steps profiled.
+6. overflow one fp16 step with an inf in the input: the loss scale halves
             and masters, m, v and the step counter stay bitwise.
-6. counts   every kernel launched on the main path; Adam once per step.
+7. counts   every kernel launched on each path; Adam once per step, the
+            syncbn kernels once per BatchNorm layer and pass.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.  It
@@ -33,6 +42,7 @@ import math
 import statistics
 import subprocess
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -53,13 +63,19 @@ REPLACES = {
     "multi_tensor_axpby": "apex_tpu/ops/pallas_multi_tensor.py:89",
     "multi_tensor_l2norm": "apex_tpu/ops/pallas_multi_tensor.py:142",
     "fused_adam": "apex_tpu/ops/pallas_adam.py:27",
+    "syncbn_fwd": "apex_tpu/ops/pallas_syncbn.py:59",
+    "syncbn_bwd": "apex_tpu/ops/pallas_syncbn.py:65",
 }
 SOURCE = {
     "multi_tensor_scale": "apex_tpu_torch/ops/csrc/multi_tensor.cu",
     "multi_tensor_axpby": "apex_tpu_torch/ops/csrc/multi_tensor.cu",
     "multi_tensor_l2norm": "apex_tpu_torch/ops/csrc/multi_tensor.cu",
     "fused_adam": "apex_tpu_torch/ops/csrc/adam.cu",
+    "syncbn_fwd": "apex_tpu_torch/ops/csrc/syncbn.cu",
+    "syncbn_bwd": "apex_tpu_torch/ops/csrc/syncbn.cu",
 }
+BN_LAYERS = 53               # BatchNorm layers of ResNet-50
+BN_ODD = ((3, 37, 15, 13), (5, 9, 1, 1), (2, 7, 12, 12))
 
 
 def log(msg: str) -> None:
@@ -80,6 +96,25 @@ def time_ms(fn, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, inner: int = 10) -> float:
+    """Device time of one call: ``inner`` calls captured in a CUDA graph,
+    the replay timed as ``time_ms`` times a call, divided by ``inner``.
+    ``time_ms`` of one call also counts the host time of the call when
+    the card waits for it, which dominates a small kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    ms = time_ms(graph.replay) / inner
+    del graph
+    return ms
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -144,7 +179,7 @@ def phase_kernels():
         rs = np.random.RandomState(SEED + n % 97)
         x = torch.from_numpy(rs.randn(n).astype(np.float32)).to(dev)
         y = torch.from_numpy(rs.randn(n).astype(np.float32)).to(dev)
-        err = {k: 0.0 for k in REPLACES}
+        err = {k: 0.0 for k in REPLACES if not k.startswith("syncbn")}
 
         # scale: clean, then one inf and one nan
         s = torch.full((), 1.0 / 65536.0, device=dev)
@@ -294,6 +329,178 @@ def phase_kernels():
     return rows
 
 
+def _bn_shapes(image: int):
+    """(C, H, W) of every BatchNorm input of ResNet-50 in forward order,
+    read off one forward at batch 1 on the CPU (the plain versions)."""
+    from apex_tpu_torch import models, nn
+    model = models.resnet50(device="cpu",
+                            generator=torch.Generator().manual_seed(SEED))
+    shapes = []
+    for m in model.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            m.register_forward_pre_hook(
+                lambda mod, args: shapes.append(tuple(args[0].shape[1:])))
+    with torch.no_grad():
+        model(torch.zeros(1, 3, image, image))
+    assert len(shapes) == BN_LAYERS, f"{len(shapes)} BatchNorm layers"
+    return shapes
+
+
+def _bn_case(shape, dtype, seed):
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    C = shape[1]
+
+    def rnd(*s):
+        return torch.randn(*s, generator=gen, device=dev)
+
+    x = (rnd(*shape) * 2.0 + 0.5).to(dtype)
+    dy = rnd(*shape).to(dtype)
+    inv = torch.rsqrt(torch.rand(C, generator=gen, device=dev) + 0.1 + 1e-5)
+    return x, dy, rnd(C), inv, rnd(C), rnd(C)
+
+
+def row_sum_ratio(sums: torch.Tensor, terms: torch.Tensor) -> float:
+    """The largest error of fp32 row sums (N, C) of ``terms`` (N, C, H, W)
+    against their fp64 sums, over f(hw) * 2**-24 * sum |term|: at most 1
+    passes.  f(hw) = sqrt(hw), the probabilistic bound on the rounding
+    error of a sum of hw terms, where hw >= 64; below that
+    min(hw - 1, 8), which bounds every order of a sum of at most 9 terms
+    and is the floor above.  A row whose terms are all 0 must sum to 0."""
+    hw = terms.shape[2] * terms.shape[3]
+    t = terms.double()
+    err = (sums.double() - t.sum(dim=(2, 3))).abs()
+    f = min(hw - 1, max(math.sqrt(hw), 8.0))
+    bound = f * 2.0 ** -24 * t.abs().sum(dim=(2, 3))
+    ratio = torch.where(bound > 0, err / bound.clamp_min(1e-300),
+                        torch.where(err > 0, math.inf, 0.0))
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
+def _bn_check(shape, dtype, seed):
+    """syncbn kernels against the plain versions: y and dx bitwise; the row
+    sums of the kernel and of the plain version each within the bound of
+    ``row_sum_ratio`` of the fp64 sums.  Returns the inputs, the max abs
+    errors against the plain versions and the two sums' worst ratios."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import syncbn as sbn
+    x, dy, mean, inv, w, b = _bn_case(shape, dtype, seed)
+    y, yp = ops.syncbn_fwd(x, mean, inv, w, b), sbn._fwd_plain(x, mean, inv,
+                                                                w, b)
+    assert same(y, yp), f"syncbn_fwd {shape} {dtype}: kernel != plain"
+    got, want = ops.syncbn_bwd(dy, x, mean, inv, w), sbn._bwd_plain(
+        dy, x, mean, inv, w)
+    assert same(got[0], want[0]), f"syncbn_bwd dx {shape} {dtype}"
+    d = dy.float()
+    xhat = (x.float() - mean.view(1, -1, 1, 1)) * inv.view(1, -1, 1, 1)
+    ratios = {"kernel": 0.0, "plain": 0.0}
+    for k, terms in ((1, d), (2, d * xhat)):
+        for who, sums in (("kernel", got[k]), ("plain", want[k])):
+            r = row_sum_ratio(sums, terms)
+            assert r <= 1.0, (f"syncbn_bwd row sums {k} ({who}) {shape} "
+                              f"{dtype}: {r} of the bound")
+            ratios[who] = max(ratios[who], r)
+    errs = (max_abs(y, yp), max(max_abs(g, p) for g, p in zip(got, want)))
+    return (x, dy, mean, inv, w, b), errs, ratios
+
+
+def _lib_bn_bwd(dy, x, mean, inv, w, count):
+    """PyTorch's own SyncBatchNorm backward: the per-channel reduce, then
+    the elementwise dx (which also folds in the statistics' terms)."""
+    sdy, sdyx, _, _ = torch.batch_norm_backward_reduce(dy, x, mean, inv, w,
+                                                       True, True, True)
+    return torch.batch_norm_backward_elemt(dy, x, mean, inv, w, sdy, sdyx,
+                                           count)
+
+
+def phase_syncbn():
+    """syncbn forward and backward at every BatchNorm shape of ResNet-50 at
+    batch BATCH (bf16, as O2 runs them) and at odd shapes (fp32, bf16 and
+    fp16).  Each time is one training step's: the sum over the 53 layers
+    of the device time at each layer's shape (``graph_ms``), and of one
+    eager call's time (``call_ms``, host time included)."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import syncbn as sbn
+    per_layer = Counter(_bn_shapes(IMAGE))
+    err = {"syncbn_fwd": 0.0, "syncbn_bwd": 0.0}
+    ratios = {"kernel": 0.0, "plain": 0.0}
+
+    def note(errs, rat):
+        err["syncbn_fwd"] = max(err["syncbn_fwd"], errs[0])
+        err["syncbn_bwd"] = max(err["syncbn_bwd"], errs[1])
+        for who in ratios:
+            ratios[who] = max(ratios[who], rat[who])
+
+    for i, shape in enumerate(BN_ODD):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            note(*_bn_check(shape, dtype, SEED + 10 + i)[1:])
+    log(f"[kernels] syncbn at odd shapes {BN_ODD} in fp32/bf16/fp16: y and "
+        f"dx bitwise, row sums within the bound (worst error over "
+        f"f(hw)*2^-24*sum|term| against fp64: {ratios})")
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "call_ms": 0.0,
+               "bytes": 0} for k in err}
+    for i, ((C, H, W), layers) in enumerate(sorted(per_layer.items())):
+        shape = (BATCH, C, H, W)
+        (x, dy, mean, inv, w, b), errs, rat = _bn_check(
+            shape, torch.bfloat16, SEED + 20 + i)
+        note(errs, rat)
+        log(f"[kernels] syncbn_bwd {shape} bf16 row sums: worst error over "
+            f"the bound, kernel {rat['kernel']:.3e}, plain "
+            f"{rat['plain']:.3e}")
+        n, isz = x.numel(), x.element_size()
+        count = torch.full((1,), BATCH * H * W, dtype=torch.int32,
+                           device=x.device)
+        timing = {
+            # reads x and four per-channel vectors, writes y
+            "syncbn_fwd": (
+                2 * n * isz + 4 * C * 4,
+                lambda: ops.syncbn_fwd(x, mean, inv, w, b),
+                lambda: sbn._fwd_plain(x, mean, inv, w, b),
+                lambda: torch.batch_norm_elemt(x, w, b, mean, inv, 1e-5)),
+            # reads dy, x and three vectors, writes dx and two row sums
+            "syncbn_bwd": (
+                3 * n * isz + 3 * C * 4 + 2 * BATCH * C * 4,
+                lambda: ops.syncbn_bwd(dy, x, mean, inv, w),
+                lambda: sbn._bwd_plain(dy, x, mean, inv, w),
+                lambda: _lib_bn_bwd(dy, x, mean, inv, w, count)),
+        }
+        for name, (nbytes, kern, plain, libcall) in timing.items():
+            kms, pms, lms = graph_ms(kern), graph_ms(plain), graph_ms(libcall)
+            cms = time_ms(kern)
+            t = tot[name]
+            t["ms"] += layers * kms
+            t["plain_ms"] += layers * pms
+            t["library_ms"] += layers * lms
+            t["call_ms"] += layers * cms
+            t["bytes"] += layers * nbytes
+            log(f"[kernels] {name} {shape} bf16 x{layers} layers: kernel_ms "
+                f"{kms:.4f} bound_ms {nbytes / MEM_BYTES_PER_S * 1e3:.4f} "
+                f"plain_ms {pms:.4f} library_ms {lms:.4f} (device time, "
+                f"graph replay); one eager call {cms:.4f}")
+        del x, dy
+    rows = {}
+    for name, t in tot.items():
+        bound = t["bytes"] / MEM_BYTES_PER_S * 1e3
+        rows[name] = {"name": name, "route": "cuda", "source": SOURCE[name],
+                      "replaces": REPLACES[name], "launches": 0,
+                      "max_abs_err": err[name], "ms": t["ms"],
+                      "plain_ms": t["plain_ms"], "bound_ms": bound,
+                      "bound_by": "bytes", "library_ms": t["library_ms"],
+                      "call_ms": t["call_ms"], "bytes": t["bytes"],
+                      "per": f"training step: {BN_LAYERS} BatchNorm layers "
+                             f"of ResNet-50 at batch {BATCH}, bf16"}
+        log(f"[kernels] {name} per step ({BN_LAYERS} layers, "
+            f"{len(per_layer)} shapes): kernel_ms {t['ms']:.4f} bound_ms "
+            f"{bound:.4f} ({t['bytes']} B) plain_ms {t['plain_ms']:.4f} "
+            f"library_ms {t['library_ms']:.4f} (device time); eager calls "
+            f"{t['call_ms']:.4f}; max abs err {err[name]}")
+    rows["syncbn_bwd"]["row_sum_bound_ratio"] = ratios
+    log(f"[kernels] syncbn_bwd row sums, all shapes: worst error against "
+        f"the fp64 sums over f(hw)*2^-24*sum|term|: kernel "
+        f"{ratios['kernel']:.3e}, plain {ratios['plain']:.3e} (<= 1 passes)")
+    return rows
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def _train_step(model, opt, x, y, micro: int = 1):
@@ -316,19 +523,16 @@ def _batch(rs, batch, hw, classes, device):
     return x.to(device), y.to(device)
 
 
-def phase_train(name, smi):
-    from apex_tpu_torch import amp, models, ops, optimizers
-
-    batch = BATCH
-    model = models.resnet50(device=DEVICE,
-                            generator=torch.Generator().manual_seed(SEED))
-    model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
-                                opt_level="O2", verbosity=0)
-    x, y = _batch(np.random.RandomState(SEED), batch, IMAGE, 1000, DEVICE)
+def _drive(model, opt, tag: str, smi: str):
+    """A path's run: 12 steps at batch BATCH (the last 10 timed), then two
+    steps of two micro-batches (axpby), with the launch counts set to 0
+    just before and read just after; then three steps profiled."""
+    from apex_tpu_torch import ops
+    x, y = _batch(np.random.RandomState(SEED), BATCH, IMAGE, 1000, DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    ops.reset_launch_counts()                       # the main path starts
+    ops.reset_launch_counts()                       # the path starts
     losses, step_ms = [], []
     for i in range(12):
         torch.cuda.synchronize()
@@ -340,7 +544,7 @@ def phase_train(name, smi):
     for _ in range(2):                              # two micro-batches of 64
         losses.append(_train_step(model, opt, x, y, micro=2))
     torch.cuda.synchronize()
-    counts = ops.launch_counts()                    # the main path ends
+    counts = ops.launch_counts()                    # the path ends
 
     vals = [float(l) for l in losses]
     peak = torch.cuda.max_memory_allocated()
@@ -349,29 +553,87 @@ def phase_train(name, smi):
     assert vals[11] < vals[0], f"loss did not fall: {vals}"
     assert steps_done == 14, f"Adam applied {steps_done} steps, expected 14"
     med = statistics.median(step_ms)
-    log(f"[train] resnet50 O2 FusedAdam batch {batch} 3x{IMAGE}x{IMAGE} on "
-        f"{smi}: "
-        f"losses {['%.4f' % v for v in vals]}")
-    log(f"[train] step_ms median {med:.2f} over {len(step_ms)} steps "
+    log(f"[{tag}] batch {BATCH} 3x{IMAGE}x{IMAGE} on {smi}: losses "
+        f"{['%.4f' % v for v in vals]}")
+    log(f"[{tag}] step_ms median {med:.2f} over {len(step_ms)} steps "
         f"(all: {['%.2f' % t for t in step_ms]}), images/s "
-        f"{batch / med * 1e3:.1f}, max_memory_allocated {peak} B "
+        f"{BATCH / med * 1e3:.1f}, max_memory_allocated {peak} B "
         f"({peak / 2**30:.2f} GiB), grad_norm "
         f"{float(opt.last_info['grad_norm']):.4f}")
-    phase_profile(model, opt, x, y, med)
-    del model, opt, x, y
-    torch.cuda.empty_cache()
+    by_cat = phase_profile(model, opt, x, y, med, tag=f"{tag}-profile")
     return counts, steps_done, {"step_ms": med, "images_per_s":
-                                batch / med * 1e3, "peak_bytes": peak,
-                                "losses": vals}
+                                BATCH / med * 1e3, "peak_bytes": peak,
+                                "losses": vals, "profile_ms": by_cat}
+
+
+def phase_train(smi):
+    """The single-card path: ResNet-50 -> O2 + FusedAdam."""
+    from apex_tpu_torch import amp, models, optimizers
+    model = models.resnet50(device=DEVICE,
+                            generator=torch.Generator().manual_seed(SEED))
+    model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
+                                opt_level="O2", verbosity=0)
+    log("[train] resnet50 O2 FusedAdam, one card")
+    out = _drive(model, opt, "train", smi)
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 5 -----------------------------------------------------------------
+
+def phase_ddp(smi):
+    """The data-parallel path on a one-rank group: ResNet-50 ->
+    convert_syncbn_model -> O2 + FusedAdam -> DistributedDataParallel."""
+    import torch.distributed as dist
+    from apex_tpu_torch import amp, models, optimizers, parallel
+    parallel.init_process_group(
+        init_method=parallel.multiproc.local_init_method(), world_size=1,
+        rank=0)
+    try:
+        backend = dist.get_backend()
+        assert backend == ("nccl" if DEVICE == "cuda" else "gloo"), backend
+        model = models.resnet50(device=DEVICE,
+                                generator=torch.Generator().manual_seed(SEED))
+        model = parallel.convert_syncbn_model(model)
+        n_sync = sum(isinstance(m, parallel.SyncBatchNorm)
+                     for m in model.modules())
+        assert n_sync == BN_LAYERS, f"{n_sync} SyncBatchNorm layers"
+        model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
+                                    opt_level="O2", verbosity=0)
+        before = opt.masters.buf.clone()
+        ddp = parallel.DistributedDataParallel(model)
+        m = opt.masters
+        # the broadcast went through the masters: rank 0's fp32 values
+        # (one rank: unchanged) and a half copy derived from them
+        assert torch.equal(m.buf, before), "broadcast changed the masters"
+        assert torch.equal(m.half, m.buf.to(m.half.dtype)), \
+            "half copy and masters disagree after the broadcast"
+        log(f"[ddp] {backend} group of {dist.get_world_size()}: resnet50 -> "
+            f"convert_syncbn_model ({n_sync} SyncBatchNorm) -> O2 FusedAdam "
+            f"-> DistributedDataParallel; broadcast left masters and half "
+            f"copy consistent")
+        out = _drive(ddp, opt, "ddp", smi)
+        log(f"[ddp] buckets of the last all-reduce: {ddp.last_comm_stats}")
+        del model, opt, ddp
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
 
 
 _PORT_KERNELS = ("scale_kernel", "axpby_kernel", "l2norm_", "adam_kernel")
+_PORT_BN = ("bn_fwd_kernel", "bn_bwd_rows_kernel")
 _LIBRARY_MATH = ("conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad", "dgrad",
                  "fprop", "implicit")
 
 
 def _category(kernel: str) -> str:
     k = kernel.lower()
+    if any(p in k for p in _PORT_BN):
+        return "port BatchNorm apply kernels (syncbn fwd, bwd)"
+    if "nccl" in k:
+        return "collectives (NCCL)"
     if any(p in k for p in _PORT_KERNELS):
         return "port optimizer kernels"
     if any(p in k for p in _LIBRARY_MATH):
@@ -380,11 +642,12 @@ def _category(kernel: str) -> str:
         return "reductions (BN statistics, loss, grad sums)"
     if "catarray" in k:
         return "grad packing (cat)"
-    return "elementwise and other (BN apply, ReLU, casts, adds)"
+    return "elementwise and other (BN statistics' casts, ReLU, adds)"
 
 
-def phase_profile(model, opt, x, y, step_ms: float, steps: int = 3):
-    """Device time of main-path steps by kernel (torch.profiler), after the
+def phase_profile(model, opt, x, y, step_ms: float, tag: str = "profile",
+                  steps: int = 3):
+    """Device time of a path's steps by kernel (torch.profiler), after the
     launch counts were read: where the time goes, and how much of the
     unprofiled step the device is busy."""
     from torch.autograd import DeviceType
@@ -406,21 +669,38 @@ def phase_profile(model, opt, x, y, step_ms: float, steps: int = 3):
             per_kernel[evt.key] = per_kernel.get(evt.key, 0.0) + us / 1e3
     device_ms = sum(per_kernel.values()) / steps
     if device_ms == 0:
-        log("[profile] torch.profiler recorded no device time: not measured")
-        return
+        log(f"[{tag}] torch.profiler recorded no device time: not measured")
+        return None
     by_cat = {}
     for name, ms in per_kernel.items():
         by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + ms / steps
-    log(f"[profile] device ms per step {device_ms:.3f} of step_ms "
+    log(f"[{tag}] device ms per step {device_ms:.3f} of step_ms "
         f"{step_ms:.3f}: busy share {device_ms / step_ms:.4f}, idle share "
         f"{1 - device_ms / step_ms:.4f}")
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        log(f"[profile]   {ms:9.3f} ms  {ms / device_ms:7.2%}  {cat}")
+        log(f"[{tag}]   {ms:9.3f} ms  {ms / device_ms:7.2%}  {cat}")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     for name, ms in top:
-        log(f"[profile]   kernel {ms / steps:8.3f} ms/step  {name[:100]}")
-    log("profile " + json.dumps({"device_ms_per_step": device_ms,
-                                 "step_ms": step_ms, "by_category": by_cat}))
+        log(f"[{tag}]   kernel {ms / steps:8.3f} ms/step  {name[:100]}")
+    # the host side: self CPU time of the operators (inflated by the
+    # profiler's own cost, so read as shares) and device launches a step
+    host, launches = {}, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            launches += evt.count
+        elif evt.self_cpu_time_total > 0:
+            host[evt.key] = (evt.self_cpu_time_total / 1e3, evt.count)
+    host_ms = sum(ms for ms, _ in host.values()) / steps
+    log(f"[{tag}] host: {host_ms:.3f} ms/step of operator self CPU time "
+        f"under the profiler, {launches / steps:.0f} device launches a step")
+    for name, (ms, n) in sorted(host.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"[{tag}]   host {ms / steps:8.3f} ms/step {n / steps:6.0f} "
+            f"calls/step  {name[:80]}")
+    log(f"{tag} " + json.dumps({"device_ms_per_step": device_ms,
+                                "step_ms": step_ms, "by_category": by_cat,
+                                "host_ms_per_step": host_ms,
+                                "launches_per_step": launches / steps}))
+    return by_cat
 
 
 def phase_reference():
@@ -451,7 +731,7 @@ def phase_reference():
         f"(<= 2*lr*steps = 6e-4)")
 
 
-# -- phase 5 -----------------------------------------------------------------
+# -- phase 6 -----------------------------------------------------------------
 
 def phase_overflow():
     from apex_tpu_torch import amp, models, optimizers
@@ -487,24 +767,35 @@ def phase_overflow():
         f"(step {int(after['step'])})")
 
 
+def _check_counts(tag: str, counts, steps_done: int) -> None:
+    """Every kernel launched on the path; Adam once per applied step; the
+    syncbn kernels once per BatchNorm layer and pass (12 whole batches and
+    two steps of two micro-batches: 16 passes)."""
+    log(f"kernels {tag} {json.dumps(counts)}")
+    for k, c in counts.items():
+        assert c > 0, f"{k} was not launched on the {tag} path"
+    assert counts["fused_adam"] == steps_done, \
+        f"Adam launched {counts['fused_adam']} times for {steps_done} steps"
+    for k in ("syncbn_fwd", "syncbn_bwd"):
+        assert counts[k] == BN_LAYERS * 16, f"{k}: {counts[k]} launches"
+
+
 def main():
     name, smi = phase_device()
     import apex_tpu_torch  # noqa: F401  (fails outside the repository)
     phase_build()
     rows = phase_kernels()
-    counts, steps_done, train = phase_train(name, smi)
+    rows.update(phase_syncbn())
+    counts1, steps1, train = phase_train(smi)
     phase_reference()
+    counts, steps_done, ddp = phase_ddp(smi)
     phase_overflow()
 
-    log(f"kernels {json.dumps(counts)}")
-    for k, c in counts.items():
-        assert c > 0, f"{k} was not launched on the main path"
-    assert counts["fused_adam"] == steps_done, \
-        f"Adam launched {counts['fused_adam']} times for {steps_done} steps"
+    _check_counts("train", counts1, steps1)
+    _check_counts("ddp", counts, steps_done)
     for k in rows:
         rows[k]["launches"] = counts[k]
-    log(json.dumps({"train": {k: v for k, v in train.items()},
-                    "card": smi}))
+    log(json.dumps({"train": train, "ddp": ddp, "card": smi}))
     log(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
