@@ -19,8 +19,9 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("amp", "models", "multi_tensor_apply", "nn", "ops",
-                "optimizers", "parallel", "utils")
+_SUBPACKAGES = ("amp", "models", "multi_tensor_apply", "nn",
+                "normalization", "ops", "optimizers", "parallel",
+                "transformer", "utils")
 
 __all__ = list(_SUBPACKAGES) + ["resolve_device"]
 

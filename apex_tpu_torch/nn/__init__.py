@@ -1,8 +1,10 @@
-"""Layers and functional ops (the subset ResNet needs)."""
+"""Layers and functional ops (the subset ResNet and BERT need)."""
+
+from torch.nn import ModuleList
 
 from . import functional
-from .layers import (AdaptiveAvgPool2d, BatchNorm2d, Conv2d, Linear,
-                     MaxPool2d)
+from .layers import (AdaptiveAvgPool2d, BatchNorm2d, Conv2d, Dropout,
+                     Embedding, Linear, MaxPool2d)
 
 __all__ = ["functional", "Conv2d", "Linear", "BatchNorm2d", "MaxPool2d",
-           "AdaptiveAvgPool2d"]
+           "AdaptiveAvgPool2d", "Embedding", "Dropout", "ModuleList"]

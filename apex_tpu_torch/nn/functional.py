@@ -1,6 +1,6 @@
-"""Functional ops ResNet needs, with the JAX package's numerics.
+"""Functional ops ResNet and BERT need, with the JAX package's numerics.
 
-Counterpart of the ResNet subset of ``apex_tpu/nn/functional.py``.
+Counterpart of the ResNet and BERT subset of ``apex_tpu/nn/functional.py``.
 Convolution and linear stay ``torch.nn.functional`` calls (the JAX package
 leaves them to XLA, outside any Pallas kernel).  Batch norm follows the JAX
 formula: single-pass fp32 statistics E[x^2] - mean^2 clamped at 0, in
@@ -22,7 +22,8 @@ import torch.nn.functional as _F
 from .. import ops
 
 __all__ = ["conv2d", "linear", "relu", "batch_norm_stats", "batch_norm_apply",
-           "max_pool2d", "adaptive_avg_pool2d", "cross_entropy"]
+           "max_pool2d", "adaptive_avg_pool2d", "cross_entropy", "gelu",
+           "tanh", "embedding", "dropout", "log_softmax"]
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
@@ -104,3 +105,34 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if reduction == "sum":
         return nll.sum()
     return nll
+
+
+def gelu(x: torch.Tensor, approximate: bool = True) -> torch.Tensor:
+    """``jax.nn.gelu``: the tanh form by default, erf when not
+    ``approximate``."""
+    return _F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
+
+
+def embedding(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Rows ``table[ids]``."""
+    return _F.embedding(ids.long(), table)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Keep each element with probability ``1 - rate`` and scale it by
+    ``1 / (1 - rate)`` in x's dtype, as the JAX package does; the mask comes
+    from ``generator`` (on x's device)."""
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def log_softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    return torch.log_softmax(x, dim=dim)

@@ -1,10 +1,15 @@
-"""Layers ResNet needs, as ``torch.nn.Module``s.
+"""Layers ResNet and BERT need, as ``torch.nn.Module``s.
 
-Counterpart of the ResNet subset of ``apex_tpu/nn/layers.py``.
+Counterpart of the ResNet and BERT subset of ``apex_tpu/nn/layers.py``.
 Parameters are made on the CPU from an explicit ``torch.Generator``
-(uniform in +-sqrt(1/fan_in), as the JAX package draws them) and moved to
-``device``.  ``BatchNorm2d`` sets ``fp32_params = True``: amp keeps its
-parameters fp32 under ``keep_batchnorm_fp32``.  Its running statistics
+(uniform in +-sqrt(1/fan_in), as the JAX package draws them; N(0,
+``init_std``) for ``Embedding``) and moved to ``device``.  ``Dropout``
+draws its masks from an explicit generator on the activations' device
+and is active in train mode (``module.training``), where the JAX package
+asks its apply context.  Lists of layers are ``torch.nn.ModuleList``,
+whose children are named ``0``, ``1``, ... as the JAX package's are.
+``BatchNorm2d`` sets ``fp32_params = True``: amp keeps its parameters
+fp32 under ``keep_batchnorm_fp32``.  Its running statistics
 follow the JAX package: momentum 0.1, unbiased running variance, an int32
 ``num_batches_tracked``; ``affine``, ``track_running_stats`` and
 ``channel_axis`` are the JAX module's options.
@@ -13,7 +18,7 @@ follow the JAX package: momentum 0.1, unbiased running variance, an int32
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,7 +26,7 @@ import torch
 from . import functional as F
 
 __all__ = ["Conv2d", "Linear", "BatchNorm2d", "MaxPool2d",
-           "AdaptiveAvgPool2d"]
+           "AdaptiveAvgPool2d", "Embedding", "Dropout"]
 
 
 def _uniform(shape, fan_in: int, generator: torch.Generator,
@@ -156,3 +161,33 @@ class AdaptiveAvgPool2d(torch.nn.Module):
     def forward(self, x):
         return F.adaptive_avg_pool2d(x, self.output_size)
 
+
+class Embedding(torch.nn.Module):
+    """Rows of a (num_embeddings, embedding_dim) table, N(0, init_std)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 init_std: float = 1.0, *, device=None,
+                 generator: torch.Generator):
+        super().__init__()
+        w = torch.empty((num_embeddings, embedding_dim), dtype=torch.float32)
+        w.normal_(0.0, init_std, generator=generator)
+        self.weight = torch.nn.Parameter(w.to(device))
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight)
+
+
+class Dropout(torch.nn.Module):
+    """Inverted dropout in train mode; ``generator`` (on the activations'
+    device) draws the masks."""
+
+    def __init__(self, rate: float = 0.5, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        return F.dropout(x, self.rate, self.generator)

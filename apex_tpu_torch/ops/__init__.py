@@ -1,30 +1,37 @@
 """Hand-written Hopper kernels and their wrappers.
 
-``multi_tensor`` (scale, axpby, l2norm), ``adam`` and ``syncbn`` (the
-BatchNorm apply, forward and backward) wrap the CUDA C++ sources of
-``csrc/``, which ``_build`` compiles with ``nvcc`` for sm_90a at first
-launch and loads with ``ctypes``.  Importing this package builds nothing.
+``multi_tensor`` (scale, axpby, l2norm), ``adam``, ``syncbn`` (the
+BatchNorm apply, forward and backward), ``layer_norm`` (forward and
+backward) and ``flash_attention`` (forward, dQ, dK/dV) wrap the CUDA C++
+sources of ``csrc/``, which ``_build`` compiles with ``nvcc`` for sm_90a
+at first launch and loads with ``ctypes``.  Importing this package
+builds nothing.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from . import adam, multi_tensor, syncbn
+from . import adam, flash_attention, layer_norm, multi_tensor, syncbn
 from .adam import fused_adam
+from .flash_attention import flash_dkv, flash_dq, flash_fwd
+from .layer_norm import layer_norm_bwd, layer_norm_fwd
 from .multi_tensor import (multi_tensor_axpby, multi_tensor_l2norm,
                            multi_tensor_scale)
 from .syncbn import batch_norm_apply_fused, syncbn_bwd, syncbn_fwd
 
 __all__ = ["fused_adam", "multi_tensor_scale", "multi_tensor_axpby",
            "multi_tensor_l2norm", "syncbn_fwd", "syncbn_bwd",
-           "batch_norm_apply_fused", "WRAPPERS", "launch_counts",
+           "batch_norm_apply_fused", "layer_norm_fwd", "layer_norm_bwd",
+           "flash_fwd", "flash_dq", "flash_dkv", "WRAPPERS", "launch_counts",
            "reset_launch_counts"]
 
 # every kernel wrapper of the port, by name
 WRAPPERS = {f.__name__: f for f in (multi_tensor_scale, multi_tensor_axpby,
                                     multi_tensor_l2norm, fused_adam,
-                                    syncbn_fwd, syncbn_bwd)}
+                                    syncbn_fwd, syncbn_bwd, layer_norm_fwd,
+                                    layer_norm_bwd, flash_fwd, flash_dq,
+                                    flash_dkv)}
 
 
 def launch_counts() -> Dict[str, int]:

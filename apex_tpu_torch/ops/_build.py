@@ -60,6 +60,15 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         "apex_bn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _P),
     },
+    "layer_norm": {
+        "apex_ln_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+        "apex_ln_bwd": (_P,) * 10 + (_I, _I, _I, _I, _P),
+    },
+    "flash_attention": {
+        "apex_flash_fwd": (_P,) * 8 + (_I,) * 5 + (_F,) * 3 + (_I, _P),
+        "apex_flash_dq": (_P,) * 10 + (_I,) * 5 + (_F,) * 3 + (_I, _P),
+        "apex_flash_dkv": (_P,) * 11 + (_I,) * 5 + (_F,) * 3 + (_I, _P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

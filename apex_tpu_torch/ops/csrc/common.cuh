@@ -1,8 +1,10 @@
-// Shared pieces of the flat-buffer kernels: the grid-stride index range
-// and a block sum whose order is fixed (so a reduction gives the same
-// bits on every run).
+// Shared pieces of the kernels: the grid-stride index range, a block sum
+// whose order is fixed (so a reduction gives the same bits on every run),
+// and the conversions between fp32 and the storage types.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace apex_tpu_torch {
@@ -39,6 +41,32 @@ __device__ __forceinline__ float block_sum(float v) {
       v += __shfl_down_sync(0xffffffffu, v, off);
   }
   return v;
+}
+
+// fp32 <-> storage type (fp32, bf16, fp16), rounding to nearest even
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// v rounded to T and read back as fp32 (a jnp .astype(T) inside fp32 math)
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
 }
 
 }  // namespace apex_tpu_torch

@@ -53,25 +53,6 @@ constexpr int kMaxFwdBlocks = 4096;
 constexpr int kMaxBwdBlocks = 8192;
 constexpr int kRowsPerBlock = kThreads / 32;    // one warp per row
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
-}
-
 // VEC elements moved as one load or store
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {

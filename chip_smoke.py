@@ -7,16 +7,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. device   the card's name and power limit; TF32 off for matmul and cuDNN.
 2. build    nvcc builds every kernel of ops/csrc from the checkout.
-3. kernels  each kernel against its plain PyTorch version on the card, at
-            ResNet-50's flat length (25,557,032) and an odd length, with
+3. kernels  each kernel against its plain PyTorch version on the card, with
             timings (kernel, plain version, nearest library call) and the
-            bound (bytes over the card's memory rate); the syncbn forward
-            and backward at every BatchNorm shape of ResNet-50 at batch
-            128 (y and dx bitwise; the row sums within
-            f(hw)*2^-24*sum|term| of their fp64 sums) and at odd
-            shapes, timed as one training step's 53 layers.
-4. train    the single-card path: ResNet-50 under amp O2 + FusedAdam at
-            batch 128, 3x224x224, then two steps of two micro-batches
+            bound (bytes over the card's memory rate, or operations over
+            its bf16 tensor-core rate, whichever is longer): scale, axpby,
+            l2norm and Adam at ResNet-50's flat length (25,557,032) and an
+            odd length; the syncbn forward and backward at every BatchNorm
+            shape of ResNet-50 at batch 128 (y and dx bitwise; the row sums
+            within f(hw)*2^-24*sum|term| of their fp64 sums) and at odd
+            shapes, timed as one training step's 53 layers; the LayerNorm
+            forward and backward at BERT-base's (4096, 768) bf16 and odd
+            shapes, and the flash forward, dQ and dK/dV at BERT-base's
+            (32, 12, 128, 64) bf16 in every variant (causal, key padding,
+            segments, dropout), at T = 512 and at odd shapes, each output
+            held against an fp64 evaluation within a stated bound; the
+            dropout mask shown to be the hash's (q = k = 0, V = identity).
+4. train    the single-card ResNet path: ResNet-50 under amp O2 + FusedAdam
+            at batch 128, 3x224x224, then two steps of two micro-batches
             (axpby); the device time of three more steps by kernel
             (torch.profiler); and a small ResNet trained on the card
             against the same run on the CPU (plain versions), in fp32.
@@ -24,10 +31,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
             convert_syncbn_model -> O2 + FusedAdam -> DistributedDataParallel
             at batch 128, 12 steps and two of two micro-batches, the
             rank-0 broadcast checked, and three steps profiled.
-6. overflow one fp16 step with an inf in the input: the loss scale halves
+6. bert     the BERT path: BertForPretraining(bert_base()) -> O2 +
+            FusedAdam(lr=1e-4), MLM + NSP loss in train mode (dropout 0.1,
+            so the flash kernels' dropout runs) at 32 x 128 tokens, 12
+            steps and two of two micro-batches, three steps profiled; and
+            a tiny BERT trained on the card against the CPU, in fp32.
+7. overflow one fp16 step with an inf in the input: the loss scale halves
             and masters, m, v and the step counter stay bitwise.
-7. counts   every kernel launched on each path; Adam once per step, the
-            syncbn kernels once per BatchNorm layer and pass.
+8. counts   each path launched each of its kernels exactly as often as it
+            runs it (per step, per BatchNorm, LayerNorm or attention layer
+            and pass) and no kernel of another path.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.  It
@@ -65,6 +78,11 @@ REPLACES = {
     "fused_adam": "apex_tpu/ops/pallas_adam.py:27",
     "syncbn_fwd": "apex_tpu/ops/pallas_syncbn.py:59",
     "syncbn_bwd": "apex_tpu/ops/pallas_syncbn.py:65",
+    "layer_norm_fwd": "apex_tpu/ops/pallas_layer_norm.py:42",
+    "layer_norm_bwd": "apex_tpu/ops/pallas_layer_norm.py:100",
+    "flash_fwd": "apex_tpu/ops/pallas_flash_attention.py:154",
+    "flash_dq": "apex_tpu/ops/pallas_flash_attention.py:293",
+    "flash_dkv": "apex_tpu/ops/pallas_flash_attention.py:351",
 }
 SOURCE = {
     "multi_tensor_scale": "apex_tpu_torch/ops/csrc/multi_tensor.cu",
@@ -73,6 +91,11 @@ SOURCE = {
     "fused_adam": "apex_tpu_torch/ops/csrc/adam.cu",
     "syncbn_fwd": "apex_tpu_torch/ops/csrc/syncbn.cu",
     "syncbn_bwd": "apex_tpu_torch/ops/csrc/syncbn.cu",
+    "layer_norm_fwd": "apex_tpu_torch/ops/csrc/layer_norm.cu",
+    "layer_norm_bwd": "apex_tpu_torch/ops/csrc/layer_norm.cu",
+    "flash_fwd": "apex_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_dq": "apex_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_dkv": "apex_tpu_torch/ops/csrc/flash_attention.cu",
 }
 BN_LAYERS = 53               # BatchNorm layers of ResNet-50
 BN_ODD = ((3, 37, 15, 13), (5, 9, 1, 1), (2, 7, 12, 12))
@@ -179,7 +202,7 @@ def phase_kernels():
         rs = np.random.RandomState(SEED + n % 97)
         x = torch.from_numpy(rs.randn(n).astype(np.float32)).to(dev)
         y = torch.from_numpy(rs.randn(n).astype(np.float32)).to(dev)
-        err = {k: 0.0 for k in REPLACES if not k.startswith("syncbn")}
+        err = dict.fromkeys(OPT_COUNTS, 0.0)
 
         # scale: clean, then one inf and one nan
         s = torch.full((), 1.0 / 65536.0, device=dev)
@@ -501,6 +524,404 @@ def phase_syncbn():
     return rows
 
 
+# -- phase 3, LayerNorm and flash attention -----------------------------------
+
+LN_ROWS, LN_WIDTH = 32 * 128, 768   # BERT-base at 32 x 128 tokens
+LN_PER_PASS = 26                    # LayerNorms in one BERT-base pass
+LN_ODD = ((7, 1), (33, 100), (300, 1024), (9, 1500))
+FLASH_BASE = (32, 12, 128, 64)      # B, H, T, D of BERT-base at 32 x 128
+FLASH_LONG = (8, 12, 512, 64)
+FLASH_ODD = ((2, 3, 200, 64), (2, 3, 77, 128), (3, 2, 64, 24))
+FLASH_PER_PASS = 12                 # attention layers of BERT-base
+FLASH_VARIANTS = {
+    "none": {}, "causal": {"causal": True}, "kv_mask": {"kv_mask": True},
+    "segments": {"segments": True}, "dropout": {"rate": 0.1},
+    "all": {"causal": True, "kv_mask": True, "segments": True, "rate": 0.1}}
+EPS32 = 2.0 ** -24
+# a unit in the last place, relative: twice the largest error of one
+# rounding to the type
+UNIT = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7,
+        torch.float16: 2.0 ** -10}
+# half the spacing of the type's subnormals: the absolute error of one
+# rounding of a tiny value (P or dS) to it
+TINY = {torch.float32: 2.0 ** -150, torch.bfloat16: 2.0 ** -134,
+        torch.float16: 2.0 ** -25}
+# H100 SXM dense bf16 tensor-core peak (NVIDIA's data sheet, 700 W)
+BF16_FLOPS = 989e12
+
+
+def worst_ratio(err: torch.Tensor, bound: torch.Tensor) -> float:
+    """max(err / bound): at most 1 passes; where the bound is 0 the error
+    must be 0."""
+    r = torch.where(bound > 0, err / bound.clamp_min(1e-300),
+                    torch.where(err > 0, math.inf, 0.0))
+    return float(r.max()) if r.numel() else 0.0
+
+
+def _sum_f(n: int) -> float:
+    """The rounding error of an fp32 sum of n terms, in units of 2^-24 of
+    the sum of their magnitudes: sqrt(n) (the probabilistic bound), at
+    least 8."""
+    return max(math.sqrt(n), 8.0)
+
+
+def _ln_case(n1, n2, dtype, seed):
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=gen, device=dev)
+
+    return ((rnd(n1, n2) * 2.0 + 0.5).to(dtype), rnd(n1, n2).to(dtype),
+            rnd(n2), rnd(n2))
+
+
+def _ln_check(n1, n2, dtype, seed, eps=1e-12):
+    """LayerNorm kernels and plain versions, each against an fp64
+    evaluation: mean within (f(n2)+1)*2^-24*mean|x|, inv within
+    (f(n2)+8)*2^-24 relative, y and dx within one rounding to their type
+    plus (f(n2)+8)*2^-24 of the magnitudes of their terms, dw and db within
+    (f(n1)+4)*2^-24*sum|term|.  Returns the inputs, the max abs errors
+    against the plain versions and the worst ratios to the bounds."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import layer_norm as lnm
+    x, dy, w, b = _ln_case(n1, n2, dtype, seed)
+    u, f, fr = UNIT[dtype], _sum_f(n2), _sum_f(n1)
+    x64, dy64, w64, b64 = (t.double() for t in (x, dy, w, b))
+    m64 = x64.mean(dim=1)
+    d64 = x64 - m64[:, None]
+    inv64 = ((d64 * d64).mean(dim=1) + eps).rsqrt()
+    absx = x64.abs().mean(dim=1)
+    xhat64 = d64 * inv64[:, None]
+    y64 = xhat64 * w64 + b64
+    y_bound = u * y64.abs() + (f + 8) * EPS32 * (
+        xhat64.abs() * w64.abs() + w64.abs() * (inv64 * absx)[:, None]
+        + b64.abs())
+    fwd = {"kernel": ops.layer_norm_fwd(x, w, b, eps),
+           "plain": lnm._fwd_plain(x, w, b, eps)}
+    ratios = {}
+    for who, (y, mean, inv) in fwd.items():
+        ratios[who] = max(
+            worst_ratio((mean.double() - m64).abs(),
+                        (f + 1) * EPS32 * absx),
+            worst_ratio((inv.double() - inv64).abs(),
+                        (f + 8) * EPS32 * inv64),
+            worst_ratio((y.double() - y64).abs(), y_bound))
+    # the backward from the plain statistics (what the kernel is handed)
+    _, mean, inv = fwd["plain"]
+    mu, iv = mean.double()[:, None], inv.double()[:, None]
+    xh = (x64 - mu) * iv
+    g = dy64 * w64
+    c1 = g.mean(dim=1, keepdim=True)
+    c2 = (g * xh).mean(dim=1, keepdim=True)
+    dx64 = iv * ((g - c1) - xh * c2)
+    dx_bound = u * dx64.abs() + (f + 8) * EPS32 * iv * (
+        g.abs() + g.abs().mean(dim=1, keepdim=True)
+        + xh.abs() * (g * xh).abs().mean(dim=1, keepdim=True))
+    bwd = {"kernel": ops.layer_norm_bwd(dy, x, w, mean, inv),
+           "plain": lnm._bwd_plain(dy, x, w, mean, inv)}
+    for who, (dx, dw, db) in bwd.items():
+        ratios[who] = max(
+            ratios[who], worst_ratio((dx.double() - dx64).abs(), dx_bound),
+            worst_ratio((dw.double() - (dy64 * xh).sum(dim=0)).abs(),
+                        (fr + 4) * EPS32 * (dy64 * xh).abs().sum(dim=0)),
+            worst_ratio((db.double() - dy64.sum(dim=0)).abs(),
+                        (fr + 4) * EPS32 * dy64.abs().sum(dim=0)))
+    for who, r in ratios.items():
+        assert r <= 1.0, (f"layer_norm {who} ({n1}, {n2}) {dtype}: {r} of "
+                          f"the fp64 bound")
+    errs = (max(max_abs(a, p_) for a, p_ in zip(fwd["kernel"],
+                                                fwd["plain"])),
+            max(max_abs(a, p_) for a, p_ in zip(bwd["kernel"],
+                                                bwd["plain"])))
+    # the same bits on a second run: no atomics
+    again = ops.layer_norm_bwd(dy, x, w, mean, inv)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, bwd["kernel"])), \
+        "layer_norm_bwd differs between runs"
+    return (x, dy, w, b, mean, inv), errs, ratios
+
+
+def phase_layer_norm():
+    """LayerNorm forward and backward at BERT-base's shape (4096 rows of
+    768, bf16, eps 1e-12, as O2 runs them) and at odd shapes, each held
+    against fp64; timed per call at BERT-base's shape."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import layer_norm as lnm
+    err = {"layer_norm_fwd": 0.0, "layer_norm_bwd": 0.0}
+    worst = {"kernel": 0.0, "plain": 0.0}
+
+    def note(errs, rat):
+        err["layer_norm_fwd"] = max(err["layer_norm_fwd"], errs[0])
+        err["layer_norm_bwd"] = max(err["layer_norm_bwd"], errs[1])
+        for who in worst:
+            worst[who] = max(worst[who], rat[who])
+
+    for i, (n1, n2) in enumerate(LN_ODD):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            note(*_ln_check(n1, n2, dtype, SEED + 30 + i)[1:])
+    (x, dy, w, b, mean, inv), errs, rat = _ln_check(
+        LN_ROWS, LN_WIDTH, torch.bfloat16, SEED + 40)
+    note(errs, rat)
+    log(f"[kernels] layer_norm at {LN_ODD} (fp32/bf16/fp16) and "
+        f"({LN_ROWS}, {LN_WIDTH}) bf16: within the fp64 bounds, worst "
+        f"ratio kernel {worst['kernel']:.3e}, plain {worst['plain']:.3e}; "
+        f"max abs err against the plain version {err}")
+    n1, n2, isz, eps = LN_ROWS, LN_WIDTH, x.element_size(), 1e-12
+    wl, bl = w.to(x.dtype), b.to(x.dtype)
+    _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [n2], wl, bl, eps)
+    timing = {
+        # reads x, w, b; writes y, mean, inv
+        "layer_norm_fwd": (
+            2 * n1 * n2 * isz + 2 * n2 * 4 + 2 * n1 * 4, 8 * n1 * n2,
+            lambda: ops.layer_norm_fwd(x, w, b, eps),
+            lambda: lnm._fwd_plain(x, w, b, eps),
+            lambda: torch.nn.functional.layer_norm(x, (n2,), wl, bl, eps)),
+        # reads dy, x, w, mean, inv; writes dx, dw, db
+        "layer_norm_bwd": (
+            3 * n1 * n2 * isz + 3 * n2 * 4 + 2 * n1 * 4, 11 * n1 * n2,
+            lambda: ops.layer_norm_bwd(dy, x, w, mean, inv),
+            lambda: lnm._bwd_plain(dy, x, w, mean, inv),
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [n2], lmean, lrstd, wl, bl, [True, True, True])),
+    }
+    return _time_rows(timing, err, f"({n1}, {n2}) bf16, one call; "
+                      f"{LN_PER_PASS} calls a pass")
+
+
+def _time_rows(timing, err, per):
+    """kernel, plain and library device time (``graph_ms``) of each entry
+    of ``timing`` = name -> (bytes, flops, kernel, plain, library), the
+    library a call or its time already taken."""
+    rows = {}
+    for name, (nbytes, flops, kern, plain, libcall) in timing.items():
+        kms, pms = graph_ms(kern), graph_ms(plain)
+        lms = libcall if isinstance(libcall, float) else graph_ms(libcall)
+        t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        rows[name] = {"name": name, "route": "cuda", "source": SOURCE[name],
+                      "replaces": REPLACES[name], "launches": 0,
+                      "max_abs_err": err[name], "ms": kms, "plain_ms": pms,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations",
+                      "library_ms": lms, "call_ms": time_ms(kern),
+                      "bytes": nbytes, "flops": flops, "per": per}
+        log(f"[kernels] {name} {per}: kernel_ms {kms:.4f} bound_ms "
+            f"{rows[name]['bound_ms']:.4f} ({nbytes} B, {flops} flops) "
+            f"plain_ms {pms:.4f} library_ms {lms:.4f} (device time, graph "
+            f"replay); one eager call {rows[name]['call_ms']:.4f}")
+    return rows
+
+
+def _flash_case(B, H, T, D, dtype, seed):
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(B * H, T, D, generator=gen, device=dev)
+                   .to(dtype) for _ in range(4))
+    kvm = torch.rand(B, T, generator=gen, device=dev) > 0.3
+    kvm[0] = False                           # a sequence with no valid key
+    seg = torch.sort(torch.randint(0, 3, (B, T), generator=gen, device=dev),
+                     dim=1).values.to(torch.int32)
+    words = torch.tensor([SEED + 12345 + seed, -(seed + 1)],
+                         dtype=torch.int32, device=dev)
+    return q, k, v, do, kvm, seg, words
+
+
+def _flash_ref64(q, k, v, do, o, H, scale, causal, kvm, seg, words, rate):
+    """fp64 o, dq, dk, dv from the same inputs and masks (delta from the
+    given o, as the backward forms it), the fp64 sums of the terms'
+    magnitudes that bound the rounding of each, and the sums of the
+    magnitudes of the operand each rounded P or dS multiplies."""
+    from apex_tpu_torch.ops import flash_attention as fa
+    valid = fa._valid(q, H, causal, kvm, seg)
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    s = torch.where(valid, torch.matmul(q64, k64.transpose(1, 2)) * scale,
+                    -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    pn = p / torch.where(l == 0, 1.0, l)
+    dp = torch.matmul(do64, v64.transpose(1, 2))
+    dpa = torch.matmul(do64.abs(), v64.abs().transpose(1, 2))
+    pa = pn
+    if rate:
+        keep, ik = fa._keep(q, words, rate), fa._inv_keep(rate)
+        pa = torch.where(keep, pn, 0.0) * ik
+        dp = torch.where(keep, dp, 0.0) * ik
+        dpa = torch.where(keep, dpa, 0.0) * ik
+    delta = (do64 * o.double()).sum(dim=-1, keepdim=True)
+    ds = pn * (dp - delta)
+    dsa = pn * (dpa + delta.abs())
+    pat, dst, dsat = (t.transpose(1, 2) for t in (pa, ds, dsa))
+    def colsum(t):
+        return t.abs().sum(dim=1, keepdim=True)
+
+    return {"o": (torch.matmul(pa, v64), torch.matmul(pa, v64.abs()),
+                  colsum(v64)),
+            "dq": (torch.matmul(ds, k64) * scale,
+                   torch.matmul(dsa, k64.abs()) * scale, colsum(k64) * scale),
+            "dk": (torch.matmul(dst, q64) * scale,
+                   torch.matmul(dsat, q64.abs()) * scale,
+                   colsum(q64) * scale),
+            "dv": (torch.matmul(pat, do64), torch.matmul(pat, do64.abs()),
+                   colsum(do64))}
+
+
+def _flash_check(shape, dtype, variant, seed):
+    """The three flash kernels and their plain versions, each against
+    fp64: an output within one rounding to its type of the fp64 value plus
+    (u + 256*2^-24) of the fp64 sum of its terms' magnitudes (u: the
+    rounding of P and dS to the type; 256*2^-24: the fp32 sums, exp and the
+    scores' rounding), plus the rounding of P and dS values too small for
+    the type's normal range (fp16).  A fully masked row must be exactly
+    0."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import flash_attention as fa
+    B, H, T, D = shape
+    q, k, v, do, kvm, seg, words = _flash_case(B, H, T, D, dtype, seed)
+    spec = FLASH_VARIANTS[variant]
+    causal = spec.get("causal", False)
+    kvm = kvm if spec.get("kv_mask") else None
+    seg = seg if spec.get("segments") else None
+    rate = spec.get("rate", 0.0)
+    scale = D ** -0.5
+    args = (H, scale, causal, kvm, seg, words, rate)
+    got, want = {}, {}
+    got["o"], lse = ops.flash_fwd(q, k, v, *args)
+    want["o"], plse = fa._fwd_plain(q, k, v, *args)
+    # each backward from its own forward, as autograd runs it
+    for out, o_, l_ in ((got, got["o"], lse), (want, want["o"], plse)):
+        delta = (do.float() * o_.float()).sum(dim=-1)
+        kern = out is got
+        dq = (ops.flash_dq if kern else fa._dq_plain)(q, k, v, do, l_, delta,
+                                                     *args)
+        dk, dv = (ops.flash_dkv if kern else fa._dkv_plain)(
+            q, k, v, do, l_, delta, *args)
+        out.update(dq=dq, dk=dk, dv=dv)
+    u = UNIT[dtype]
+    ratios = {"kernel": 0.0, "plain": 0.0}
+    for who, out in (("kernel", got), ("plain", want)):
+        ref = _flash_ref64(q, k, v, do, out["o"], *args)
+        for name, (r64, mag, floor) in ref.items():
+            bound = (u * r64.abs() + (u + 256 * EPS32) * mag
+                     + TINY[dtype] * floor)
+            r = worst_ratio((out[name].double() - r64).abs(), bound)
+            assert r <= 1.0, (f"flash {who} {name} {shape} {dtype} "
+                              f"{variant}: {r} of the fp64 bound")
+            ratios[who] = max(ratios[who], r)
+    if kvm is not None:
+        assert float(got["o"][:H].float().abs().max()) == 0.0, \
+            "a sequence with no valid key must give zeros"
+    errs = {"flash_fwd": max_abs(got["o"], want["o"]),
+            "flash_dq": max_abs(got["dq"], want["dq"]),
+            "flash_dkv": max(max_abs(got["dk"], want["dk"]),
+                             max_abs(got["dv"], want["dv"]))}
+    return errs, ratios
+
+
+def phase_flash():
+    """The flash kernels at BERT-base's shape (every variant, bf16), at
+    T = 512 and at odd shapes (fp32, bf16, fp16), each against fp64; the
+    dropout mask shown equal to the hash; timed at BERT-base's shape with
+    the path's dropout 0.1."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import flash_attention as fa
+    err = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    worst = {"kernel": 0.0, "plain": 0.0}
+    i = 0
+    cases = [(FLASH_BASE, torch.bfloat16, v) for v in FLASH_VARIANTS]
+    cases += [(FLASH_LONG, torch.bfloat16, v) for v in ("none", "all")]
+    cases += [(s, d, v) for s in FLASH_ODD
+              for d in (torch.float32, torch.bfloat16, torch.float16)
+              for v in ("none", "all")]
+    cases.append(((2, 2, 512, 64), torch.float32, "kv_mask"))
+    for shape, dtype, variant in cases:
+        errs, rat = _flash_check(shape, dtype, variant, SEED + 50 + i)
+        i += 1
+        for k_, e in errs.items():
+            err[k_] = max(err[k_], e)
+        for who in worst:
+            worst[who] = max(worst[who], rat[who])
+    log(f"[kernels] flash fwd/dq/dkv at {len(cases)} shape, dtype and "
+        f"variant cases: within the fp64 bounds, worst ratio kernel "
+        f"{worst['kernel']:.3e}, plain {worst['plain']:.3e}; max abs err "
+        f"against the plain version {err}")
+    # the dropout mask: q = k = 0 and V = identity (T = D), so O's zero
+    # pattern is the mask
+    for T in (64, 128):
+        z = torch.zeros(12, T, T, device=DEVICE)
+        eye = torch.eye(T, device=DEVICE).expand(12, T, T).contiguous()
+        words = torch.tensor([SEED + 7, 99], dtype=torch.int32,
+                             device=DEVICE)
+        o, _ = ops.flash_fwd(z, z, eye, 3, 1.0, seed=words, rate=0.1)
+        keep = fa._keep(z, words, 0.1)
+        assert torch.equal(o != 0, keep), f"dropout mask at T = {T}"
+        assert torch.equal(o, torch.where(keep, fa._inv_keep(0.1) / T, 0.0)
+                           .float()), f"kept values at T = {T}"
+    log(f"[kernels] flash dropout: O's zero pattern equals the hash's mask "
+        f"at T = D = 64 and 128 (keep share "
+        f"{float(keep.float().mean()):.4f} at rate 0.1)")
+    B, H, T, D = FLASH_BASE
+    q, k, v, do, _, _, words = _flash_case(B, H, T, D, torch.bfloat16,
+                                           SEED + 90)
+    args = (H, D ** -0.5, False, None, None, words, 0.1)
+    o, lse = ops.flash_fwd(q, k, v, *args)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    q4, k4, v4, do4 = (t.view(B, H, T, D).detach().requires_grad_()
+                       for t in (q, k, v, do))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, dropout_p=0.1)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (q4, k4, v4), do4)
+
+    # the library's backward is one call for dq, dk and dv: its time
+    # (forward and backward, less forward) stands beside both rows
+    lib_fwd = graph_ms(sdpa)
+    lib_bwd = graph_ms(sdpa_fwd_bwd) - lib_fwd
+    log(f"[kernels] scaled_dot_product_attention at {FLASH_BASE} bf16, "
+        f"dropout 0.1: forward {lib_fwd:.4f} ms, backward (dq, dk, dv in "
+        f"one) {lib_bwd:.4f} ms")
+    n, isz, f0 = B * H * T * D, q.element_size(), B * H * T * T * D
+    stats = B * H * T * 4
+    timing = {
+        # reads q, k, v; writes o and lse
+        "flash_fwd": (4 * n * isz + stats, 4 * f0,
+                      lambda: ops.flash_fwd(q, k, v, *args),
+                      lambda: fa._fwd_plain(q, k, v, *args), lib_fwd),
+        # reads q, k, v, dO, lse, delta; writes dq
+        "flash_dq": (5 * n * isz + 2 * stats, 6 * f0,
+                     lambda: ops.flash_dq(q, k, v, do, lse, delta, *args),
+                     lambda: fa._dq_plain(q, k, v, do, lse, delta, *args),
+                     lib_bwd),
+        # reads q, k, v, dO, lse, delta; writes dk, dv
+        "flash_dkv": (6 * n * isz + 2 * stats, 8 * f0,
+                      lambda: ops.flash_dkv(q, k, v, do, lse, delta, *args),
+                      lambda: fa._dkv_plain(q, k, v, do, lse, delta, *args),
+                      lib_bwd),
+    }
+    rows = _time_rows(timing, err, f"{FLASH_BASE} (B, H, T, D) bf16, "
+                      f"dropout 0.1, one call; {FLASH_PER_PASS} calls a pass")
+    # T = 512: the kernels' device time, no library or plain timing
+    B, H, T, D = FLASH_LONG
+    q, k, v, do = _flash_case(B, H, T, D, torch.bfloat16, SEED + 91)[:4]
+    args = (H, D ** -0.5, False, None, None, None, 0.0)
+    o, lse = ops.flash_fwd(q, k, v, *args)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    f0 = B * H * T * T * D
+    bwd = (q, k, v, do, lse, delta, *args)
+    t_fwd = graph_ms(lambda: ops.flash_fwd(q, k, v, *args))
+    t_dq = graph_ms(lambda: ops.flash_dq(*bwd))
+    t_dkv = graph_ms(lambda: ops.flash_dkv(*bwd))
+    log(f"[kernels] flash at {FLASH_LONG} bf16: fwd {t_fwd:.4f} ms "
+        f"({4 * f0} flops), dq {t_dq:.4f} ms ({6 * f0}), dkv {t_dkv:.4f} ms "
+        f"({8 * f0})")
+    return rows
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def _train_step(model, opt, x, y, micro: int = 1):
@@ -523,12 +944,13 @@ def _batch(rs, batch, hw, classes, device):
     return x.to(device), y.to(device)
 
 
-def _drive(model, opt, tag: str, smi: str):
-    """A path's run: 12 steps at batch BATCH (the last 10 timed), then two
-    steps of two micro-batches (axpby), with the launch counts set to 0
-    just before and read just after; then three steps profiled."""
+def _drive(opt, step, tag: str, smi: str, items: int, unit: str):
+    """A path's run: 12 steps (the last 10 timed), then two steps of two
+    micro-batches (axpby), with the launch counts set to 0 just before and
+    read just after; then three steps profiled.  ``step(micro)`` runs one
+    optimizer step and returns its mean loss; ``items`` (images or
+    sequences) make one step's batch."""
     from apex_tpu_torch import ops
-    x, y = _batch(np.random.RandomState(SEED), BATCH, IMAGE, 1000, DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -537,12 +959,12 @@ def _drive(model, opt, tag: str, smi: str):
     for i in range(12):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses.append(_train_step(model, opt, x, y))
+        losses.append(step(1))
         torch.cuda.synchronize()
         if i >= 2:                                  # 2 warm-up steps
             step_ms.append((time.perf_counter() - t0) * 1e3)
-    for _ in range(2):                              # two micro-batches of 64
-        losses.append(_train_step(model, opt, x, y, micro=2))
+    for _ in range(2):                              # two micro-batches
+        losses.append(step(2))
     torch.cuda.synchronize()
     counts = ops.launch_counts()                    # the path ends
 
@@ -553,17 +975,22 @@ def _drive(model, opt, tag: str, smi: str):
     assert vals[11] < vals[0], f"loss did not fall: {vals}"
     assert steps_done == 14, f"Adam applied {steps_done} steps, expected 14"
     med = statistics.median(step_ms)
-    log(f"[{tag}] batch {BATCH} 3x{IMAGE}x{IMAGE} on {smi}: losses "
+    log(f"[{tag}] {items} {unit} a step on {smi}: losses "
         f"{['%.4f' % v for v in vals]}")
     log(f"[{tag}] step_ms median {med:.2f} over {len(step_ms)} steps "
-        f"(all: {['%.2f' % t for t in step_ms]}), images/s "
-        f"{BATCH / med * 1e3:.1f}, max_memory_allocated {peak} B "
+        f"(all: {['%.2f' % t for t in step_ms]}), {unit}/s "
+        f"{items / med * 1e3:.1f}, max_memory_allocated {peak} B "
         f"({peak / 2**30:.2f} GiB), grad_norm "
         f"{float(opt.last_info['grad_norm']):.4f}")
-    by_cat = phase_profile(model, opt, x, y, med, tag=f"{tag}-profile")
-    return counts, steps_done, {"step_ms": med, "images_per_s":
-                                BATCH / med * 1e3, "peak_bytes": peak,
+    by_cat = phase_profile(lambda: step(1), med, tag=f"{tag}-profile")
+    return counts, steps_done, {"step_ms": med, f"{unit}_per_s":
+                                items / med * 1e3, "peak_bytes": peak,
                                 "losses": vals, "profile_ms": by_cat}
+
+
+def _resnet_step(model, opt):
+    x, y = _batch(np.random.RandomState(SEED), BATCH, IMAGE, 1000, DEVICE)
+    return lambda micro: _train_step(model, opt, x, y, micro)
 
 
 def phase_train(smi):
@@ -574,7 +1001,8 @@ def phase_train(smi):
     model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
                                 opt_level="O2", verbosity=0)
     log("[train] resnet50 O2 FusedAdam, one card")
-    out = _drive(model, opt, "train", smi)
+    out = _drive(opt, _resnet_step(model, opt), "train", smi, BATCH,
+                 "images")
     del model, opt
     torch.cuda.empty_cache()
     return out
@@ -613,7 +1041,8 @@ def phase_ddp(smi):
             f"convert_syncbn_model ({n_sync} SyncBatchNorm) -> O2 FusedAdam "
             f"-> DistributedDataParallel; broadcast left masters and half "
             f"copy consistent")
-        out = _drive(ddp, opt, "ddp", smi)
+        out = _drive(opt, _resnet_step(ddp, opt), "ddp", smi, BATCH,
+                     "images")
         log(f"[ddp] buckets of the last all-reduce: {ddp.last_comm_stats}")
         del model, opt, ddp
         torch.cuda.empty_cache()
@@ -624,14 +1053,20 @@ def phase_ddp(smi):
 
 _PORT_KERNELS = ("scale_kernel", "axpby_kernel", "l2norm_", "adam_kernel")
 _PORT_BN = ("bn_fwd_kernel", "bn_bwd_rows_kernel")
+_PORT_LN = ("ln_fwd_", "ln_bwd_", "ln_colsum_kernel")
+_PORT_ATTN = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 _LIBRARY_MATH = ("conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad", "dgrad",
-                 "fprop", "implicit")
+                 "fprop", "implicit", "nvjet")
 
 
 def _category(kernel: str) -> str:
     k = kernel.lower()
     if any(p in k for p in _PORT_BN):
         return "port BatchNorm apply kernels (syncbn fwd, bwd)"
+    if any(p in k for p in _PORT_LN):
+        return "port LayerNorm kernels"
+    if any(p in k for p in _PORT_ATTN):
+        return "port attention kernels"
     if "nccl" in k:
         return "collectives (NCCL)"
     if any(p in k for p in _PORT_KERNELS):
@@ -639,13 +1074,13 @@ def _category(kernel: str) -> str:
     if any(p in k for p in _LIBRARY_MATH):
         return "convolution and matmul (cuDNN, cuBLAS)"
     if "reduce" in k:
-        return "reductions (BN statistics, loss, grad sums)"
+        return "reductions (statistics, losses, grad sums)"
     if "catarray" in k:
         return "grad packing (cat)"
-    return "elementwise and other (BN statistics' casts, ReLU, adds)"
+    return "elementwise and other (casts, activations, dropout, adds)"
 
 
-def phase_profile(model, opt, x, y, step_ms: float, tag: str = "profile",
+def phase_profile(step, step_ms: float, tag: str = "profile",
                   steps: int = 3):
     """Device time of a path's steps by kernel (torch.profiler), after the
     launch counts were read: where the time goes, and how much of the
@@ -656,7 +1091,7 @@ def phase_profile(model, opt, x, y, step_ms: float, tag: str = "profile",
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            _train_step(model, opt, x, y)
+            step()
         torch.cuda.synchronize()
     per_kernel = {}
     for evt in prof.key_averages():
@@ -731,7 +1166,102 @@ def phase_reference():
         f"(<= 2*lr*steps = 6e-4)")
 
 
-# -- phase 6 -----------------------------------------------------------------
+# -- phase 6, BERT ------------------------------------------------------------
+
+BERT_BATCH, BERT_SEQ = 32, 128      # bench.py's BERT-base: 32 x 128 a chip
+
+
+def _bert_batch(vocab, rs, B, T, device):
+    """The synthetic MLM/NSP batch of examples/bert/main_amp.py: 15 % of the
+    positions labelled, 80 % of those masked to id 3."""
+    ids = rs.randint(5, vocab, (B, T))
+    mask = rs.rand(B, T) < 0.15
+    labels = np.where(mask, ids, -100)
+    ids = np.where(mask & (rs.rand(B, T) < 0.8), 3, ids)
+    nsp = rs.randint(0, 2, (B,))
+    return tuple(torch.from_numpy(a.astype(np.int64)).to(device)
+                 for a in (ids, labels, nsp))
+
+
+def _bert_step(model, opt, batch):
+    from apex_tpu_torch import amp
+    ids, labels, nsp = batch
+
+    def step(micro):
+        losses = []
+        for i, l, n in zip(ids.chunk(micro), labels.chunk(micro),
+                           nsp.chunk(micro)):
+            loss = model.loss(i, l, n)
+            with amp.scale_loss(loss, opt) as scaled:
+                scaled.backward()
+            losses.append(loss.detach())
+        opt.step()
+        opt.zero_grad()
+        return torch.stack(losses).mean()
+    return step
+
+
+def phase_bert(smi):
+    """The BERT path: BertForPretraining(bert_base()) -> O2 + FusedAdam(lr
+    1e-4), train mode with the config's dropout 0.1, 32 x 128 tokens."""
+    from apex_tpu_torch import amp, models, optimizers
+    cfg = models.bert_base()
+    model = models.BertForPretraining(
+        cfg, device=DEVICE, generator=torch.Generator().manual_seed(SEED),
+        dropout_generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-4),
+                                opt_level="O2", verbosity=0)
+    model.train()
+    n_params = sum(p.numel() for p in model.parameters())
+    ln32 = model.bert.layer[0].attention_ln.weight.dtype
+    assert ln32 == torch.float32 and \
+        model.bert.word_embeddings.weight.dtype == torch.bfloat16
+    log(f"[bert] BertForPretraining(bert_base) {n_params} parameters, O2 "
+        f"FusedAdam(lr=1e-4), dropout {cfg.hidden_dropout_prob}/"
+        f"{cfg.attention_probs_dropout_prob}, batch {BERT_BATCH} x "
+        f"{BERT_SEQ}")
+    batch = _bert_batch(cfg.vocab_size, np.random.RandomState(SEED),
+                        BERT_BATCH, BERT_SEQ, DEVICE)
+    out = _drive(opt, _bert_step(model, opt, batch), "bert", smi,
+                 BERT_BATCH, "sequences")
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bert_reference():
+    """A tiny BERT trained three steps in fp32 (O0) on the card and on the
+    CPU (the plain versions), from the same weights and batch."""
+    from apex_tpu_torch import amp, models, optimizers
+    cfg = models.BertConfig(vocab_size=128, hidden_size=64,
+                            num_hidden_layers=2, num_attention_heads=4,
+                            intermediate_size=128, max_position_embeddings=64,
+                            hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0, head_chunk=48)
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        model = models.BertForPretraining(
+            cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+        model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-4),
+                                    opt_level="O0", verbosity=0)
+        batch = _bert_batch(cfg.vocab_size, np.random.RandomState(SEED + 3),
+                            4, 32, dev)
+        step = _bert_step(model, opt, batch)
+        losses = [float(step(1)) for _ in range(3)]
+        runs[dev] = (losses, opt.masters.buf.cpu())
+    (lc, mc), (lp, mp) = runs[DEVICE], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    dmax = float((mc - mp).abs().max())
+    # fp32 on both (TF32 off); sums in other orders.  Adam moves a weight
+    # about lr a step, so a flipped near-zero grad costs up to 2*lr a step
+    assert rel < 1e-4, f"card vs CPU losses {lc} vs {lp}"
+    assert dmax <= 2 * 1e-4 * 3, f"card vs CPU masters differ by {dmax}"
+    log(f"[bert-reference] O0 tiny BERT, card vs CPU: losses {lc} vs {lp} "
+        f"(max rel {rel:.2e} <= 1e-4), masters max abs diff {dmax:.2e} "
+        f"(<= 2*lr*steps = 6e-4)")
+
+
+# -- phase 7 -----------------------------------------------------------------
 
 def phase_overflow():
     from apex_tpu_torch import amp, models, optimizers
@@ -767,17 +1297,28 @@ def phase_overflow():
         f"(step {int(after['step'])})")
 
 
-def _check_counts(tag: str, counts, steps_done: int) -> None:
-    """Every kernel launched on the path; Adam once per applied step; the
-    syncbn kernels once per BatchNorm layer and pass (12 whole batches and
-    two steps of two micro-batches: 16 passes)."""
+def _check_counts(tag: str, counts, expect) -> None:
+    """Each wrapper launched exactly as often as the path needs it, and the
+    wrappers of other paths not at all."""
     log(f"kernels {tag} {json.dumps(counts)}")
     for k, c in counts.items():
-        assert c > 0, f"{k} was not launched on the {tag} path"
-    assert counts["fused_adam"] == steps_done, \
-        f"Adam launched {counts['fused_adam']} times for {steps_done} steps"
-    for k in ("syncbn_fwd", "syncbn_bwd"):
-        assert counts[k] == BN_LAYERS * 16, f"{k}: {counts[k]} launches"
+        assert c == expect.get(k, 0), \
+            f"{tag}: {k} launched {c} times, expected {expect.get(k, 0)}"
+
+
+# 12 whole steps and two steps of two micro-batches: 14 optimizer steps,
+# 16 backward passes (the scale kernel on the first of a step, axpby on
+# the second)
+PASSES = 16
+OPT_COUNTS = {"multi_tensor_scale": 14, "multi_tensor_axpby": 2,
+              "multi_tensor_l2norm": 14, "fused_adam": 14}
+RESNET_COUNTS = dict(OPT_COUNTS, syncbn_fwd=BN_LAYERS * PASSES,
+                     syncbn_bwd=BN_LAYERS * PASSES)
+BERT_COUNTS = dict(OPT_COUNTS, layer_norm_fwd=LN_PER_PASS * PASSES,
+                   layer_norm_bwd=LN_PER_PASS * PASSES,
+                   flash_fwd=FLASH_PER_PASS * PASSES,
+                   flash_dq=FLASH_PER_PASS * PASSES,
+                   flash_dkv=FLASH_PER_PASS * PASSES)
 
 
 def main():
@@ -786,16 +1327,26 @@ def main():
     phase_build()
     rows = phase_kernels()
     rows.update(phase_syncbn())
-    counts1, steps1, train = phase_train(smi)
+    rows.update(phase_layer_norm())
+    rows.update(phase_flash())
+    counts_train, _, train = phase_train(smi)
     phase_reference()
-    counts, steps_done, ddp = phase_ddp(smi)
+    counts_ddp, _, ddp = phase_ddp(smi)
+    counts_bert, _, bert = phase_bert(smi)
+    phase_bert_reference()
     phase_overflow()
 
-    _check_counts("train", counts1, steps1)
-    _check_counts("ddp", counts, steps_done)
+    _check_counts("train", counts_train, RESNET_COUNTS)
+    _check_counts("ddp", counts_ddp, RESNET_COUNTS)
+    _check_counts("bert", counts_bert, BERT_COUNTS)
+    # each row's launches from the path that runs it: the optimizer
+    # kernels from the single-card ResNet path, syncbn from the DDP path,
+    # LayerNorm and flash from the BERT path
+    path_of = dict.fromkeys(OPT_COUNTS, counts_train)
+    path_of.update(syncbn_fwd=counts_ddp, syncbn_bwd=counts_ddp)
     for k in rows:
-        rows[k]["launches"] = counts[k]
-    log(json.dumps({"train": train, "ddp": ddp, "card": smi}))
+        rows[k]["launches"] = path_of.get(k, counts_bert)[k]
+    log(json.dumps({"train": train, "ddp": ddp, "bert": bert, "card": smi}))
     log(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -52,7 +52,8 @@ def test_import_leaves_jax_and_apex_tpu_out():
         "import sys\n"
         "import apex_tpu_torch\n"
         "from apex_tpu_torch import (amp, models, multi_tensor_apply, nn, "
-        "ops, optimizers, parallel, utils)\n"
+        "normalization, ops, optimizers, parallel, transformer, utils)\n"
+        "import apex_tpu_torch.nn.fused_xent\n"
         "import apex_tpu_torch.utils.jax_interop\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'apex_tpu'))\n"

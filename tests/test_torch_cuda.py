@@ -15,6 +15,8 @@ import torch
 
 from apex_tpu_torch import nn, ops
 from apex_tpu_torch.ops import adam as adam_mod
+from apex_tpu_torch.ops import flash_attention as fa
+from apex_tpu_torch.ops import layer_norm as lnm
 from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.ops import syncbn as sbn
 
@@ -74,10 +76,14 @@ def test_cuda_wrappers_count_their_launches(cuda):
     xb = torch.ones(2, 3, 4, 4, device=cuda)
     ops.syncbn_fwd(xb, c, c, c, c)
     ops.syncbn_bwd(xb, xb, c, c, c)
-    assert ops.launch_counts() == {"multi_tensor_scale": 1,
-                                   "multi_tensor_axpby": 1,
-                                   "multi_tensor_l2norm": 1, "fused_adam": 1,
-                                   "syncbn_fwd": 1, "syncbn_bwd": 1}
+    x2 = torch.ones(5, 7, device=cuda)
+    _, mean, inv = ops.layer_norm_fwd(x2, None, None, 1e-5)
+    ops.layer_norm_bwd(x2, x2, None, mean, inv)
+    q3 = torch.ones(2, 9, 8, device=cuda)
+    o, lse = ops.flash_fwd(q3, q3, q3, 1, 0.5)
+    ops.flash_dq(q3, q3, q3, q3, lse, lse, 1, 0.5)
+    ops.flash_dkv(q3, q3, q3, q3, lse, lse, 1, 0.5)
+    assert ops.launch_counts() == dict.fromkeys(ops.WRAPPERS, 1)
     # the plain versions, on CPU tensors, launch nothing
     ops.multi_tensor_scale(x.cpu(), 0.5)
     assert ops.launch_counts()["multi_tensor_scale"] == 1
@@ -164,3 +170,109 @@ def test_batchnorm_module_on_the_card_matches_the_cpu(cuda):
     # the statistics are reductions in another order on each device
     for a, b in zip(out["cpu"], out[str(cuda)]):
         torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+
+
+# -- LayerNorm ----------------------------------------------------------------
+
+# widths in registers (1, 100, 768, 1024) and streamed (1500)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1,n2", [(7, 1), (33, 100), (4096, 768),
+                                   (300, 1024), (9, 1500)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("affine", [True, False])
+def test_layer_norm_kernels_match_plain(cuda, n1, n2, dtype, affine):
+    rs = np.random.RandomState(n2)
+    x = (_t(rs.randn(n1, n2).astype(np.float32)) * 3 + 1).to(dtype).to(cuda)
+    dy = _t(rs.randn(n1, n2).astype(np.float32)).to(dtype).to(cuda)
+    w = _t(rs.randn(n2).astype(np.float32)).to(cuda) if affine else None
+    b = _t(rs.randn(n2).astype(np.float32)).to(cuda) if affine else None
+    got = ops.layer_norm_fwd(x, w, b, 1e-5)
+    ones, zeros = torch.ones(n2, device=cuda), torch.zeros(n2, device=cuda)
+    want = lnm._fwd_plain(x, w if affine else ones, b if affine else zeros,
+                          1e-5)
+    # the row sums run in another order: fp32 rounding on the statistics,
+    # one unit of the output type's last place on y
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g.float(), p.float(), rtol=tol[dtype],
+                                   atol=tol[dtype])
+    mean, inv = want[1], want[2]
+    got = ops.layer_norm_bwd(dy, x, w, mean, inv)
+    want = lnm._bwd_plain(dy, x, w if affine else ones, mean, inv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               rtol=tol[dtype], atol=tol[dtype])
+    # dw and db: column sums over n1 rows, within 1e-5 of the sum of |term|
+    d = dy.float()
+    xhat = (x.float() - mean[:, None]) * inv[:, None]
+    for g, terms in ((got[1], d * xhat), (got[2], d)):
+        err = (g.double() - terms.double().sum(0)).abs()
+        assert bool((err <= 1e-5 * terms.double().abs().sum(0) + 1e-30)
+                    .all())
+    # the same bits on a second run (no atomics)
+    again = ops.layer_norm_bwd(dy, x, w, mean, inv)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+# -- flash attention ----------------------------------------------------------
+
+def _flash_case(cuda, B, H, T, D, dtype, seed=0):
+    rs = np.random.RandomState(seed)
+    q, k, v, do = (_t(rs.randn(B * H, T, D).astype(np.float32)).to(dtype)
+                   .to(cuda) for _ in range(4))
+    kvm = _t(rs.rand(B, T) > 0.3).to(cuda)
+    kvm[0] = False                          # a batch row with no valid key
+    seg = _t(np.sort(rs.randint(0, 3, (B, T)), axis=1).astype(np.int32))
+    return q, k, v, do, kvm, seg.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["none", "causal", "kv_mask", "segments",
+                                     "dropout", "all"])
+@pytest.mark.parametrize("T,D", [(128, 64), (200, 64), (77, 128), (64, 24)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_match_plain(cuda, variant, T, D, dtype):
+    B, H = 2, 3
+    q, k, v, do, kvm, seg = _flash_case(cuda, B, H, T, D, dtype)
+    seed = torch.tensor([12345, -678], dtype=torch.int32, device=cuda)
+    allv = variant == "all"
+    kw = dict(causal=variant == "causal" or allv,
+              kv_mask=kvm if variant == "kv_mask" or allv else None,
+              segment_ids=seg if variant == "segments" or allv else None,
+              seed=seed, rate=0.1 if variant == "dropout" or allv else 0.0)
+    args = (H, D ** -0.5)
+    o, lse = ops.flash_fwd(q, k, v, *args, **kw)
+    po, plse = fa._fwd_plain(q, k, v, *args, kw["causal"], kw["kv_mask"],
+                             kw["segment_ids"], seed, kw["rate"])
+    # fp32: sums in another order; bf16: P rounds to bf16 on either side,
+    # and a p one fp32 ulp apart can round to neighbouring bf16 values
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), po.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    delta = (do.float() * po.float()).sum(-1)
+    pargs = (kw["causal"], kw["kv_mask"], kw["segment_ids"], seed,
+             kw["rate"])
+    dq = ops.flash_dq(q, k, v, do, plse, delta, *args, **kw)
+    dk, dv = ops.flash_dkv(q, k, v, do, plse, delta, *args, **kw)
+    pdq = fa._dq_plain(q, k, v, do, plse, delta, *args, *pargs)
+    pdk, pdv = fa._dkv_plain(q, k, v, do, plse, delta, *args, *pargs)
+    torch.cuda.synchronize()
+    for g, p in ((dq, pdq), (dk, pdk), (dv, pdv)):
+        scale = max(float(p.float().abs().max()), 1.0)
+        torch.testing.assert_close(g.float(), p.float(), rtol=tol,
+                                   atol=tol * scale)
+    if kw["kv_mask"] is not None:
+        assert float(o[:H].float().abs().max()) == 0.0   # no valid key
+
+
+@pytest.mark.cuda
+def test_flash_dropout_mask_is_the_hash(cuda):
+    """q = k = 0 and V = identity (T = D): O's zero pattern is the mask."""
+    BH, T = 6, 64
+    z = torch.zeros(BH, T, T, device=cuda)
+    eye = torch.eye(T, device=cuda).expand(BH, T, T).contiguous()
+    seed = torch.tensor([7, 99], dtype=torch.int32, device=cuda)
+    o, _ = ops.flash_fwd(z, z, eye, 2, 1.0, seed=seed, rate=0.25)
+    keep = fa._keep(z, seed, 0.25)
+    assert torch.equal(o != 0, keep)
