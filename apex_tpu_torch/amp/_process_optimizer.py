@@ -7,15 +7,18 @@ package's leaf order, in one flat fp32 master buffer, plus one flat
 buffer of the half dtype when the model has one (O2).  The model's half
 parameters then become views into the half buffer and its fp32
 parameters (BatchNorm under O2; everything under O0) views into the
-master buffer.  The fused Adam kernel updates the masters in place and
-writes the half copy in the same pass, so the model is updated in place
-with no rebuild copy: the in-place update the port allows where it saves
-memory (here the whole per-step params rebuild of
-``_FlatLayout.rebuild``).
+master buffer.  The optimizer's kernel (Adam, or LAMB's stage 2) updates
+the masters in place and writes the half copy in the same pass, so the
+model is updated in place with no rebuild copy: the in-place update the
+port allows where it saves memory (here the whole per-step params rebuild
+of ``_FlatLayout.rebuild``).  The masters stay dense for every optimizer:
+one that is not elementwise (FusedLAMB, LARC) gets the layout, whose
+chunk table carries the tensor boundaries, where the JAX package keeps a
+master tree for it.
 
 A step is free of host syncs: unscale and overflow check in one kernel,
 the scaler's transition on device tensors, and a skipped step is the
-Adam kernel's no-op flag (the JAX package's ``lax.cond``).
+optimizer kernels' no-op flag (the JAX package's ``lax.cond``).
 
 The masters are the source of truth for the parameters.  A write of
 parameter values after ``bind`` goes through :meth:`AmpOptimizer.
@@ -31,13 +34,12 @@ that holds it (``parallel.DistributedDataParallel``'s ``module.*`` keys);
 from __future__ import annotations
 
 import functools
-import math
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from .. import ops
-from ..multi_tensor_apply import pack_flat
+from ..multi_tensor_apply import ChunkedFlatLayout
 from ..optimizers.base import Optimizer
 from .scaler import LossScaler, ScalerState
 from .stateful import GradStash
@@ -53,42 +55,24 @@ def jax_leaf_order(names: Sequence[str]) -> List[str]:
     return sorted(names, key=lambda n: tuple(n.split(".")))
 
 
-class _FlatLayout:
-    """Static description of the flattening, computed once at bind."""
+class _FlatLayout(ChunkedFlatLayout):
+    """The dense flat layout of the named parameters in the JAX package's
+    leaf order, computed once at bind; as a ``ChunkedFlatLayout`` it also
+    tells a non-elementwise optimizer where each tensor lies."""
 
     def __init__(self, named_params: Sequence[Tuple[str, torch.Tensor]]):
         by_name = dict(named_params)
         self.names = tuple(jax_leaf_order(by_name))
-        leaves = [by_name[n] for n in self.names]
-        self.shapes = tuple(tuple(l.shape) for l in leaves)
-        self.dtypes = tuple(l.dtype for l in leaves)
-        self.is_float = tuple(l.is_floating_point() for l in leaves)
-        sizes, offsets, off = [], [], 0
-        for shape, f in zip(self.shapes, self.is_float):
-            n = int(math.prod(shape)) if f else 0
-            sizes.append(n)
-            offsets.append(off)
-            off += n
-        self.sizes = tuple(sizes)
-        self.offsets = tuple(offsets)
-        self.total = off
+        super().__init__([by_name[n] for n in self.names])
         halves = {d for d, f in zip(self.dtypes, self.is_float)
                   if f and d != torch.float32}
         # the single non-fp32 float dtype (O2's cast_model_type), if any:
-        # the fused Adam kernel writes the half model copy in its pass
+        # the optimizer's kernel writes the half model copy in its pass
         self.half_dtype = halves.pop() if len(halves) == 1 else None
-
-    def pack(self, tensors: Sequence[torch.Tensor],
-             out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Float leaves (in layout order) -> one flat fp32 buffer."""
-        parts = [t for t, f in zip(tensors, self.is_float) if f]
-        return pack_flat(parts, torch.float32, out=out)
 
     def pieces(self, flat: torch.Tensor) -> List[Optional[torch.Tensor]]:
         """Per-leaf views of a flat buffer (None for non-float leaves)."""
-        return [flat[off:off + n].view(shape) if f else None
-                for shape, f, off, n in zip(self.shapes, self.is_float,
-                                            self.offsets, self.sizes)]
+        return self.unpack(flat, cast_like=False)
 
 
 class FlatMasters:
@@ -152,7 +136,10 @@ class AmpOptimizer:
                               else [None] * len(params)):
             p.data = p32 if p.dtype == torch.float32 else ph
         self.masters = FlatMasters(buf, half, layout)
-        self.state = self.inner.init(buf)
+        # an optimizer with per-tensor semantics (LAMB, LARC) also gets the
+        # tensor boundaries (the JAX package gives it the master tree)
+        self.state = (self.inner.init(buf) if self.inner.elementwise
+                      else self.inner.init(buf, layout))
         self.scalers = [self.scaler.init_state(device)
                         for _ in range(self.num_losses)]
         self._params = params

@@ -13,12 +13,12 @@ dtypes (the JAX package's pytree form).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from .. import ops
-from .flatten import pack_flat, unpack_flat
+from .flatten import ChunkedFlatLayout, pack_flat, unpack_flat
 
 __all__ = ["multi_tensor_scale", "multi_tensor_axpby", "multi_tensor_l2norm",
            "global_grad_norm"]
@@ -58,9 +58,20 @@ def multi_tensor_axpby(a, b, x: Tensors, y: Tensors, arg_to_check: int = -1
     return _back(out, x), found
 
 
-def multi_tensor_l2norm(x: Tensors) -> Tuple[torch.Tensor, None]:
-    """Global fp32 L2 norm (per-tensor norms come with LAMB's layout)."""
-    return ops.multi_tensor_l2norm(_flat(x)), None
+def multi_tensor_l2norm(x: Tensors, per_tensor: bool = False
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Global fp32 L2 norm, and with ``per_tensor`` the norm of each
+    tensor of the list (a non-float one taken as fp32, so the result stays
+    aligned with the list) through the per-tensor l2norm kernel."""
+    if not per_tensor:
+        return ops.multi_tensor_l2norm(_flat(x)), None
+    tensors = [t.float() for t in
+               ([x] if isinstance(x, torch.Tensor) else x)]
+    if not tensors:
+        return torch.zeros(()), torch.zeros(0)
+    lay = ChunkedFlatLayout(tensors)
+    sq = lay.per_tensor_sqsum(lay.pack(tensors))
+    return torch.sqrt(torch.sum(sq)), torch.sqrt(sq)
 
 
 def global_grad_norm(x: Tensors) -> torch.Tensor:

@@ -12,7 +12,8 @@ whose children are named ``0``, ``1``, ... as the JAX package's are.
 fp32 under ``keep_batchnorm_fp32``.  Its running statistics
 follow the JAX package: momentum 0.1, unbiased running variance, an int32
 ``num_batches_tracked``; ``affine``, ``track_running_stats`` and
-``channel_axis`` are the JAX module's options.
+``channel_axis`` are the JAX module's options.  ``LayerNorm`` is the
+JAX module over the LayerNorm kernels (``normalization.FusedLayerNorm``).
 """
 
 from __future__ import annotations
@@ -23,10 +24,11 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..normalization import FusedLayerNorm
 from . import functional as F
 
 __all__ = ["Conv2d", "Linear", "BatchNorm2d", "MaxPool2d",
-           "AdaptiveAvgPool2d", "Embedding", "Dropout"]
+           "AdaptiveAvgPool2d", "Embedding", "Dropout", "LayerNorm"]
 
 
 def _uniform(shape, fan_in: int, generator: torch.Generator,
@@ -191,3 +193,9 @@ class Dropout(torch.nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         return F.dropout(x, self.rate, self.generator)
+
+
+class LayerNorm(FusedLayerNorm):
+    """``nn.LayerNorm`` of the JAX package: weight ones and bias zeros,
+    kept fp32 by amp, normalized by the LayerNorm kernels; the output has
+    the input's dtype."""

@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels and their wrappers.
 
-``multi_tensor`` (scale, axpby, l2norm), ``adam``, ``syncbn`` (the
-BatchNorm apply, forward and backward), ``layer_norm`` (forward and
-backward) and ``flash_attention`` (forward, dQ, dK/dV) wrap the CUDA C++
+``multi_tensor`` (scale, axpby, l2norm, global and per tensor), ``adam``,
+``lamb`` (stage 1 and stage 2), ``syncbn`` (the BatchNorm apply, forward
+and backward), ``layer_norm`` (forward and backward) and
+``flash_attention`` (forward, dQ, dK/dV) wrap the CUDA C++
 sources of ``csrc/``, which ``_build`` compiles with ``nvcc`` for sm_90a
 at first launch and loads with ``ctypes``.  Importing this package
 builds nothing.
@@ -12,23 +13,30 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import adam, flash_attention, layer_norm, multi_tensor, syncbn
+from . import adam, flash_attention, lamb, layer_norm, multi_tensor, syncbn
 from .adam import fused_adam
 from .flash_attention import flash_dkv, flash_dq, flash_fwd
+from .lamb import lamb_stage1, lamb_stage2
 from .layer_norm import layer_norm_bwd, layer_norm_fwd
-from .multi_tensor import (multi_tensor_axpby, multi_tensor_l2norm,
+from .multi_tensor import (ChunkTable, multi_tensor_axpby,
+                           multi_tensor_l2norm,
+                           multi_tensor_l2norm_per_tensor,
                            multi_tensor_scale)
 from .syncbn import batch_norm_apply_fused, syncbn_bwd, syncbn_fwd
 
 __all__ = ["fused_adam", "multi_tensor_scale", "multi_tensor_axpby",
-           "multi_tensor_l2norm", "syncbn_fwd", "syncbn_bwd",
+           "multi_tensor_l2norm", "multi_tensor_l2norm_per_tensor",
+           "ChunkTable", "lamb_stage1", "lamb_stage2", "syncbn_fwd",
+           "syncbn_bwd",
            "batch_norm_apply_fused", "layer_norm_fwd", "layer_norm_bwd",
            "flash_fwd", "flash_dq", "flash_dkv", "WRAPPERS", "launch_counts",
            "reset_launch_counts"]
 
 # every kernel wrapper of the port, by name
 WRAPPERS = {f.__name__: f for f in (multi_tensor_scale, multi_tensor_axpby,
-                                    multi_tensor_l2norm, fused_adam,
+                                    multi_tensor_l2norm,
+                                    multi_tensor_l2norm_per_tensor,
+                                    fused_adam, lamb_stage1, lamb_stage2,
                                     syncbn_fwd, syncbn_bwd, layer_norm_fwd,
                                     layer_norm_bwd, flash_fwd, flash_dq,
                                     flash_dkv)}

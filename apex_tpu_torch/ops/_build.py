@@ -50,10 +50,16 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         "apex_scale": (_P, _P, _L, _P, _P, _I, _P),
         "apex_axpby": (_P, _P, _P, _L, _P, _I, _P, _I, _P),
         "apex_l2norm": (_P, _L, _P, _I, _P, _P),
+        "apex_l2norm_per_tensor": (_P, _P, _L, _P, _I, _P, _P, _P),
     },
     "adam": {
         "apex_adam": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P,
                       _F, _F, _F, _F, _F, _I, _F, _I, _P),
+    },
+    "lamb": {
+        "apex_lamb_stage1": (_P,) * 5 + (_L,) + (_P,) * 4 + (_F,) * 6
+        + (_I, _I, _P),
+        "apex_lamb_stage2": (_P, _P, _P, _P, _L, _P, _P, _I, _P, _P),
     },
     "syncbn": {
         "apex_bn_fwd": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),

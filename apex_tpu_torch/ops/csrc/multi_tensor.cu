@@ -1,13 +1,17 @@
-// Multi-tensor kernels over one flat fp32 buffer: scale, axpby, l2norm.
+// Multi-tensor kernels over one flat fp32 buffer: scale, axpby, l2norm,
+// and the l2norm's per-tensor mode.
 //
 // Replaces apex_tpu/ops/pallas_multi_tensor.py: _scale_kernel (:45),
-// _axpby_kernel (:89) and _l2norm_kernel (:142).
+// _axpby_kernel (:89) and _l2norm_kernel (:142), and the per-tensor branch
+// of its multi_tensor_l2norm (:166-187, ChunkedFlatLayout.per_tensor_sqsum:
+// per-chunk sums, then a segment sum; the upstream project's
+// multi_tensor_l2norm_kernel.cu:117-180 writes the same per-tensor output).
 //
 // Bound: device-memory bytes.  Each kernel does a few flops per element,
 // far below the ~20 flops/byte an H100 needs before arithmetic limits it:
 //   scale   reads x, writes out          8 bytes/element
 //   axpby   reads x and y, writes out   12 bytes/element
-//   l2norm  reads x                      4 bytes/element
+//   l2norm  reads x                      4 bytes/element (either mode)
 // Design: one pass, each thread moving 16 bytes per load (float4) in a
 // grid-stride loop, with a scalar loop for the n % 4 tail.  The
 // found-inf flag is a per-thread bool stored once as 1.0f: the OR is
@@ -16,6 +20,14 @@
 // does, so it runs two passes: per-block fp32 partial sums, then one
 // block that adds the partials in a fixed order and takes the sqrt (no
 // float atomics: the same bits on every run).
+//
+// The per-tensor mode reads a chunk table, int64 rows (tensor id, start,
+// length), each tensor's chunks contiguous and in order, and `bounds`, the
+// first chunk of each tensor (num_tensors + 1 entries).  A block per chunk
+// writes the chunk's sum of squares (a chunk may start at any element, so
+// the block peels up to three elements before its float4 run); then a
+// block per tensor adds its chunks' partials, each thread a fixed stride
+// of them, in a fixed tree: no float atomics, the same bits on every run.
 //
 // Scalars (scale, a and b) are read from device memory, so the loss
 // scaler never brings a value to the host.  `out` may alias `x`.
@@ -113,6 +125,40 @@ __global__ void l2norm_final_kernel(const float* partials, int nparts,
   if (threadIdx.x == 0) *out = sqrtf(tot);
 }
 
+__global__ void l2norm_chunk_kernel(const float* x, const long long* chunks,
+                                    float* partials) {
+  const long long* c = chunks + 3 * (long long)blockIdx.x;
+  const long long s = c[1], e = c[1] + c[2];
+  long long a = (s + 3) & ~3LL;
+  if (a > e) a = e;
+  long long b = e & ~3LL;
+  if (b < a) b = a;
+  const int t = threadIdx.x;
+  float acc = 0.0f;
+  for (long long i = s + t; i < a; i += blockDim.x) acc += x[i] * x[i];
+  for (long long i = b + t; i < e; i += blockDim.x) acc += x[i] * x[i];
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  for (long long i = (a >> 2) + t; i < (b >> 2); i += blockDim.x) {
+    const float4 v = x4[i];
+    acc += v.x * v.x;
+    acc += v.y * v.y;
+    acc += v.z * v.z;
+    acc += v.w * v.w;
+  }
+  const float tot = block_sum(acc);
+  if (t == 0) partials[blockIdx.x] = tot;
+}
+
+__global__ void l2norm_tensor_kernel(const float* partials,
+                                     const long long* bounds, float* out) {
+  const long long lo = bounds[blockIdx.x], hi = bounds[blockIdx.x + 1];
+  float acc = 0.0f;
+  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x)
+    acc += partials[i];
+  const float tot = block_sum(acc);
+  if (threadIdx.x == 0) out[blockIdx.x] = tot;
+}
+
 extern "C" {
 
 int apex_scale(const float* x, float* out, long long n, const float* scale,
@@ -137,6 +183,20 @@ int apex_l2norm(const float* x, long long n, float* partials, int blocks,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   l2norm_final_kernel<<<1, 1024, 0, stream>>>(partials, blocks, out);
+  return (int)cudaGetLastError();
+}
+
+// Per-tensor sums of squares into out[num_tensors]: `nchunks` chunk
+// partials land in `partials` (nchunks floats), then a block per tensor.
+int apex_l2norm_per_tensor(const float* x, const long long* chunks,
+                           long long nchunks, const long long* bounds,
+                           int num_tensors, float* partials, float* out,
+                           cudaStream_t stream) {
+  l2norm_chunk_kernel<<<nchunks, kThreads, 0, stream>>>(x, chunks, partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  l2norm_tensor_kernel<<<num_tensors, kThreads, 0, stream>>>(partials,
+                                                            bounds, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
 """Kernel wrappers for scale, axpby and l2norm over one flat fp32 buffer,
-each beside its plain PyTorch version.
+and the l2norm's per-tensor mode, each beside its plain PyTorch version.
 
 Counterpart of ``apex_tpu/ops/pallas_multi_tensor.py``; the kernels are
 ``csrc/multi_tensor.cu``.  A wrapper given CUDA tensors launches the
@@ -10,18 +10,22 @@ over device tensors, so no value comes back to the host.
 
 The found-inf flag is a 0-d fp32 tensor, 1.0 when any checked input
 element is inf or nan, else 0.0 (the TPU kernels' (1, 1) flag).
+
+The per-tensor mode takes a :class:`ChunkTable`: where each tensor of the
+flat buffer lies, cut into chunks that each belong to one tensor.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 __all__ = ["multi_tensor_scale", "multi_tensor_axpby", "multi_tensor_l2norm",
-           "as_scalar"]
+           "multi_tensor_l2norm_per_tensor", "ChunkTable", "as_scalar"]
 
 Scalar = Union[float, torch.Tensor]
 
@@ -160,3 +164,88 @@ def multi_tensor_l2norm(x: torch.Tensor) -> torch.Tensor:
 
 
 multi_tensor_l2norm.launches = 0
+
+
+# -- l2norm per tensor ---------------------------------------------------------
+
+class ChunkTable(NamedTuple):
+    """The tensors of a flat buffer, for the per-tensor kernels.
+
+    ``spans``: (offset, length) of each tensor, host ints.  ``chunks``:
+    int64 (K, 3) rows (tensor id, start, length <= ``chunk``), each span
+    cut from its start into chunks, in order (the reference Apex's
+    multi_tensor_apply chunk list).  ``bounds``: int64 (num_tensors + 1),
+    the first chunk of each tensor.  ``chunks`` and ``bounds`` lie on the
+    buffer's device; ``multi_tensor_apply.ChunkedFlatLayout.chunk_table``
+    builds them once per layout and device."""
+    spans: Tuple[Tuple[int, int], ...]
+    chunk: int
+    chunks: torch.Tensor
+    bounds: torch.Tensor
+
+    @staticmethod
+    def build(spans: Sequence[Tuple[int, int]], chunk: int,
+              device) -> "ChunkTable":
+        rows, bounds = [], [0]
+        for tid, (off, n) in enumerate(spans):
+            rows += [(tid, off + s, min(chunk, n - s))
+                     for s in range(0, n, chunk)]
+            bounds.append(len(rows))
+        chunks = torch.tensor(rows, dtype=torch.int64).reshape(-1, 3)
+        return ChunkTable(tuple((int(o), int(n)) for o, n in spans),
+                          int(chunk), chunks.to(device),
+                          torch.tensor(bounds, dtype=torch.int64).to(device))
+
+    @property
+    def num_tensors(self) -> int:
+        return len(self.spans)
+
+    def check(self, x: torch.Tensor) -> None:
+        """The table fits ``x`` and lies on its device."""
+        end = max((o + n for o, n in self.spans), default=0)
+        if end > x.numel():
+            raise ValueError(f"the chunk table covers {end} elements, the "
+                             f"buffer has {x.numel()}")
+        for name, t in (("chunks", self.chunks), ("bounds", self.bounds)):
+            if t.dtype != torch.int64 or not t.is_contiguous():
+                raise TypeError(f"chunk table {name} must be contiguous "
+                                f"int64")
+            if t.device != x.device:
+                raise ValueError(f"chunk table on {t.device}, buffer on "
+                                 f"{x.device}")
+
+
+def _l2norm_per_tensor_plain(x, table):
+    # the kernel's two stages: each chunk's sum of squares, then each
+    # tensor's chunks summed
+    c = table.chunk
+    sums = [F.pad(x[o:o + n], (0, -n % c)).view(-1, c).square().sum(dim=1)
+            .sum() for o, n in table.spans]
+    return (torch.stack(sums) if sums
+            else torch.zeros(0, dtype=torch.float32, device=x.device))
+
+
+def multi_tensor_l2norm_per_tensor(x: torch.Tensor,
+                                   table: ChunkTable) -> torch.Tensor:
+    """fp32 sum of squares of each tensor of the flat buffer ``x``, as a
+    (num_tensors,) tensor (the squared per-tensor norms).  On the card the
+    sums run in a fixed order: the same result on every run."""
+    _flat_f32(x, "x")
+    table.check(x)
+    if not _build.use_kernel(x, table.chunks, table.bounds):
+        return _l2norm_per_tensor_plain(x, table)
+    out = torch.zeros(table.num_tensors, dtype=torch.float32,
+                      device=x.device)
+    nchunks = table.chunks.shape[0]
+    if nchunks:
+        partials = torch.empty(nchunks, dtype=torch.float32, device=x.device)
+        lib = _build.library("multi_tensor")
+        _build.check(lib.apex_l2norm_per_tensor(
+            x.data_ptr(), table.chunks.data_ptr(), nchunks,
+            table.bounds.data_ptr(), table.num_tensors, partials.data_ptr(),
+            out.data_ptr(), _build.stream_ptr(x)), "apex_l2norm_per_tensor")
+        multi_tensor_l2norm_per_tensor.launches += 1
+    return out
+
+
+multi_tensor_l2norm_per_tensor.launches = 0

@@ -39,6 +39,8 @@ class FusedAdam(Optimizer):
     """Signature of the reference Apex FusedAdam, without ``params``:
     ``amp.initialize`` binds it to the model."""
 
+    elementwise = True
+
     def __init__(self, lr=1e-3, bias_correction: bool = True,
                  betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
                  eps_inside_sqrt: bool = False, weight_decay: float = 0.0,

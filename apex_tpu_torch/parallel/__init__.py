@@ -3,9 +3,8 @@
 Counterpart of the data-parallel core of ``apex_tpu/parallel``:
 ``DistributedDataParallel`` (bucketed grad all-reduce), ``Reducer``,
 ``flat_dist_call``, ``SyncBatchNorm`` with ``convert_syncbn_model`` and
-``create_syncbn_process_group``, and ``init_process_group`` with the
-``python -m apex_tpu_torch.parallel.multiproc`` launcher.  (``LARC``
-waits on per-tensor norms, which come with the LAMB slice.)
+``create_syncbn_process_group``, ``LARC``, and ``init_process_group``
+with the ``python -m apex_tpu_torch.parallel.multiproc`` launcher.
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ import torch
 import torch.distributed as dist
 
 from . import multiproc
+from .LARC import LARC
 from .distributed import (DistributedDataParallel, Reducer, ReduceOp,
                           flat_dist_call, predivide_factors)
 from .multiproc import init_process_group
@@ -24,7 +24,7 @@ from .sync_batchnorm import SyncBatchNorm
 __all__ = ["DistributedDataParallel", "Reducer", "ReduceOp",
            "flat_dist_call", "predivide_factors", "SyncBatchNorm",
            "convert_syncbn_model", "create_syncbn_process_group",
-           "init_process_group", "multiproc"]
+           "init_process_group", "multiproc", "LARC"]
 
 
 def convert_syncbn_model(module: torch.nn.Module, process_group=None,

@@ -1,1 +1,2 @@
-"""Utilities (``jax_interop``: weights to and from the JAX package)."""
+"""Utilities: ``jax_interop`` (weights and LAMB state to and from the JAX
+package) and ``ema`` (parameter averaging)."""

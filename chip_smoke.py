@@ -21,7 +21,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
             (32, 12, 128, 64) bf16 in every variant (causal, key padding,
             segments, dropout), at T = 512 and at odd shapes, each output
             held against an fp64 evaluation within a stated bound; the
-            dropout mask shown to be the hash's (q = k = 0, V = identity).
+            dropout mask shown to be the hash's (q = k = 0, V = identity);
+            the LAMB stage 1 and stage 2 at BERT-large's flat length
+            (336,195,586, its 301 tensors, the weights of the model) and
+            an odd length, bitwise, with the no-op flag set and clear, and
+            the per-tensor l2norm on BERT-large's tensors and a ragged
+            list (rtol 1e-6).
 4. train    the single-card ResNet path: ResNet-50 under amp O2 + FusedAdam
             at batch 128, 3x224x224, then two steps of two micro-batches
             (axpby); the device time of three more steps by kernel
@@ -35,10 +40,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
             FusedAdam(lr=1e-4), MLM + NSP loss in train mode (dropout 0.1,
             so the flash kernels' dropout runs) at 32 x 128 tokens, 12
             steps and two of two micro-batches, three steps profiled; and
-            a tiny BERT trained on the card against the CPU, in fp32.
-7. overflow one fp16 step with an inf in the input: the loss scale halves
-            and masters, m, v and the step counter stay bitwise.
-8. counts   each path launched each of its kernels exactly as often as it
+            a tiny BERT trained on the card against the CPU, in fp32, with
+            FusedAdam and with FusedLAMB.
+7. bert-large  the BERT-large path on a one-rank NCCL group:
+            BertForPretraining(bert_large()) -> O2 + FusedLAMB(lr=1e-3) ->
+            DistributedDataParallel, MLM + NSP in train mode (dropout 0.1)
+            at 8 x 128 tokens, 12 steps and two of two micro-batches,
+            three steps profiled.
+8. overflow one fp16 step with an inf in the input, under FusedAdam and
+            under FusedLAMB: the loss scale halves and masters, half copy,
+            m, v and the step counter stay bitwise.
+9. counts   each path launched each of its kernels exactly as often as it
             runs it (per step, per BatchNorm, LayerNorm or attention layer
             and pass) and no kernel of another path.
 
@@ -83,6 +95,12 @@ REPLACES = {
     "flash_fwd": "apex_tpu/ops/pallas_flash_attention.py:154",
     "flash_dq": "apex_tpu/ops/pallas_flash_attention.py:293",
     "flash_dkv": "apex_tpu/ops/pallas_flash_attention.py:351",
+    "lamb_stage1": "apex_tpu/ops/pallas_lamb.py:30",
+    "lamb_stage2": "apex_tpu/ops/pallas_lamb.py:84",
+    # the per-tensor branch of the l2norm (jnp there: ChunkedFlatLayout.
+    # per_tensor_sqsum, apex_tpu/multi_tensor_apply/flatten.py:210)
+    "multi_tensor_l2norm_per_tensor":
+        "apex_tpu/ops/pallas_multi_tensor.py:172",
 }
 SOURCE = {
     "multi_tensor_scale": "apex_tpu_torch/ops/csrc/multi_tensor.cu",
@@ -96,6 +114,9 @@ SOURCE = {
     "flash_fwd": "apex_tpu_torch/ops/csrc/flash_attention.cu",
     "flash_dq": "apex_tpu_torch/ops/csrc/flash_attention.cu",
     "flash_dkv": "apex_tpu_torch/ops/csrc/flash_attention.cu",
+    "lamb_stage1": "apex_tpu_torch/ops/csrc/lamb.cu",
+    "lamb_stage2": "apex_tpu_torch/ops/csrc/lamb.cu",
+    "multi_tensor_l2norm_per_tensor": "apex_tpu_torch/ops/csrc/multi_tensor.cu",
 }
 BN_LAYERS = 53               # BatchNorm layers of ResNet-50
 BN_ODD = ((3, 37, 15, 13), (5, 9, 1, 1), (2, 7, 12, 12))
@@ -922,6 +943,224 @@ def phase_flash():
     return rows
 
 
+# -- phase 3, LAMB and the per-tensor l2norm ------------------------------------
+
+BERT_LARGE_N = 336_195_586          # BERT-large's flat parameter count
+BERT_LARGE_TENSORS = 301
+RAGGED = (1, 1023, 1025, 3 * 1024)  # lengths around the 1024 chunk
+ODD_TENSORS = (5, 70_001, 2, 929_995)   # N_ODD in four, chunks off 16 B
+FP32_FLOPS = 67e12                  # H100 SXM fp32 outside tensor cores
+LAMB_HP = (0.9, 0.999, 0.1, 1e-6)   # beta1, beta2, beta3, eps
+
+
+def _layout(sizes):
+    from apex_tpu_torch.multi_tensor_apply import ChunkedFlatLayout
+    return ChunkedFlatLayout([torch.empty(n, device="meta") for n in sizes])
+
+
+def _bert_large_params():
+    """BERT-large's weights (seed SEED) on the card, flat in the amp layout
+    (the JAX package's leaf order), and that layout."""
+    from apex_tpu_torch import models
+    from apex_tpu_torch.amp._process_optimizer import jax_leaf_order
+    from apex_tpu_torch.multi_tensor_apply import ChunkedFlatLayout
+    model = models.BertForPretraining(
+        models.bert_large(), device=DEVICE,
+        generator=torch.Generator().manual_seed(SEED))
+    by_name = dict(model.named_parameters())
+    tensors = [by_name[n].detach() for n in jax_leaf_order(by_name)]
+    layout = ChunkedFlatLayout(tensors)
+    flat = layout.pack(tensors)
+    del model, by_name, tensors
+    torch.cuda.empty_cache()
+    return flat, layout
+
+
+def _lamb_inputs(p, seed):
+    dev = p.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = p.numel()
+    g = torch.randn(n, generator=gen, device=dev) * 3.0
+    m = torch.randn(n, generator=gen, device=dev) * 0.01
+    v = torch.rand(n, generator=gen, device=dev) * 1e-4
+    # 1/clip, 1/(1-beta1^3), 1/(1-beta2^3) as a third step forms them
+    scal = [torch.full((), s, dtype=torch.float32, device=dev) for s in
+            (0.5, 1.0 / (1.0 - 0.9 ** 3), 1.0 / (1.0 - 0.999 ** 3))]
+    return g, m, v, scal, gen
+
+
+def _lamb_check(p, table, seed):
+    """Stage 1 in both modes with and without weight decay, and stage 2
+    with and without the bf16 copy, each with the no-op flag clear and
+    set: kernel and plain version bitwise, and a set flag writes nothing.
+    Returns the max abs errors against the plain versions."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import lamb as lm
+    g, m0, v0, scal, gen = _lamb_inputs(p, seed)
+    err = {"lamb_stage1": 0.0, "lamb_stage2": 0.0}
+    for noop in (0.0, 1.0):
+        flag = torch.full((), noop, device=p.device)
+        for adam_w_mode in (True, False):
+            for wd in (0.0, 0.01):
+                hp = (*LAMB_HP, wd, adam_w_mode)
+                mk, vk, uk = m0.clone(), v0.clone(), torch.zeros_like(p)
+                mp, vp, up = m0.clone(), v0.clone(), torch.zeros_like(p)
+                ops.lamb_stage1(g, p, mk, vk, *scal, *hp, noop=flag, out=uk)
+                lm._stage1_plain(g, p, mp, vp, up, *scal, *hp, flag)
+                for name, a, b in (("u", uk, up), ("m", mk, mp),
+                                   ("v", vk, vp)):
+                    assert same(a, b), (f"lamb_stage1 {name} n={p.numel()} "
+                                        f"adam_w_mode {adam_w_mode} wd {wd} "
+                                        f"noop {noop}: kernel != plain")
+                    err["lamb_stage1"] = max(err["lamb_stage1"],
+                                             max_abs(a, b))
+                if noop:
+                    assert torch.equal(mk, m0) and torch.equal(vk, v0) \
+                        and not bool(uk.any()), "lamb_stage1 no-op wrote"
+                del mk, vk, uk, mp, vp, up
+    u = ops.lamb_stage1(g, p, m0.clone(), v0.clone(), *scal, *LAMB_HP, 0.01,
+                        True)
+    ratio = torch.rand(table.num_tensors, generator=gen,
+                       device=p.device) + 0.5
+    lr = torch.full((), 1e-3, device=p.device)
+    for noop in (0.0, 1.0):
+        flag = torch.full((), noop, device=p.device)
+        for half in (None, torch.bfloat16):
+            pk, pp = p.clone(), p.clone()
+            hk, hp = ((None, None) if half is None else
+                      (torch.zeros_like(p, dtype=half),
+                       torch.zeros_like(p, dtype=half)))
+            ops.lamb_stage2(pk, u, ratio, table, lr, half=hk, noop=flag)
+            lm._stage2_plain(pp, u, ratio, table, lr, hp, flag)
+            assert same(pk, pp), (f"lamb_stage2 n={p.numel()} half {half} "
+                                  f"noop {noop}: kernel != plain")
+            if half is not None:
+                assert same(hk, hp), f"lamb_stage2 half copy {half}"
+            if noop:
+                assert torch.equal(pk, p) and (hk is None or not bool(
+                    hk.any())), "lamb_stage2 no-op wrote"
+            err["lamb_stage2"] = max(err["lamb_stage2"], max_abs(pk, pp))
+            del pk, pp, hk, hp
+    return err
+
+
+def _l2pt_check(x, table) -> float:
+    """The per-tensor l2norm against its plain version at rtol 1e-6 (the
+    sums run in another order), the same bits on a second run."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import multi_tensor as mt
+    got = ops.multi_tensor_l2norm_per_tensor(x, table)
+    want = mt._l2norm_per_tensor_plain(x, table)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    assert torch.equal(ops.multi_tensor_l2norm_per_tensor(x, table), got), \
+        "l2norm per tensor differs between runs"
+    return max_abs(got, want)
+
+
+def phase_lamb():
+    """The LAMB kernels and the per-tensor l2norm at BERT-large's flat
+    length and tensors (its weights as p) and at odd lengths, against
+    their plain versions; timed at BERT-large's length."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import lamb as lm
+    from apex_tpu_torch.ops import multi_tensor as mt
+    err = {"lamb_stage1": 0.0, "lamb_stage2": 0.0,
+           "multi_tensor_l2norm_per_tensor": 0.0}
+
+    def note(e):
+        for k, v in e.items():
+            err[k] = max(err[k], v)
+
+    dev = torch.device(DEVICE)
+    for i, sizes in enumerate((RAGGED, ODD_TENSORS)):
+        table = _layout(sizes).chunk_table(dev)
+        x = torch.from_numpy(np.random.RandomState(SEED + 60 + i).randn(
+            sum(sizes)).astype(np.float32)).to(dev)
+        note({"multi_tensor_l2norm_per_tensor": _l2pt_check(x, table)})
+        note(_lamb_check(x, table, SEED + 62 + i))
+    log(f"[kernels] lamb stage 1 (adam_w_mode and L2, wd 0 and 0.01), stage "
+        f"2 (with and without the bf16 copy), no-op flag clear and set, and "
+        f"the per-tensor l2norm at tensors {RAGGED} and {ODD_TENSORS}: "
+        f"agree with the plain versions; max abs err {err}")
+
+    p, layout = _bert_large_params()
+    n, T = p.numel(), layout.num_tensors
+    assert n == BERT_LARGE_N and T == BERT_LARGE_TENSORS, (n, T)
+    table = layout.chunk_table(dev)
+    K = table.chunks.shape[0]
+    note({"multi_tensor_l2norm_per_tensor": _l2pt_check(p, table)})
+    g, m0, v0, scal, _ = _lamb_inputs(p, SEED + 64)
+    note({"multi_tensor_l2norm_per_tensor": _l2pt_check(g, table)})
+    del g, m0, v0
+    torch.cuda.empty_cache()
+    note(_lamb_check(p, table, SEED + 64))
+    log(f"[kernels] lamb stage 1, stage 2 and the per-tensor l2norm at "
+        f"BERT-large's {n} parameters in {T} tensors ({K} chunks of at most "
+        f"{table.chunk}): agree with the plain versions; max abs err {err}")
+
+    g, m0, v0, scal, gen = _lamb_inputs(p, SEED + 65)
+    hp = (*LAMB_HP, 0.01, True)
+    zero = torch.zeros((), device=dev)
+    mk, vk, mp, vp = m0.clone(), v0.clone(), m0.clone(), v0.clone()
+    uk, up = torch.empty_like(p), torch.empty_like(p)
+    u = ops.lamb_stage1(g, p, m0, v0, *scal, *hp)
+    ratio = torch.rand(T, generator=gen, device=dev) + 0.5
+    lr = torch.full((), 1e-3, device=dev)
+    pk, pp = p.clone(), p.clone()
+    hk, hpl = (torch.empty_like(p, dtype=torch.bfloat16) for _ in range(2))
+    table_bytes = 24 * K + 8 * (T + 1)
+    spans = table.spans
+    timing = {
+        # reads g, p, m, v; writes u, m, v
+        "lamb_stage1": (
+            28 * n, 20 * n, time_ms,
+            lambda: ops.lamb_stage1(g, p, mk, vk, *scal, *hp, noop=zero,
+                                    out=uk),
+            lambda: lm._stage1_plain(g, p, mp, vp, up, *scal, *hp, zero),
+            None),
+        # reads p, u, the ratios and the chunk table; writes p and the
+        # bf16 copy
+        "lamb_stage2": (
+            14 * n + 4 * T + table_bytes, 3 * n, time_ms,
+            lambda: ops.lamb_stage2(pk, u, ratio, table, lr, half=hk,
+                                    noop=zero),
+            lambda: lm._stage2_plain(pp, u, ratio, table, lr, hpl, zero),
+            None),
+        # reads x and the chunk table; writes one sum a tensor
+        "multi_tensor_l2norm_per_tensor": (
+            4 * n + table_bytes + 4 * T, 2 * n, graph_ms,
+            lambda: ops.multi_tensor_l2norm_per_tensor(p, table),
+            lambda: mt._l2norm_per_tensor_plain(p, table),
+            lambda: [torch.linalg.vector_norm(p[o:o + k]) for o, k in spans]),
+    }
+    rows = {}
+    for name, (nbytes, flops, clock, kern, plain, libcall) in timing.items():
+        kms, pms = clock(kern), clock(plain)
+        lms = None if libcall is None else clock(libcall)
+        t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        rows[name] = {"name": name, "route": "cuda", "source": SOURCE[name],
+                      "replaces": REPLACES[name], "launches": 0,
+                      "max_abs_err": err[name], "ms": kms, "plain_ms": pms,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations",
+                      "library_ms": lms, "call_ms": time_ms(kern),
+                      "bytes": nbytes, "flops": flops, "n": n,
+                      "per": f"one call at BERT-large's {n} parameters, "
+                             f"{T} tensors"}
+        log(f"[kernels] {name} n={n}: kernel_ms {kms:.4f} bound_ms "
+            f"{rows[name]['bound_ms']:.4f} ({nbytes} B at "
+            f"{MEM_BYTES_PER_S / 1e12} TB/s; {flops} fp32 flops) plain_ms "
+            f"{pms:.4f} library_ms "
+            f"{'none' if lms is None else '%.4f' % lms} (clock "
+            f"{clock.__name__}); one eager call "
+            f"{rows[name]['call_ms']:.4f}")
+    del g, m0, v0, mk, vk, mp, vp, uk, up, u, pk, pp, hk, hpl, p
+    torch.cuda.empty_cache()
+    return rows
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def _train_step(model, opt, x, y, micro: int = 1):
@@ -973,7 +1212,7 @@ def _drive(opt, step, tag: str, smi: str, items: int, unit: str):
     steps_done = int(opt.state.step)
     assert all(math.isfinite(v) for v in vals), f"non-finite loss {vals}"
     assert vals[11] < vals[0], f"loss did not fall: {vals}"
-    assert steps_done == 14, f"Adam applied {steps_done} steps, expected 14"
+    assert steps_done == 14, f"the optimizer applied {steps_done} steps, expected 14"
     med = statistics.median(step_ms)
     log(f"[{tag}] {items} {unit} a step on {smi}: losses "
         f"{['%.4f' % v for v in vals]}")
@@ -1051,7 +1290,8 @@ def phase_ddp(smi):
     return out
 
 
-_PORT_KERNELS = ("scale_kernel", "axpby_kernel", "l2norm_", "adam_kernel")
+_PORT_KERNELS = ("scale_kernel", "axpby_kernel", "l2norm_", "adam_kernel",
+                 "lamb_stage")
 _PORT_BN = ("bn_fwd_kernel", "bn_bwd_rows_kernel")
 _PORT_LN = ("ln_fwd_", "ln_bwd_", "ln_colsum_kernel")
 _PORT_ATTN = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
@@ -1229,10 +1469,11 @@ def phase_bert(smi):
     return out
 
 
-def phase_bert_reference():
+def phase_bert_reference(make_opt, lr: float):
     """A tiny BERT trained three steps in fp32 (O0) on the card and on the
-    CPU (the plain versions), from the same weights and batch."""
-    from apex_tpu_torch import amp, models, optimizers
+    CPU (the plain versions), from the same weights and batch, under the
+    optimizer ``make_opt(lr)`` makes."""
+    from apex_tpu_torch import amp, models
     cfg = models.BertConfig(vocab_size=128, hidden_size=64,
                             num_hidden_layers=2, num_attention_heads=4,
                             intermediate_size=128, max_position_embeddings=64,
@@ -1242,8 +1483,9 @@ def phase_bert_reference():
     for dev in (DEVICE, "cpu"):
         model = models.BertForPretraining(
             cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
-        model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-4),
-                                    opt_level="O0", verbosity=0)
+        opt = make_opt(lr)
+        name = type(opt).__name__
+        model, opt = amp.initialize(model, opt, opt_level="O0", verbosity=0)
         batch = _bert_batch(cfg.vocab_size, np.random.RandomState(SEED + 3),
                             4, 32, dev)
         step = _bert_step(model, opt, batch)
@@ -1253,24 +1495,83 @@ def phase_bert_reference():
     rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
     dmax = float((mc - mp).abs().max())
     # fp32 on both (TF32 off); sums in other orders.  Adam moves a weight
-    # about lr a step, so a flipped near-zero grad costs up to 2*lr a step
-    assert rel < 1e-4, f"card vs CPU losses {lc} vs {lp}"
-    assert dmax <= 2 * 1e-4 * 3, f"card vs CPU masters differ by {dmax}"
-    log(f"[bert-reference] O0 tiny BERT, card vs CPU: losses {lc} vs {lp} "
-        f"(max rel {rel:.2e} <= 1e-4), masters max abs diff {dmax:.2e} "
-        f"(<= 2*lr*steps = 6e-4)")
+    # about lr a step, so a flipped near-zero grad costs up to 2*lr a step;
+    # LAMB moves it by lr*ratio*u, ratio = ||p||/||u||, so up to about
+    # 2*lr*|p| a step: 2*lr*steps*max|p|
+    bound = 2 * lr * 3 * (1.0 if name == "FusedAdam"
+                          else float(mp.abs().max()))
+    assert rel < 1e-4, f"{name}: card vs CPU losses {lc} vs {lp}"
+    assert dmax <= bound, f"{name}: card vs CPU masters differ by {dmax}"
+    log(f"[bert-reference] O0 tiny BERT, {name}(lr={lr}), card vs CPU: "
+        f"losses {lc} vs {lp} (max rel {rel:.2e} <= 1e-4), masters max abs "
+        f"diff {dmax:.2e} (<= {bound:.2e})")
 
 
-# -- phase 7 -----------------------------------------------------------------
+# -- phase 7, BERT-large ------------------------------------------------------
 
-def phase_overflow():
-    from apex_tpu_torch import amp, models, optimizers
+BERT_LARGE_BATCH = 8                # bench.py's BERT-large: 8 x 128 a chip
+
+
+def phase_bert_large(smi):
+    """The BERT-large path on a one-rank group: BertForPretraining(
+    bert_large()) -> O2 + FusedLAMB(lr 1e-3) -> DistributedDataParallel,
+    train mode with the config's dropout 0.1, 8 x 128 tokens."""
+    import torch.distributed as dist
+    from apex_tpu_torch import amp, models, optimizers, parallel
+    parallel.init_process_group(
+        init_method=parallel.multiproc.local_init_method(), world_size=1,
+        rank=0)
+    try:
+        cfg = models.bert_large()
+        model = models.BertForPretraining(
+            cfg, device=DEVICE, generator=torch.Generator().manual_seed(SEED),
+            dropout_generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+        n_params = sum(p.numel() for p in model.parameters())
+        n_tensors = len(list(model.parameters()))
+        assert (n_params, n_tensors) == (BERT_LARGE_N, BERT_LARGE_TENSORS), \
+            (n_params, n_tensors)
+        model, opt = amp.initialize(model, optimizers.FusedLAMB(lr=1e-3),
+                                    opt_level="O2", verbosity=0)
+        ddp = parallel.DistributedDataParallel(model)
+        model.train()
+        m = opt.masters
+        assert torch.equal(m.half, m.buf.to(m.half.dtype)), \
+            "half copy and masters disagree after the broadcast"
+        log(f"[bert-large] {dist.get_backend()} group of "
+            f"{dist.get_world_size()}: BertForPretraining(bert_large) "
+            f"{n_params} parameters in {n_tensors} tensors, O2 "
+            f"FusedLAMB(lr=1e-3) -> DistributedDataParallel, dropout "
+            f"{cfg.hidden_dropout_prob}/{cfg.attention_probs_dropout_prob}, "
+            f"batch {BERT_LARGE_BATCH} x {BERT_SEQ}")
+        batch = _bert_batch(cfg.vocab_size, np.random.RandomState(SEED),
+                            BERT_LARGE_BATCH, BERT_SEQ, DEVICE)
+        out = _drive(opt, _bert_step(model, opt, batch), "bert-large", smi,
+                     BERT_LARGE_BATCH, "sequences")
+        log(f"[bert-large] buckets of the last all-reduce: "
+            f"{ddp.last_comm_stats}")
+        del model, opt, ddp
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+# -- phase 8 -----------------------------------------------------------------
+
+def _moments(opt):
+    """The optimizer's m and v buffers (FusedLAMB keeps them with their
+    layout)."""
+    m, v = opt.state.m, opt.state.v
+    return getattr(m, "buf", m), getattr(v, "buf", v)
+
+
+def phase_overflow(inner):
+    from apex_tpu_torch import amp, models
 
     model = models.resnet50(device=DEVICE,
                             generator=torch.Generator().manual_seed(SEED + 1))
-    model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
-                                opt_level="O2", half_dtype="float16",
-                                verbosity=0)
+    model, opt = amp.initialize(model, inner, opt_level="O2",
+                                half_dtype="float16", verbosity=0)
     assert opt.scaler.dynamic, "fp16 O2 must scale dynamically"
     x, y = _batch(np.random.RandomState(SEED + 2), OVERFLOW_BATCH, IMAGE,
                   1000, DEVICE)
@@ -1278,23 +1579,27 @@ def phase_overflow():
         _train_step(model, opt, x, y)
         if int(opt.state.step) > 0:
             break
+    m, v = _moments(opt)
     before = {"masters": opt.masters.buf.clone(), "half": opt.masters.half
-              .clone(), "m": opt.state.m.clone(), "v": opt.state.v.clone(),
+              .clone(), "m": m.clone(), "v": v.clone(),
               "step": opt.state.step.clone()}
     scale0 = float(opt.loss_scale())
     x[0, 0, 0, 0] = float("inf")
     loss = _train_step(model, opt, x, y)
     scale1 = float(opt.loss_scale())
+    m, v = _moments(opt)
     after = {"masters": opt.masters.buf, "half": opt.masters.half,
-             "m": opt.state.m, "v": opt.state.v, "step": opt.state.step}
+             "m": m, "v": v, "step": opt.state.step}
     assert not math.isfinite(float(loss)), "the planted inf did not overflow"
     assert float(opt.last_info["found_inf"]) == 1.0
     assert scale1 == scale0 / 2, f"loss scale {scale0} -> {scale1}"
     for k in before:
         assert torch.equal(before[k], after[k]), f"{k} changed on a skip"
-    log(f"[overflow] fp16 dynamic: loss {float(loss)}, loss scale {scale0} "
-        f"-> {scale1}, masters/half/m/v/step bitwise unchanged "
-        f"(step {int(after['step'])})")
+    log(f"[overflow] {type(inner).__name__}, fp16 dynamic: loss "
+        f"{float(loss)}, loss scale {scale0} -> {scale1}, masters/half/m/v/"
+        f"step bitwise unchanged (step {int(after['step'])})")
+    del model, opt
+    torch.cuda.empty_cache()
 
 
 def _check_counts(tag: str, counts, expect) -> None:
@@ -1319,6 +1624,18 @@ BERT_COUNTS = dict(OPT_COUNTS, layer_norm_fwd=LN_PER_PASS * PASSES,
                    flash_fwd=FLASH_PER_PASS * PASSES,
                    flash_dq=FLASH_PER_PASS * PASSES,
                    flash_dkv=FLASH_PER_PASS * PASSES)
+# BERT-large: 24 layers of 16 heads, 50 LayerNorms a pass (the embeddings',
+# two a layer, the MLM head's); a LAMB step runs the per-tensor l2norm on
+# the grads, the params and the update
+LARGE_LN_PER_PASS, LARGE_FLASH_PER_PASS = 50, 24
+BERT_LARGE_COUNTS = dict(
+    OPT_COUNTS, fused_adam=0, lamb_stage1=14, lamb_stage2=14,
+    multi_tensor_l2norm_per_tensor=3 * 14,
+    layer_norm_fwd=LARGE_LN_PER_PASS * PASSES,
+    layer_norm_bwd=LARGE_LN_PER_PASS * PASSES,
+    flash_fwd=LARGE_FLASH_PER_PASS * PASSES,
+    flash_dq=LARGE_FLASH_PER_PASS * PASSES,
+    flash_dkv=LARGE_FLASH_PER_PASS * PASSES)
 
 
 def main():
@@ -1329,24 +1646,34 @@ def main():
     rows.update(phase_syncbn())
     rows.update(phase_layer_norm())
     rows.update(phase_flash())
+    rows.update(phase_lamb())
     counts_train, _, train = phase_train(smi)
     phase_reference()
     counts_ddp, _, ddp = phase_ddp(smi)
     counts_bert, _, bert = phase_bert(smi)
-    phase_bert_reference()
-    phase_overflow()
+    from apex_tpu_torch import optimizers
+    phase_bert_reference(lambda lr: optimizers.FusedAdam(lr=lr), 1e-4)
+    phase_bert_reference(lambda lr: optimizers.FusedLAMB(lr=lr), 1e-3)
+    counts_large, _, large = phase_bert_large(smi)
+    phase_overflow(optimizers.FusedAdam(lr=1e-3))
+    phase_overflow(optimizers.FusedLAMB(lr=1e-3))
 
     _check_counts("train", counts_train, RESNET_COUNTS)
     _check_counts("ddp", counts_ddp, RESNET_COUNTS)
     _check_counts("bert", counts_bert, BERT_COUNTS)
+    _check_counts("bert-large", counts_large, BERT_LARGE_COUNTS)
     # each row's launches from the path that runs it: the optimizer
     # kernels from the single-card ResNet path, syncbn from the DDP path,
-    # LayerNorm and flash from the BERT path
+    # LayerNorm and flash from the BERT-base path (the shapes of their
+    # rows), LAMB and the per-tensor l2norm from the BERT-large path
     path_of = dict.fromkeys(OPT_COUNTS, counts_train)
-    path_of.update(syncbn_fwd=counts_ddp, syncbn_bwd=counts_ddp)
+    path_of.update(syncbn_fwd=counts_ddp, syncbn_bwd=counts_ddp,
+                   lamb_stage1=counts_large, lamb_stage2=counts_large,
+                   multi_tensor_l2norm_per_tensor=counts_large)
     for k in rows:
         rows[k]["launches"] = path_of.get(k, counts_bert)[k]
-    log(json.dumps({"train": train, "ddp": ddp, "bert": bert, "card": smi}))
+    log(json.dumps({"train": train, "ddp": ddp, "bert": bert,
+                    "bert_large": large, "card": smi}))
     log(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,8 @@ from apex_tpu import optimizers as joptim
 from apex_tpu.transformer import attention as jattn
 
 from apex_tpu_torch import amp, models, optimizers, transformer
-from apex_tpu_torch.utils.jax_interop import params_from_jax, params_to_jax
+from apex_tpu_torch.utils.jax_interop import (lamb_state_to_jax,
+                                              params_from_jax, params_to_jax)
 
 LR = 1e-4                  # BERT's FusedAdam learning rate
 STEPS = 3
@@ -151,10 +152,10 @@ def test_forward_and_loss_match_jax(monkeypatch, weights, head_chunk,
 
 # -- the training slice -------------------------------------------------------
 
-def _train_jax(weights, opt_level, batch):
+def _train_jax(weights, opt_level, batch, jopt=None):
     ids, labels, nsp, attn = (jnp.asarray(a) for a in batch)
     jmodel, jopt = jamp.initialize(jmodels.BertForPretraining(
-        jmodels.BertConfig(**CFG)), joptim.FusedAdam(lr=LR),
+        jmodels.BertConfig(**CFG)), jopt or joptim.FusedAdam(lr=LR),
         opt_level=opt_level, verbosity=0)
     params = jmodel.cast_params(jax.tree_util.tree_map(jnp.asarray, weights))
     ost = jopt.init(params)
@@ -175,9 +176,10 @@ def _train_jax(weights, opt_level, batch):
     return losses, params, ost
 
 
-def _train_port(weights, opt_level, batch):
+def _train_port(weights, opt_level, batch, opt=None):
     ids, labels, nsp, attn = (_t(a) for a in batch)
-    model, opt = amp.initialize(_port(weights), optimizers.FusedAdam(lr=LR),
+    model, opt = amp.initialize(_port(weights),
+                                opt or optimizers.FusedAdam(lr=LR),
                                 opt_level=opt_level, verbosity=0)
     losses = []
     for _ in range(STEPS):
@@ -228,6 +230,64 @@ def test_training_slice_matches_jax(jax_runs, weights, opt_level, loss_rtol):
     atol = 2 * LR * STEPS + 4 * float(np.spacing(np.abs(jm).max()))
     np.testing.assert_allclose(tm, jm, rtol=0, atol=atol)
     assert int(opt.state.step) == int(jost.inner.step) == STEPS
+
+
+# -- the BERT-large slice's optimizer: FusedLAMB ------------------------------
+
+LAMB_LR = 1e-3             # BERT-large's FusedLAMB learning rate
+
+
+@pytest.fixture(scope="module")
+def jax_lamb_runs(weights):
+    """Both opt levels' JAX trajectories with FusedLAMB, under the forced
+    Pallas path (the LAMB kernels in interpret mode)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("APEX_TPU_FORCE_PALLAS", "1")
+        mp.delenv("APEX_TPU_DISABLE_PALLAS", raising=False)
+        batch = _batch(seed=2)
+        return batch, {lvl: _train_jax(weights, lvl, batch,
+                                       joptim.FusedLAMB(lr=LAMB_LR))
+                       for lvl in ("O0", "O2")}
+
+
+def _jax_masters(jparams, jost, opt_level):
+    """The JAX package's fp32 masters in the port's flat order: under O2
+    the master tree it keeps for a non-elementwise optimizer, under O0 the
+    params."""
+    tree = jost.masters if opt_level == "O2" else jparams
+    return np.concatenate([np.asarray(a, np.float32).ravel()
+                           for a in jax.tree_util.tree_leaves(tree)])
+
+
+# O0 is fp32 on both sides, only the sums' order differs (measured: losses
+# within 8.6e-8 relative, masters within 1.8e-7, m and v within 3e-7 in
+# relative norm).  At O2 the bf16 matmuls round apart (losses within 1.1e-4;
+# m and v 7.2e-3 in relative norm), and LAMB moves each element by
+# lr*ratio*u, ratio = ||p||/||u|| and u within a few units of 1, so a
+# near-zero grad whose sign flips costs about 2*lr*|p| a step: masters
+# within 2*lr*steps*max|p| (measured 3.5e-3 of 6.0e-3)
+@pytest.mark.parametrize("opt_level,loss_rtol,masters_atol,moments_rel", [
+    ("O0", 1e-6, 1e-6, 1e-5), ("O2", 1e-3, None, 3e-2)])
+def test_training_slice_lamb_matches_jax(jax_lamb_runs, weights, opt_level,
+                                         loss_rtol, masters_atol,
+                                         moments_rel):
+    batch, runs = jax_lamb_runs
+    jl, jparams, jost = runs[opt_level]
+    tl, model, opt = _train_port(weights, opt_level, batch,
+                                 optimizers.FusedLAMB(lr=LAMB_LR))
+    assert all(np.isfinite(tl)) and tl[-1] < tl[0]
+    np.testing.assert_allclose(tl, jl, rtol=loss_rtol)
+    tm, jm = opt.masters.buf.numpy(), _jax_masters(jparams, jost, opt_level)
+    atol = masters_atol or 2 * LAMB_LR * STEPS * float(np.abs(jm).max())
+    np.testing.assert_allclose(tm, jm, rtol=0, atol=atol)
+    # the moments, padded as the JAX package lays them out
+    back = lamb_state_to_jax(opt.state)
+    jinner = jost.inner
+    for k in ("m", "v"):
+        want = np.asarray(getattr(jinner, k).buf)
+        rel = np.linalg.norm(back[k] - want) / np.linalg.norm(want)
+        assert rel < moments_rel, (k, rel)
+    assert int(opt.state.step) == int(jinner.step) == STEPS
 
 
 def test_tp_and_sp_raise_naming_the_roadmap():

@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from apex_tpu_torch import nn, ops
+from apex_tpu_torch.multi_tensor_apply import ChunkedFlatLayout
 from apex_tpu_torch.ops import adam as adam_mod
 from apex_tpu_torch.ops import flash_attention as fa
+from apex_tpu_torch.ops import lamb as lamb_mod
 from apex_tpu_torch.ops import layer_norm as lnm
 from apex_tpu_torch.ops import multi_tensor as mt
 from apex_tpu_torch.ops import syncbn as sbn
@@ -83,6 +85,11 @@ def test_cuda_wrappers_count_their_launches(cuda):
     o, lse = ops.flash_fwd(q3, q3, q3, 1, 0.5)
     ops.flash_dq(q3, q3, q3, q3, lse, lse, 1, 0.5)
     ops.flash_dkv(q3, q3, q3, q3, lse, lse, 1, 0.5)
+    table = ChunkedFlatLayout([x[:4000], x[4000:]]).chunk_table(cuda)
+    ops.multi_tensor_l2norm_per_tensor(x, table)
+    u = ops.lamb_stage1(x, x, x.clone(), x.clone(), 1.0, 1.0, 1.0, 0.9, 0.999,
+                        0.1, 1e-6, 0.0, True)
+    ops.lamb_stage2(x.clone(), u, torch.ones(2, device=cuda), table, 0.1)
     assert ops.launch_counts() == dict.fromkeys(ops.WRAPPERS, 1)
     # the plain versions, on CPU tensors, launch nothing
     ops.multi_tensor_scale(x.cpu(), 0.5)
@@ -276,3 +283,77 @@ def test_flash_dropout_mask_is_the_hash(cuda):
     o, _ = ops.flash_fwd(z, z, eye, 2, 1.0, seed=seed, rate=0.25)
     keep = fa._keep(z, seed, 0.25)
     assert torch.equal(o != 0, keep)
+
+
+# -- LAMB and the per-tensor l2norm ---------------------------------------------
+
+def _ragged_table(cuda, sizes):
+    """The chunk table of tensors of ``sizes`` laid out densely (chunks
+    starting off the 16-byte grid after an odd size)."""
+    return ChunkedFlatLayout([torch.zeros(n) for n in sizes]).chunk_table(
+        cuda)
+
+
+RAGGED = [(1, 1023, 1025, 3 * 1024), (5, 0, 4099, 2, 70001), (1_000_003,)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", RAGGED)
+def test_l2norm_per_tensor_matches_plain(cuda, sizes):
+    table = _ragged_table(cuda, sizes)
+    x = _t(np.random.RandomState(11).randn(sum(sizes)).astype(np.float32)
+           ).to(cuda)
+    got = ops.multi_tensor_l2norm_per_tensor(x, table)
+    want = mt._l2norm_per_tensor_plain(x, table)
+    # the sums run in another order within a chunk
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    assert torch.equal(ops.multi_tensor_l2norm_per_tensor(x, table), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4099, 1_000_003])
+@pytest.mark.parametrize("adam_w_mode,wd", [(True, 0.01), (False, 0.01),
+                                            (True, 0.0)])
+@pytest.mark.parametrize("noop", [0.0, 1.0])
+def test_lamb_stage1_matches_plain(cuda, n, adam_w_mode, wd, noop):
+    rs = np.random.RandomState(12)
+    g, p, m = (_t(rs.randn(n).astype(np.float32)).to(cuda) for _ in range(3))
+    v = _t(np.abs(rs.randn(n)).astype(np.float32) * 0.01).to(cuda)
+    flag = torch.full((), noop, device=cuda)
+    scal = [torch.full((), s, device=cuda) for s in (0.5, 10.0, 1000.0)]
+    hp = (0.9, 0.999, 0.1, 1e-6, wd, adam_w_mode)
+    mk, vk, uk = m.clone(), v.clone(), torch.zeros_like(m)
+    mp, vp, up = m.clone(), v.clone(), torch.zeros_like(m)
+    ops.lamb_stage1(g, p, mk, vk, *scal, *hp, noop=flag, out=uk)
+    lamb_mod._stage1_plain(g, p, mp, vp, up, *scal, *hp, flag)
+    for a, b in ((mk, mp), (vk, vp), (uk, up)):
+        assert torch.equal(a, b)
+    if noop:
+        assert torch.equal(mk, m) and torch.equal(vk, v)
+        assert not uk.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", RAGGED)
+@pytest.mark.parametrize("half", [None, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("noop", [0.0, 1.0])
+def test_lamb_stage2_matches_plain(cuda, sizes, half, noop):
+    table = _ragged_table(cuda, sizes)
+    n = sum(sizes)
+    rs = np.random.RandomState(13)
+    p, u = (_t(rs.randn(n).astype(np.float32)).to(cuda) for _ in range(2))
+    ratio = _t(np.abs(rs.randn(len(sizes))).astype(np.float32) + 0.5
+               ).to(cuda)
+    lr = torch.full((), 0.01, device=cuda)
+    flag = torch.full((), noop, device=cuda)
+    pk, pp = p.clone(), p.clone()
+    hk, hp = ((None, None) if half is None else
+              (torch.zeros(n, dtype=half, device=cuda),
+               torch.zeros(n, dtype=half, device=cuda)))
+    ops.lamb_stage2(pk, u, ratio, table, lr, half=hk, noop=flag)
+    lamb_mod._stage2_plain(pp, u, ratio, table, lr, hp, flag)
+    assert torch.equal(pk, pp)
+    if half is not None:
+        assert torch.equal(hk, hp)
+    if noop:
+        assert torch.equal(pk, p)

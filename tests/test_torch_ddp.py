@@ -37,6 +37,9 @@ from apex_tpu import parallel as jparallel
 from apex_tpu.nn import functional as JF
 
 from apex_tpu_torch import amp, models, optimizers, parallel
+from apex_tpu_torch.multi_tensor_apply import ChunkedFlat, ChunkedFlatLayout
+from apex_tpu_torch.optimizers import LambState
+from apex_tpu_torch.utils.jax_interop import lamb_state_to_jax
 from apex_tpu_torch.nn.functional import cross_entropy
 from apex_tpu_torch.parallel import multiproc
 
@@ -114,6 +117,34 @@ def _small_jax():
                           num_classes=10)
 
 
+# the tiny BERT of tests/test_torch_bert.py
+BERT_CFG = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
+                num_attention_heads=4, intermediate_size=128,
+                max_position_embeddings=64, hidden_dropout_prob=0.0,
+                attention_probs_dropout_prob=0.0, head_chunk=48)
+LAMB_LR = 1e-3
+
+
+def _bert_lamb_inputs():
+    """Weights from the JAX package's init and the synthetic MLM/NSP batch
+    (8 sequences of 32, the last 5 positions of two of them padding)."""
+    params, _ = jmodels.BertForPretraining(
+        jmodels.BertConfig(**BERT_CFG)).init(jax.random.PRNGKey(0))
+    rs = np.random.RandomState(12)
+    B, T = 8, 32
+    ids = rs.randint(5, BERT_CFG["vocab_size"], (B, T))
+    mask = rs.rand(B, T) < 0.15
+    attn = np.ones((B, T), np.int32)
+    attn[[1, 6], -5:] = 0
+    return {"cfg": BERT_CFG, "lr": LAMB_LR, "steps": STEPS,
+            "message_size": 4096,
+            "params": jax.tree_util.tree_map(np.asarray, params),
+            "ids": np.where(mask & (rs.rand(B, T) < 0.8), 3, ids
+                            ).astype(np.int32),
+            "labels": np.where(mask, ids, -100).astype(np.int32),
+            "nsp": rs.randint(0, 2, (B,)).astype(np.int32), "attn": attn}
+
+
 @pytest.fixture(scope="module")
 def ddp_inputs():
     rs = np.random.RandomState(10)
@@ -122,7 +153,7 @@ def ddp_inputs():
             "lin_x": rs.randn(16, 4).astype(np.float32),
             "lin_w": rs.randn(3, 4).astype(np.float32),
             "lin_b": rs.randn(3).astype(np.float32),
-            "slice": _slice_inputs()}
+            "slice": _slice_inputs(), "bert_lamb": _bert_lamb_inputs()}
 
 
 @pytest.fixture(scope="module")
@@ -307,6 +338,83 @@ def test_slice_resnet_syncbn_o0_ddp_two_ranks_matches_jax(ranks, ddp_inputs,
             for k in ("m", "v"):
                 rel = np.linalg.norm(ta[k] - ja[k]) / np.linalg.norm(ja[k])
                 assert rel <= 1e-2, (k, rel)
+
+
+def _train_bert_lamb_jax(inp, mesh):
+    """The JAX package's tiny BERT under O2 + FusedLAMB + DDP, one
+    shard_map step per optimizer step over the 2-device mesh."""
+    jm, jopt = jamp.initialize(
+        jmodels.BertForPretraining(jmodels.BertConfig(**inp["cfg"])),
+        joptim.FusedLAMB(lr=inp["lr"]), opt_level="O2", verbosity=0)
+    ddp = jparallel.DistributedDataParallel(
+        jm, message_size=inp["message_size"])
+    params = jm.cast_params(jax.tree_util.tree_map(jnp.asarray,
+                                                   inp["params"]))
+    ost = jopt.init(params)
+
+    def step(st, batch):
+        params, ost = st
+        ids, labels, nsp, attn = batch
+
+        def loss_fn(p):
+            return jm.loss(p, ids, labels, nsp, attention_mask=attn), ()
+
+        loss, _, grads = jamp.scaled_grad(loss_fn, params, ost,
+                                          has_aux=True)
+        grads = ddp.allreduce_grads(grads)
+        params, ost, _ = jopt.step(params, ost, grads)
+        return (params, ost), lax.pmean(loss, "data")
+
+    train = ddp.make_step(step, mesh=mesh, donate_state=False)
+    st, losses = (params, ost), []
+    batch = tuple(jnp.asarray(inp[k]) for k in ("ids", "labels", "nsp",
+                                                "attn"))
+    for _ in range(inp["steps"]):
+        st, loss = train(st, batch)
+        losses.append(float(loss))
+    return losses, st[1]
+
+
+# BERT-large's path in small: O2 + FusedLAMB through DDP on 2 ranks
+# against the JAX package's shard_map step.  The tied decoder weight is one
+# parameter on both sides; the grads go out in a bf16 bucket (chunked at
+# message_size 4096) and an fp32 one (the LayerNorms).  bf16 matmuls round
+# apart through oneDNN and XLA (the single-process O2 tolerances of
+# tests/test_torch_bert.py: measured losses within 1.7e-4, masters 4.5e-3
+# of the 6.0e-3 bound 2*lr*steps*max|p|, m and v within 8.7e-3 in
+# relative norm)
+def test_bert_lamb_o2_ddp_two_ranks_matches_jax(ranks, ddp_inputs, mesh2):
+    inp = ddp_inputs["bert_lamb"]
+    jl, jost = _train_bert_lamb_jax(inp, mesh2)
+    r0, r1 = (r["bert_lamb"] for r in ranks)
+    for k in ("masters", "half", "m", "v"):   # the ranks stay in step
+        np.testing.assert_array_equal(r0[k], r1[k], k)
+    tl = np.mean([r0["losses"], r1["losses"]], axis=0)
+    assert np.all(np.isfinite(tl)) and tl[-1] < tl[0]
+    np.testing.assert_allclose(tl, jl, rtol=1e-3)
+    names = r0["names"]
+    assert sum(n.endswith("word_embeddings.weight") for n in names) == 1
+    jm = np.concatenate([np.asarray(a, np.float32).ravel() for a in
+                         jax.tree_util.tree_leaves(jost.masters)])
+    atol = 2 * LAMB_LR * STEPS * float(np.abs(jm).max())
+    np.testing.assert_allclose(r0["masters"], jm, rtol=0, atol=atol)
+    lay = ChunkedFlatLayout([torch.zeros(np.asarray(a).shape) for a in
+                             jax.tree_util.tree_leaves(jost.masters)])
+    back = lamb_state_to_jax(LambState(
+        step=torch.tensor(r0["steps"]), m=ChunkedFlat(_t(r0["m"]), lay),
+        v=ChunkedFlat(_t(r0["v"]), lay)))
+    for k in ("m", "v"):
+        want = np.asarray(getattr(jost.inner, k).buf)
+        rel = np.linalg.norm(back[k] - want) / np.linalg.norm(want)
+        assert rel < 3e-2, (k, rel)
+    assert r0["steps"] == int(jost.inner.step) == STEPS
+    stats = {s["dtype"]: s for s in r0["stats"]}
+    assert set(stats) == {"bfloat16", "float32"}
+    assert sum(s["leaves"] for s in stats.values()) == len(names)
+    assert sum(s["elements"] for s in stats.values()) == jm.size
+    assert stats["bfloat16"]["cause"] == "chunked"
+    assert stats["bfloat16"]["chunks"] == -(-stats["bfloat16"]["elements"]
+                                            // inp["message_size"])
 
 
 def _full_batch_jax_grads(inp):

@@ -175,6 +175,35 @@ def _slice(inp, rank, world):
             "steps": int(opt.state.step), "adam": adam}
 
 
+def _bert_lamb(inp, rank, world):
+    """A tiny BertForPretraining -> O2 + FusedLAMB -> DDP (small
+    ``message_size``: the bf16 bucket goes out in chunks), trained on this
+    rank's half of the batch."""
+    model = models.BertForPretraining(models.BertConfig(**inp["cfg"]),
+                                      device="cpu")
+    model.load_state_dict(params_from_jax(inp["params"]), strict=True)
+    model, opt = amp.initialize(model, optimizers.FusedLAMB(lr=inp["lr"]),
+                                opt_level="O2", verbosity=0)
+    ddp = parallel.DistributedDataParallel(
+        model, message_size=inp["message_size"])
+    ids, labels, nsp, attn = (torch.from_numpy(_half(inp[k], rank, world))
+                              for k in ("ids", "labels", "nsp", "attn"))
+    losses = []
+    for _ in range(inp["steps"]):
+        loss = ddp.module.loss(ids, labels, nsp, attention_mask=attn)
+        with amp.scale_loss(loss, opt) as scaled:
+            scaled.backward()
+        opt.step()
+        opt.zero_grad()
+        losses.append(float(loss.detach()))
+    st = opt.state
+    return {"losses": losses, "masters": _np(opt.masters.buf),
+            "half": _np(opt.masters.half), "m": _np(st.m.buf),
+            "v": _np(st.v.buf), "steps": int(st.step),
+            "names": list(opt.masters.layout.names),
+            "stats": ddp.last_comm_stats}
+
+
 def _ddp(inp, rank, world):
     out = {"buckets": {name: _bucket_case(case, rank)
                        for name, case in inp["buckets"].items()}}
@@ -182,6 +211,7 @@ def _ddp(inp, rank, world):
     out["collectives"] = _collectives(rank)
     out["amp_broadcast"] = _amp_broadcast(rank)
     out["slice"] = _slice(inp["slice"], rank, world)
+    out["bert_lamb"] = _bert_lamb(inp["bert_lamb"], rank, world)
     return out
 
 
