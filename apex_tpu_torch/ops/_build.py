@@ -74,6 +74,7 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         "apex_flash_fwd": (_P,) * 8 + (_I,) * 5 + (_F,) * 3 + (_I, _P),
         "apex_flash_dq": (_P,) * 10 + (_I,) * 5 + (_F,) * 3 + (_I, _P),
         "apex_flash_dkv": (_P,) * 11 + (_I,) * 5 + (_F,) * 3 + (_I, _P),
+        "apex_flash_kernel_info": (_I, _I, _I, _P),
     },
 }
 

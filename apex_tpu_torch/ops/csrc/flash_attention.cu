@@ -25,28 +25,50 @@
 // round-to-nearest and scaled by 2^-31.  The two seed words are read from
 // device memory inside the kernel, so no step waits on the host for them.
 //
-// Bound.  At BERT-base (T = 128, D = 64) device-memory bytes; from T of a
-// few hundred on, the tensor-core rate.  This first version does its
-// products with fp32 FMAs from shared memory (about 1/15 of the bf16
-// tensor-core peak), so it is bound by those FMAs: wgmma / mma.sync
-// tiles are later work.
+// Two routes, by dtype code.  bf16 and fp16 (codes 1, 2) run the forward
+// and dK/dV on tensor cores: flash_fwd_mma_kernel and flash_dkv_mma_kernel,
+// mma.sync.m16n8k16 with fp32 accumulators, which is the JAX kernels' _dot
+// (native half operands, fp32 accumulation; P and dS rounded to the type
+// before their products).  fp32 (code 0) and every dQ run fp32 FMAs
+// (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel): a tensor-core
+// fp32 product would be TF32, which the JAX package's full-precision fp32
+// contract rules out, and dQ is the next kernel to move.
 //
-// Design.  The TPU grid (BH, q blocks, k blocks) runs its k axis in order
-// and carries the softmax state in VMEM scratch; here that axis is a loop
-// inside one block.  forward and dq: a block per (bh, 64-row q tile) that
-// streams 64-row K/V tiles through shared memory; dk/dv: a block per
-// (bh, 64-row k tile) that streams Q/dO tiles.  Each block writes only its
-// own rows, so no output is summed across blocks and there are no atomics.
-// 256 threads; a 64x64 score tile gives each thread a 4x4 micro-tile at
-// rows ty + 16i, columns tx + 16j.  Tiles are fp32 in shared memory with
-// an odd row stride (no bank conflicts on column reads), D padded with
-// zeros to 32, 64 or 128.  Causal tiles that are all masked are skipped.
+// Bound.  At BERT-base (T = 128, D = 64) device-memory bytes; from T of a
+// few hundred on, the tensor-core rate.  The FMA kernels are bound by
+// their FMAs from shared memory (16 FMAs per 8 shared loads, about 1/15
+// of the bf16 tensor-core peak).  The tensor-core kernels at T = 128 are
+// bound by what surrounds the products: the dropout hash and expf at
+// every score, and the latency of two 64-row tiles a block.
+//
+// Design, FMA kernels.  The TPU grid (BH, q blocks, k blocks) runs its k
+// axis in order and carries the softmax state in VMEM scratch; here that
+// axis is a loop inside one block.  forward and dq: a block per (bh,
+// 64-row q tile) that streams 64-row K/V tiles through shared memory;
+// dk/dv: a block per (bh, 64-row k tile) that streams Q/dO tiles.  256
+// threads; a 64x64 score tile gives each thread a 4x4 micro-tile at rows
+// ty + 16i, columns tx + 16j.  Tiles are fp32 in shared memory with an
+// odd row stride (no bank conflicts on column reads), D padded with zeros
+// to 32, 64 or 128.  Causal tiles that are all masked are skipped.
+//
+// Design, tensor-core kernels (the section below has the details).  The
+// same grids, 4 warps a block, each warp 16 rows of the block's tile.
+// The resident operand (Q; K and V) is read into fragments once; the
+// streamed tiles arrive as the input type by 16-byte cp.async into two
+// buffers, so the next tile's copy overlaps this tile's math.  Scores stay
+// in the accumulator registers: the scale, the masks and the hash apply
+// there at each element's own (q, k), the forward's online softmax
+// reduces a row across the quad of lanes that holds it (two shuffles, no
+// barrier), and P (dS) goes from accumulator to A fragment in registers.
+// Key validity and segment ids come into shared memory once a tile.  No
+// output is summed across blocks: no atomics, the same bits every run.
 // Each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <initializer_list>
 
 #include "common.cuh"
 
@@ -469,12 +491,603 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_tile<T, DP>(dv + base, acc_v, k0, T_, D, ty, tx);
 }
 
+// -- tensor-core kernels (bf16, fp16): forward and dK/dV --------------------
+//
+// A block of kWarps warps per 64-row tile; warp w owns rows 16w..16w+15.
+// Products are mma.sync.m16n8k16 (bf16 or fp16 operands, fp32
+// accumulators); operand tiles stream through shared memory as the input
+// type, 16-byte cp.async copies into two buffers, read into fragments
+// with ldmatrix (row stride DP + 8 elements: the eight 16-byte rows of an
+// 8x8 matrix fall in distinct banks).  A lane holds, of each 16x8
+// accumulator tile, rows g and g + 8 and columns 2t and 2t + 1 (g = lane
+// / 4, t = lane % 4): frag_row and frag_col are that map, and the masks,
+// the hash, lse and delta are all read through them.  That layout is also
+// the A operand's, so a score tile rounded to the type and packed in
+// pairs is the A fragment of the next product without leaving registers.
+
+constexpr int kWarps = 4;
+constexpr int kMmaThreads = 32 * kWarps;
+
+__device__ __forceinline__ int frag_row(int lane, int e) {
+  return (lane >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int frag_col(int lane, int j, int e) {
+  return 8 * j + 2 * (lane & 3) + (e & 1);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes global -> shared; the bytes past src_bytes (0 or all) are 0
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 address the rows of matrix i
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a b for one 16x8x16 tile, and two fp32 values rounded to T and
+// packed (the first in the low half)
+template <typename T>
+struct Mma;
+template <>
+struct Mma<__nv_bfloat16> {
+  static __device__ __forceinline__ void run(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+template <>
+struct Mma<__half> {
+  static __device__ __forceinline__ void run(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+// The A fragment of rows 16w.. of a tile (row-major, stride S), depth
+// chunk c; the B fragments of two 8-column tiles (rows n0..n0+15 of a
+// row-major tile read as columns: K for Q.K^T); the B fragments of two
+// 8-column tiles of a row-major tile (V for P.V, read transposed).
+template <int S>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const void* tile,
+                                       int r0, int c, int lane) {
+  ldsm4(a, static_cast<const uint16_t*>(tile) + (r0 + (lane & 15)) * S +
+               c * 16 + (lane >> 4) * 8);
+}
+template <int S>
+__device__ __forceinline__ void frag_b_rows(uint32_t (&b)[4],
+                                            const void* tile, int n0, int c,
+                                            int lane) {
+  ldsm4(b, static_cast<const uint16_t*>(tile) +
+               (n0 + (lane & 7) + (lane >> 4) * 8) * S + c * 16 +
+               ((lane >> 3) & 1) * 8);
+}
+template <int S>
+__device__ __forceinline__ void frag_b_cols(uint32_t (&b)[4],
+                                            const void* tile, int k0, int n0,
+                                            int lane) {
+  ldsm4_t(b, static_cast<const uint16_t*>(tile) +
+                 (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + n0 +
+                 (lane >> 4) * 8);
+}
+
+// rows [r0, r0 + 64) of a (rows, D) slab into a (64, DP + 8) tile, zeros
+// past `rows` and past D: 16-byte cp.async copies when `vec` (D % 8 == 0
+// and the slab 16-byte aligned), else element copies
+template <typename T, int DP>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src, int r0,
+                                                int rows, int D, int vec) {
+  constexpr int S = DP + 8, CH = DP / 8;
+  if (vec) {
+    for (int i = threadIdx.x; i < kTile * CH; i += kMmaThreads) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool in = r0 + r < rows && c < D;
+      cp_async16(dst + r * S + c, in ? src + (long long)(r0 + r) * D + c : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * DP; i += kMmaThreads) {
+      const int r = i / DP, c = i % DP;
+      dst[r * S + c] = (r0 + r < rows && c < D)
+                           ? src[(long long)(r0 + r) * D + c]
+                           : from_f32<T>(0.0f);
+    }
+  }
+}
+
+// src[r0 .. r0 + 64) (4-byte values) into dst, zeros past `rows`
+__device__ __forceinline__ void load_row_async(void* dst, const void* src,
+                                               int r0, int rows) {
+  const int i = threadIdx.x;
+  if (i < kTile) {
+    const bool in = r0 + i < rows;
+    cp_async4(static_cast<char*>(dst) + 4 * i,
+              static_cast<const char*>(src) + (in ? 4LL * (r0 + i) : 0),
+              in ? 4 : 0);
+  }
+}
+
+// A warp's accumulators (16 rows, DP columns, times `mul`) to rows
+// [r0, r0 + 16) of a (rows, D) slab: staged through the warp's own rows
+// of `stage` for 16-byte stores when `vec`, else element stores.
+template <typename T, int DP>
+__device__ __forceinline__ void store_acc(T* dst, T* stage,
+                                          const float (&acc)[DP / 8][4],
+                                          const float (&div)[2], int r0,
+                                          int rows, int D, int vec,
+                                          int lane) {
+  constexpr int S = DP + 8, CH = DP / 8;
+  if (vec) {
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(stage + frag_row(lane, 2 * h) * S +
+                                     frag_col(lane, n, 0)) =
+            Mma<T>::pack(acc[n][2 * h] / div[h], acc[n][2 * h + 1] / div[h]);
+    __syncwarp();
+    for (int i = lane; i < 16 * CH; i += 32) {
+      const int r = i / CH, c = (i % CH) * 8;
+      if (r0 + r < rows && c < D)
+        *reinterpret_cast<uint4*>(dst + (long long)(r0 + r) * D + c) =
+            *reinterpret_cast<const uint4*>(stage + r * S + c);
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + frag_row(lane, e), c = frag_col(lane, n, e);
+        if (r < rows && c < D)
+          dst[(long long)r * D + c] = from_f32<T>(acc[n][e] / div[e >> 1]);
+      }
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int D, int vec, Masks mk) {
+  constexpr int S = DP + 8;      // row stride of a tile, elements
+  constexpr int NC = DP / 16;    // depth chunks of Q.K^T
+  constexpr int NT = DP / 8;     // 8-wide column tiles of O
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  T* Qs = reinterpret_cast<T*>(smem_mma);
+  T* Ks = Qs + kTile * S;                 // two buffers each
+  T* Vs = Ks + 2 * kTile * S;
+  int* kseg_s = reinterpret_cast<int*>(Vs + 2 * kTile * S);        // [2][64]
+  uint8_t* kok_s = reinterpret_cast<uint8_t*>(kseg_s + 2 * kTile);  // [2][64]
+
+  const int T_ = mk.T;
+  const int nq = (T_ + kTile - 1) / kTile;
+  const int bh = blockIdx.x / nq, b = bh / mk.H;
+  const int q0 = (blockIdx.x % nq) * kTile;
+  const int lane = threadIdx.x & 31, w0 = (threadIdx.x >> 5) * 16;
+  const long long base = (long long)bh * T_ * D, mbase = (long long)b * T_;
+  uint32_t s0 = 0, s1 = 0;
+  if (mk.rate > 0.0f) {
+    s0 = (uint32_t)mk.seed[0];
+    s1 = (uint32_t)mk.seed[1];
+  }
+  int nk = (T_ + kTile - 1) / kTile;
+  if (mk.causal) nk = min(nk, q0 / kTile + 1);
+
+  // K/V tile kt, its keys' validity (k < T and kv_mask) and segment ids,
+  // into buffer kt & 1
+  auto load_kv = [&](int kt) {
+    const int buf = kt & 1, k0 = kt * kTile;
+    load_tile_async<T, DP>(Ks + buf * kTile * S, k + base, k0, T_, D, vec);
+    load_tile_async<T, DP>(Vs + buf * kTile * S, v + base, k0, T_, D, vec);
+    if (mk.seg) load_row_async(kseg_s + buf * kTile, mk.seg + mbase, k0, T_);
+    if (threadIdx.x < kTile) {
+      const int kp = k0 + threadIdx.x;
+      kok_s[buf * kTile + threadIdx.x] =
+          kp < T_ && (!mk.kv_mask || mk.kv_mask[mbase + kp]);
+    }
+    cp_async_commit();
+  };
+  load_tile_async<T, DP>(Qs, q + base, q0, T_, D, vec);
+  load_kv(0);
+
+  // this lane's query rows (e < 2: qa, else qb) and their segment ids
+  const int qa = q0 + w0 + frag_row(lane, 0), qb = qa + 8;
+  int sega = 0, segb = 0;
+  if (mk.seg) {
+    sega = qa < T_ ? mk.seg[mbase + qa] : 0;
+    segb = qb < T_ ? mk.seg[mbase + qb] : 0;
+  }
+  uint32_t qf[NC][4];
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.0f, 0.0f};
+
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) {
+      load_kv(kt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) frag_a<S>(qf[c], Qs, w0, c, lane);
+    }
+    const int buf = kt & 1, k0 = kt * kTile;
+    const T* Kb = Ks + buf * kTile * S;
+    const T* Vb = Vs + buf * kTile * S;
+    const int* ksg = kseg_s + buf * kTile;
+    const uint8_t* kok = kok_s + buf * kTile;
+
+    // S = Q K^T, 16 x 64 a warp
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        frag_b_rows<S>(bf, Kb, np * 16, c, lane);
+        Mma<T>::run(s[2 * np], qf[c], bf[0], bf[1]);
+        Mma<T>::run(s[2 * np + 1], qf[c], bf[2], bf[3]);
+      }
+    // scale and masks at each element's own (q, k); the row max over the
+    // valid entries, from kNeg
+    uint32_t ok = 0;                     // bit 4j + e: s[j][e] is valid
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = frag_col(lane, j, e), h = e >> 1;
+        const bool val = kok[c] && (!mk.causal || (h ? qb : qa) >= k0 + c) &&
+                         (!mk.seg || (h ? segb : sega) == ksg[c]);
+        s[j][e] *= mk.scale;
+        if (val) {
+          ok |= 1u << (4 * j + e);
+          mx[h] = fmaxf(mx[h], s[j][e]);
+        }
+      }
+    // online softmax: a row's 64 columns lie in one quad of lanes
+    float alpha[2], ps[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_r[h], mx[h]);
+      alpha[h] = expf(m_r[h] - m_new);
+      m_r[h] = m_new;
+    }
+    // l from the undropped p; P V from round_T(keep ? p * inv_keep : 0),
+    // packed straight into A fragments (16 keys a chunk)
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float pa[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float p =
+            (ok >> (4 * j + e) & 1u) ? expf(s[j][e] - m_r[h]) : 0.0f;
+        ps[h] += p;
+        pa[e] = p;
+        if (mk.rate > 0.0f)
+          pa[e] = (keep(mk, s0, s1, bh, h ? qb : qa, k0 + frag_col(lane, j, e))
+                       ? p : 0.0f) * mk.inv_keep;
+      }
+      pf[j >> 1][(j & 1) * 2] = Mma<T>::pack(pa[0], pa[1]);
+      pf[j >> 1][(j & 1) * 2 + 1] = Mma<T>::pack(pa[2], pa[3]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 1);
+      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 2);
+      l_r[h] = alpha[h] * l_r[h] + ps[h];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    // O += P V
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bf[4];
+        frag_b_cols<S>(bf, Vb, c * 16, np * 16, lane);
+        Mma<T>::run(acc[2 * np], pf[c], bf[0], bf[1]);
+        Mma<T>::run(acc[2 * np + 1], pf[c], bf[2], bf[3]);
+      }
+    __syncthreads();                     // buffer kt & 1 is free again
+  }
+  // o = acc / l_safe, lse = m + log(l_safe); a row with no valid key has
+  // acc = 0, l = 0, so o = 0.  The warp's rows of Qs stage the stores
+  // (Q's fragments are in registers).
+  const float ls[2] = {l_r[0] == 0.0f ? 1.0f : l_r[0],
+                       l_r[1] == 0.0f ? 1.0f : l_r[1]};
+  store_acc<T, DP>(o + base, Qs + w0 * S, acc, ls, q0 + w0, T_, D, vec,
+                   lane);
+  if ((lane & 3) == 0) {
+    if (qa < T_) lse[(long long)bh * T_ + qa] = m_r[0] + logf(ls[0]);
+    if (qb < T_) lse[(long long)bh * T_ + qb] = m_r[1] + logf(ls[1]);
+  }
+}
+
+// Up to D = 64, registers capped so that APEX_FLASH_DKV_BLOCKS blocks
+// share an SM: three (12 warps, at most 168 registers a thread, a few
+// bytes of spill at D = 64) against two without the cap.  chip_smoke.py
+// builds this file again with the value 1 and times both at BERT-base's
+// and BERT-large's shapes.  At D = 128 shared memory holds two blocks,
+// which the uncapped registers already allow: a cap could only spill.
+#ifndef APEX_FLASH_DKV_BLOCKS
+#define APEX_FLASH_DKV_BLOCKS 3
+#endif
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMmaThreads,
+                                  DP <= 64 ? APEX_FLASH_DKV_BLOCKS : 1)
+flash_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int D, int vec, Masks mk) {
+  constexpr int S = DP + 8;
+  constexpr int NC = DP / 16;          // depth chunks of K.Q^T and V.dO^T
+  constexpr int NT = DP / 8;           // 8-wide column tiles of dK, dV
+  // K and V fragments stay in registers up to D = 64; at 128 they would
+  // not fit beside the two 16 x 128 fp32 accumulators, and are re-read
+  // from shared memory, and the scores go 16 queries at a time
+  constexpr bool kRegKV = DP <= 64;
+  constexpr int QC = DP <= 64 ? 32 : 16;   // query columns a step
+  constexpr int NQ = QC / 8;               // 8-wide score tiles a step
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  T* Ks = reinterpret_cast<T*>(smem_mma);
+  T* Vs = Ks + kTile * S;
+  T* Qs = Vs + kTile * S;                 // two buffers each
+  T* dOs = Qs + 2 * kTile * S;
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * kTile * S);  // [2][64]
+  float* del_s = lse_s + 2 * kTile;
+  int* qseg_s = reinterpret_cast<int*>(del_s + 2 * kTile);
+
+  const int T_ = mk.T;
+  const int nt = (T_ + kTile - 1) / kTile;
+  const int bh = blockIdx.x / nt, b = bh / mk.H;
+  const int kt = blockIdx.x % nt, k0 = kt * kTile;
+  const int lane = threadIdx.x & 31, w0 = (threadIdx.x >> 5) * 16;
+  const long long base = (long long)bh * T_ * D, mbase = (long long)b * T_;
+  uint32_t s0 = 0, s1 = 0;
+  if (mk.rate > 0.0f) {
+    s0 = (uint32_t)mk.seed[0];
+    s1 = (uint32_t)mk.seed[1];
+  }
+
+  // Q/dO tile qt, its lse, delta and segment ids, into buffer `buf`
+  auto load_q = [&](int qt, int buf) {
+    const int q0 = qt * kTile;
+    load_tile_async<T, DP>(Qs + buf * kTile * S, q + base, q0, T_, D, vec);
+    load_tile_async<T, DP>(dOs + buf * kTile * S, dout + base, q0, T_, D,
+                           vec);
+    load_row_async(lse_s + buf * kTile, lse + (long long)bh * T_, q0, T_);
+    load_row_async(del_s + buf * kTile, delta + (long long)bh * T_, q0, T_);
+    if (mk.seg) load_row_async(qseg_s + buf * kTile, mk.seg + mbase, q0, T_);
+    cp_async_commit();
+  };
+  // causal: q tile qt sees k tile kt only when qt >= kt
+  const int qt0 = mk.causal ? kt : 0;
+  load_tile_async<T, DP>(Ks, k + base, k0, T_, D, vec);
+  load_tile_async<T, DP>(Vs, v + base, k0, T_, D, vec);
+  load_q(qt0, 0);
+
+  // this lane's key rows (e < 2: ka, else kb): validity and segment ids
+  const int ka = k0 + w0 + frag_row(lane, 0), kb = ka + 8;
+  const bool oka = ka < T_ && (!mk.kv_mask || mk.kv_mask[mbase + ka]);
+  const bool okb = kb < T_ && (!mk.kv_mask || mk.kv_mask[mbase + kb]);
+  int sega = 0, segb = 0;
+  if (mk.seg) {
+    sega = ka < T_ ? mk.seg[mbase + ka] : 0;
+    segb = kb < T_ ? mk.seg[mbase + kb] : 0;
+  }
+  uint32_t kf[kRegKV ? NC : 1][4], vf[kRegKV ? NC : 1][4];
+  float dka[NT][4], dva[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.0f;
+
+  for (int qt = qt0; qt < nt; ++qt) {
+    const int buf = (qt - qt0) & 1, q0 = qt * kTile;
+    if (qt + 1 < nt) {
+      load_q(qt + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kRegKV && qt == qt0) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        frag_a<S>(kf[kRegKV ? c : 0], Ks, w0, c, lane);
+        frag_a<S>(vf[kRegKV ? c : 0], Vs, w0, c, lane);
+      }
+    }
+    const T* Qb = Qs + buf * kTile * S;
+    const T* dOb = dOs + buf * kTile * S;
+    const float* lb = lse_s + buf * kTile;
+    const float* db = del_s + buf * kTile;
+    const int* qsg = qseg_s + buf * kTile;
+#pragma unroll 1                       // unrolled, it spills
+    for (int hq = 0; hq < kTile / QC; ++hq) {
+      // S^T = K Q^T and dP^T = V dO^T, 16 x QC a warp
+      float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        uint32_t ak[4], av[4];
+        if (kRegKV) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ak[i] = kf[kRegKV ? c : 0][i];
+            av[i] = vf[kRegKV ? c : 0][i];
+          }
+        } else {
+          frag_a<S>(ak, Ks, w0, c, lane);
+          frag_a<S>(av, Vs, w0, c, lane);
+        }
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          uint32_t bf[4];
+          frag_b_rows<S>(bf, Qb, hq * QC + np * 16, c, lane);
+          Mma<T>::run(st[2 * np], ak, bf[0], bf[1]);
+          Mma<T>::run(st[2 * np + 1], ak, bf[2], bf[3]);
+          frag_b_rows<S>(bf, dOb, hq * QC + np * 16, c, lane);
+          Mma<T>::run(dpt[2 * np], av, bf[0], bf[1]);
+          Mma<T>::run(dpt[2 * np + 1], av, bf[2], bf[3]);
+        }
+      }
+      // p^T = valid ? exp(s^T scale - lse[q]) : 0; p_acc and dp dropped
+      // and rescaled by the hash; dS^T = round_T(p (dp - delta[q])); both
+      // packed into A fragments (16 queries a chunk)
+      uint32_t pf[NQ / 2][4], sf[NQ / 2][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        float pa[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = hq * QC + frag_col(lane, j, e), qp = q0 + c;
+          const int h = e >> 1, kp = h ? kb : ka;
+          const bool val = (h ? okb : oka) && qp < T_ &&
+                           (!mk.causal || qp >= kp) &&
+                           (!mk.seg || (h ? segb : sega) == qsg[c]);
+          const float p = val ? expf(st[j][e] * mk.scale - lb[c]) : 0.0f;
+          float d = dpt[j][e];
+          pa[e] = p;
+          if (mk.rate > 0.0f) {
+            const bool kk = keep(mk, s0, s1, bh, qp, kp);
+            pa[e] = (kk ? p : 0.0f) * mk.inv_keep;
+            d = (kk ? d : 0.0f) * mk.inv_keep;
+          }
+          ds[e] = p * (d - db[c]);
+        }
+        pf[j >> 1][(j & 1) * 2] = Mma<T>::pack(pa[0], pa[1]);
+        pf[j >> 1][(j & 1) * 2 + 1] = Mma<T>::pack(pa[2], pa[3]);
+        sf[j >> 1][(j & 1) * 2] = Mma<T>::pack(ds[0], ds[1]);
+        sf[j >> 1][(j & 1) * 2 + 1] = Mma<T>::pack(ds[2], ds[3]);
+      }
+      // dV += P_acc^T dO, dK += dS^T Q
+#pragma unroll
+      for (int c = 0; c < NQ / 2; ++c)
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bf[4];
+          frag_b_cols<S>(bf, dOb, hq * QC + c * 16, np * 16, lane);
+          Mma<T>::run(dva[2 * np], pf[c], bf[0], bf[1]);
+          Mma<T>::run(dva[2 * np + 1], pf[c], bf[2], bf[3]);
+          frag_b_cols<S>(bf, Qb, hq * QC + c * 16, np * 16, lane);
+          Mma<T>::run(dka[2 * np], sf[c], bf[0], bf[1]);
+          Mma<T>::run(dka[2 * np + 1], sf[c], bf[2], bf[3]);
+        }
+    }
+    __syncthreads();                     // buffer `buf` is free again
+  }
+  // dK times scale once, as the plain version; the warp's own rows of Ks
+  // and Vs stage the stores
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] *= mk.scale;
+  const float one[2] = {1.0f, 1.0f};
+  store_acc<T, DP>(dk + base, Ks + w0 * S, dka, one, k0 + w0, T_, D, vec,
+                   lane);
+  store_acc<T, DP>(dv + base, Vs + w0 * S, dva, one, k0 + w0, T_, D, vec,
+                   lane);
+}
+
 // -- launch ------------------------------------------------------------------
 
+// threads and dynamic shared memory of each kernel
 constexpr size_t tile_bytes(int DP) {
   return (size_t)kTile * (DP + 1) * sizeof(float);
 }
 constexpr size_t score_bytes() { return (size_t)kTile * kSS * sizeof(float); }
+constexpr size_t fwd_bytes(int DP) {
+  return 3 * tile_bytes(DP) + score_bytes() + 3 * kTile * sizeof(float);
+}
+constexpr size_t dq_bytes(int DP) {
+  return 4 * tile_bytes(DP) + score_bytes() + 2 * kTile * sizeof(float);
+}
+constexpr size_t dkv_bytes(int DP) {
+  return 4 * tile_bytes(DP) + 2 * score_bytes() + 2 * kTile * sizeof(float);
+}
+// Q, two K and two V tiles of 16-bit values; two buffers of key segment
+// ids and validity bytes
+constexpr size_t fwd_mma_bytes(int DP) {
+  return 5 * (size_t)kTile * (DP + 8) * 2 + 2 * kTile * (sizeof(int) + 1);
+}
+// K, V, two Q and two dO tiles; two buffers of lse, delta, segment ids
+constexpr size_t dkv_mma_bytes(int DP) {
+  return 6 * (size_t)kTile * (DP + 8) * 2 + 6 * kTile * sizeof(float);
+}
 
 // Above 48 KB of shared memory a kernel must opt in, once on each device:
 // `done` holds a bit per device already set (one per instantiation).
@@ -490,11 +1103,19 @@ cudaError_t allow_smem(K kernel, size_t bytes, unsigned long long& done) {
   return e;
 }
 
+// the tensor-core kernels' 16-byte copies: D % 8 == 0 and every slab
+// 16-byte aligned
+inline int vec_ok(int D, std::initializer_list<const void*> ptrs) {
+  if (D % 8) return 0;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return 0;
+  return 1;
+}
+
 template <typename T, int DP>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 float* lse, int BH, int D, const Masks& mk, cudaStream_t st) {
-  const size_t bytes = 3 * tile_bytes(DP) + score_bytes() +
-                       3 * kTile * sizeof(float);
+  const size_t bytes = fwd_bytes(DP);
   auto kern = flash_fwd_kernel<T, DP>;
   static unsigned long long done = 0;
   const cudaError_t e = allow_smem(kern, bytes, done);
@@ -507,11 +1128,27 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 template <typename T, int DP>
+cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
+                    float* lse, int BH, int D, const Masks& mk,
+                    cudaStream_t st) {
+  const size_t bytes = fwd_mma_bytes(DP);
+  auto kern = flash_fwd_mma_kernel<T, DP>;
+  static unsigned long long done = 0;
+  const cudaError_t e = allow_smem(kern, bytes, done);
+  if (e != cudaSuccess) return e;
+  const int nq = (mk.T + kTile - 1) / kTile;
+  kern<<<BH * nq, kMmaThreads, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, D,
+      vec_ok(D, {q, k, v, o}), mk);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
 cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dqp, int BH, int D,
                const Masks& mk, cudaStream_t st) {
-  const size_t bytes = 4 * tile_bytes(DP) + score_bytes() +
-                       2 * kTile * sizeof(float);
+  const size_t bytes = dq_bytes(DP);
   auto kern = flash_dq_kernel<T, DP>;
   static unsigned long long done = 0;
   const cudaError_t e = allow_smem(kern, bytes, done);
@@ -528,8 +1165,7 @@ template <typename T, int DP>
 cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dkp, void* dvp,
                 int BH, int D, const Masks& mk, cudaStream_t st) {
-  const size_t bytes = 4 * tile_bytes(DP) + 2 * score_bytes() +
-                       2 * kTile * sizeof(float);
+  const size_t bytes = dkv_bytes(DP);
   auto kern = flash_dkv_kernel<T, DP>;
   static unsigned long long done = 0;
   const cudaError_t e = allow_smem(kern, bytes, done);
@@ -542,21 +1178,81 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
-// dtype code and padded width -> one instantiation of `F`
-#define APEX_FLASH_DISPATCH(F, ...)                                   \
+template <typename T, int DP>
+cudaError_t dkv_mma(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dkp, void* dvp, int BH, int D, const Masks& mk,
+                    cudaStream_t st) {
+  const size_t bytes = dkv_mma_bytes(DP);
+  auto kern = flash_dkv_mma_kernel<T, DP>;
+  static unsigned long long done = 0;
+  const cudaError_t e = allow_smem(kern, bytes, done);
+  if (e != cudaSuccess) return e;
+  const int nt = (mk.T + kTile - 1) / kTile;
+  kern<<<BH * nt, kMmaThreads, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dkp), static_cast<T*>(dvp), D,
+      vec_ok(D, {q, k, v, dout, dkp, dvp}), mk);
+  return cudaGetLastError();
+}
+
+// out = {resident blocks per SM, threads, dynamic shared bytes, registers
+// a thread, local (spill) bytes a thread} of one kernel
+template <typename K>
+cudaError_t kernel_info(K kernel, int threads, size_t bytes, int* out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  out[1] = threads;
+  out[2] = (int)bytes;
+  out[3] = attr.numRegs;
+  out[4] = (int)attr.localSizeBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads,
+                                                       bytes);
+}
+template <typename T, int DP>
+cudaError_t info_fwd(int* out) {
+  return kernel_info(flash_fwd_kernel<T, DP>, 256, fwd_bytes(DP), out);
+}
+template <typename T, int DP>
+cudaError_t info_fwd_mma(int* out) {
+  return kernel_info(flash_fwd_mma_kernel<T, DP>, kMmaThreads,
+                     fwd_mma_bytes(DP), out);
+}
+template <typename T, int DP>
+cudaError_t info_dq(int* out) {
+  return kernel_info(flash_dq_kernel<T, DP>, 256, dq_bytes(DP), out);
+}
+template <typename T, int DP>
+cudaError_t info_dkv(int* out) {
+  return kernel_info(flash_dkv_kernel<T, DP>, 256, dkv_bytes(DP), out);
+}
+template <typename T, int DP>
+cudaError_t info_dkv_mma(int* out) {
+  return kernel_info(flash_dkv_mma_kernel<T, DP>, kMmaThreads,
+                     dkv_mma_bytes(DP), out);
+}
+
+// dtype code and padded width -> one instantiation: F32 for fp32, F16 for
+// bf16 and fp16
+#define APEX_FLASH_DISPATCH(F32, F16, ...)                            \
   do {                                                                \
     const int dp = D <= 32 ? 32 : (D <= 64 ? 64 : 128);               \
     if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;          \
     switch (dtype * 3 + (dp == 32 ? 0 : (dp == 64 ? 1 : 2))) {        \
-      case 0: return (int)F<float, 32>(__VA_ARGS__);                  \
-      case 1: return (int)F<float, 64>(__VA_ARGS__);                  \
-      case 2: return (int)F<float, 128>(__VA_ARGS__);                 \
-      case 3: return (int)F<__nv_bfloat16, 32>(__VA_ARGS__);          \
-      case 4: return (int)F<__nv_bfloat16, 64>(__VA_ARGS__);          \
-      case 5: return (int)F<__nv_bfloat16, 128>(__VA_ARGS__);         \
-      case 6: return (int)F<__half, 32>(__VA_ARGS__);                 \
-      case 7: return (int)F<__half, 64>(__VA_ARGS__);                 \
-      case 8: return (int)F<__half, 128>(__VA_ARGS__);                \
+      case 0: return (int)F32<float, 32>(__VA_ARGS__);                \
+      case 1: return (int)F32<float, 64>(__VA_ARGS__);                \
+      case 2: return (int)F32<float, 128>(__VA_ARGS__);               \
+      case 3: return (int)F16<__nv_bfloat16, 32>(__VA_ARGS__);        \
+      case 4: return (int)F16<__nv_bfloat16, 64>(__VA_ARGS__);        \
+      case 5: return (int)F16<__nv_bfloat16, 128>(__VA_ARGS__);       \
+      case 6: return (int)F16<__half, 32>(__VA_ARGS__);               \
+      case 7: return (int)F16<__half, 64>(__VA_ARGS__);               \
+      case 8: return (int)F16<__half, 128>(__VA_ARGS__);              \
       default: return (int)cudaErrorInvalidValue;                     \
     }                                                                 \
   } while (0)
@@ -590,7 +1286,7 @@ int apex_flash_fwd(const void* q, const void* k, const void* v, void* o,
                    cudaStream_t stream) {
   const Masks mk = make_masks(kv_mask, seg, seed, T, H, causal, scale, rate,
                               inv_keep);
-  APEX_FLASH_DISPATCH(fwd, q, k, v, o, lse, BH, D, mk, stream);
+  APEX_FLASH_DISPATCH(fwd, fwd_mma, q, k, v, o, lse, BH, D, mk, stream);
 }
 
 int apex_flash_dq(const void* q, const void* k, const void* v,
@@ -601,7 +1297,8 @@ int apex_flash_dq(const void* q, const void* k, const void* v,
                   cudaStream_t stream) {
   const Masks mk = make_masks(kv_mask, seg, seed, T, H, causal, scale, rate,
                               inv_keep);
-  APEX_FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dqp, BH, D, mk, stream);
+  APEX_FLASH_DISPATCH(dq, dq, q, k, v, dout, lse, delta, dqp, BH, D, mk,
+                      stream);
 }
 
 int apex_flash_dkv(const void* q, const void* k, const void* v,
@@ -612,8 +1309,18 @@ int apex_flash_dkv(const void* q, const void* k, const void* v,
                    float inv_keep, int dtype, cudaStream_t stream) {
   const Masks mk = make_masks(kv_mask, seg, seed, T, H, causal, scale, rate,
                               inv_keep);
-  APEX_FLASH_DISPATCH(dkv, q, k, v, dout, lse, delta, dkp, dvp, BH, D, mk,
-                      stream);
+  APEX_FLASH_DISPATCH(dkv, dkv_mma, q, k, v, dout, lse, delta, dkp, dvp, BH,
+                      D, mk, stream);
+}
+
+// out[5]: see kernel_info; pass 0 forward, 1 dq, 2 dk/dv
+int apex_flash_kernel_info(int pass, int dtype, int D, int* out) {
+  switch (pass) {
+    case 0: APEX_FLASH_DISPATCH(info_fwd, info_fwd_mma, out);
+    case 1: APEX_FLASH_DISPATCH(info_dq, info_dq, out);
+    case 2: APEX_FLASH_DISPATCH(info_dkv, info_dkv_mma, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -24,14 +24,18 @@ bounds.  The seed words stay on the device: the kernels read them there,
 so no wrapper calls ``.item()``.
 
 The wrappers take (BH, T, D) contiguous operands, fp32, bf16 or fp16,
-D <= 128.  A wrapper given CUDA tensors launches its kernel and adds one
-to its ``launches`` count; given CPU tensors it runs the plain version
+D <= 128.  For bf16 and fp16 the forward and dK/dV kernels do their
+products on tensor cores; fp32 operands and dQ run fp32 FMAs (see the
+kernel source's header).  A wrapper given CUDA tensors launches its
+kernel and adds one to its ``launches`` count; given CPU tensors it runs
+the plain version
 (dense (BH, T, T) scores, which at the test sizes equal the JAX kernel's
 single block); anything else raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -299,6 +303,21 @@ def flash_dkv(q3, k3, v3, do3, lse, delta, H: int, scale: float,
 
 
 flash_dkv.launches = 0
+
+
+def kernel_info(which: str, dtype: torch.dtype, D: int) -> dict:
+    """Launch shape and resources of the kernel that ``flash_<which>``
+    (``"fwd"``, ``"dq"`` or ``"dkv"``) launches for ``dtype`` and head dim
+    ``D``, from the CUDA runtime: resident blocks per SM, threads a block,
+    dynamic shared bytes, registers and local (spill) bytes a thread.
+    Builds the library; needs a GPU."""
+    lib = _build.library("flash_attention")
+    out = (ctypes.c_int * 5)()
+    _build.check(lib.apex_flash_kernel_info(
+        ("fwd", "dq", "dkv").index(which), _KIND[dtype], D, out),
+        "apex_flash_kernel_info")
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes", "registers",
+                     "local_bytes"), out))
 
 
 # -- the autograd op and the public function ----------------------------------

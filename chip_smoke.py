@@ -18,10 +18,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
             shapes, timed as one training step's 53 layers; the LayerNorm
             forward and backward at BERT-base's (4096, 768) bf16 and odd
             shapes, and the flash forward, dQ and dK/dV at BERT-base's
-            (32, 12, 128, 64) bf16 in every variant (causal, key padding,
-            segments, dropout), at T = 512 and at odd shapes, each output
-            held against an fp64 evaluation within a stated bound; the
-            dropout mask shown to be the hash's (q = k = 0, V = identity);
+            (32, 12, 128, 64) in bf16 and fp16 (the forward and dK/dV on
+            tensor cores) in every variant (causal, key padding, segments,
+            dropout), at T = 512, at D = 128 with 16 heads and at odd
+            shapes (also fp32, the FMA kernels), each output held against
+            an fp64 evaluation within a stated bound and each forward and
+            dK/dV launched twice, bitwise; the dropout mask shown to be the
+            hash's (q = k = 0, V = identity) in fp32, bf16 and fp16, with
+            and without the causal mask; the flash kernels' registers,
+            spills and resident blocks an SM;
             the LAMB stage 1 and stage 2 at BERT-large's flat length
             (336,195,586, its 301 tensors, the weights of the model) and
             an odd length, bitwise, with the no-op flag set and clear, and
@@ -64,6 +69,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import time
@@ -199,15 +205,31 @@ def phase_device():
 # -- phase 2 -----------------------------------------------------------------
 
 def phase_build():
+    """Every library, and flash_attention.cu once more without the dK/dV
+    kernel's register cap (``-DAPEX_FLASH_DKV_BLOCKS=1``), one ``nvcc``
+    each, all started together; returns the uncapped library."""
     from apex_tpu_torch.ops import _build
     t0 = time.time()
-    logs = _build.build_all()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    uncapped = _build.BUILD_DIR / "libflash_attention-uncapped.so"
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DAPEX_FLASH_DKV_BLOCKS=1",
+         "-o", str(uncapped), str(_build.CSRC / "flash_attention.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        logs = _build.build_all()
+    finally:
+        out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the uncapped build:\n{out}")
     secs = time.time() - t0
     for src, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {src}.cu: {line.strip()}")
-    log(f"[build] {sorted(logs)} built in {secs:.2f} s")
+    log(f"[build] {sorted(logs)} and flash_attention.cu uncapped built in "
+        f"{secs:.2f} s")
+    return _build._load("flash_attention", uncapped)
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -553,6 +575,8 @@ LN_ODD = ((7, 1), (33, 100), (300, 1024), (9, 1500))
 FLASH_BASE = (32, 12, 128, 64)      # B, H, T, D of BERT-base at 32 x 128
 FLASH_LONG = (8, 12, 512, 64)
 FLASH_ODD = ((2, 3, 200, 64), (2, 3, 77, 128), (3, 2, 64, 24))
+FLASH_WIDE = (2, 16, 128, 128)      # D = 128 at BERT-large's 16 heads
+FLASH_LARGE = (8, 16, 128, 64)      # BERT-large at 8 x 128
 FLASH_PER_PASS = 12                 # attention layers of BERT-base
 FLASH_VARIANTS = {
     "none": {}, "causal": {"causal": True}, "kv_mask": {"kv_mask": True},
@@ -834,6 +858,14 @@ def _flash_check(shape, dtype, variant, seed):
     if kvm is not None:
         assert float(got["o"][:H].float().abs().max()) == 0.0, \
             "a sequence with no valid key must give zeros"
+    # the same bits on a second launch: each block writes only its rows
+    o2, lse2 = ops.flash_fwd(q, k, v, *args)
+    delta = (do.float() * got["o"].float()).sum(dim=-1)
+    dk2, dv2 = ops.flash_dkv(q, k, v, do, lse, delta, *args)
+    assert torch.equal(o2, got["o"]) and torch.equal(lse2, lse), \
+        f"flash_fwd differs between launches {shape} {dtype} {variant}"
+    assert torch.equal(dk2, got["dk"]) and torch.equal(dv2, got["dv"]), \
+        f"flash_dkv differs between launches {shape} {dtype} {variant}"
     errs = {"flash_fwd": max_abs(got["o"], want["o"]),
             "flash_dq": max_abs(got["dq"], want["dq"]),
             "flash_dkv": max(max_abs(got["dk"], want["dk"]),
@@ -841,18 +873,26 @@ def _flash_check(shape, dtype, variant, seed):
     return errs, ratios
 
 
-def phase_flash():
-    """The flash kernels at BERT-base's shape (every variant, bf16), at
-    T = 512 and at odd shapes (fp32, bf16, fp16), each against fp64; the
-    dropout mask shown equal to the hash; timed at BERT-base's shape with
-    the path's dropout 0.1."""
+def phase_flash(uncapped):
+    """The flash kernels at BERT-base's shape (every variant, bf16 and
+    fp16: the forward and dK/dV on tensor cores), at T = 512, at D = 128
+    with 16 heads and at odd shapes (fp32 on the FMA kernels, bf16, fp16),
+    each against fp64 and each forward and dK/dV twice, bitwise; the
+    dropout mask shown equal to the hash in every dtype, with and without
+    the causal mask; timed at BERT-base's shape with the path's dropout
+    0.1, in bf16 (the rows) and fp32 (the FMA route); the dK/dV kernel
+    with its register cap against ``uncapped``, the library built without
+    it."""
     from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops import flash_attention as fa
     err = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
     worst = {"kernel": 0.0, "plain": 0.0}
     i = 0
-    cases = [(FLASH_BASE, torch.bfloat16, v) for v in FLASH_VARIANTS]
+    cases = [(FLASH_BASE, d, v) for d in (torch.bfloat16, torch.float16)
+             for v in FLASH_VARIANTS]
     cases += [(FLASH_LONG, torch.bfloat16, v) for v in ("none", "all")]
+    cases.append((FLASH_WIDE, torch.bfloat16, "all"))
     cases += [(s, d, v) for s in FLASH_ODD
               for d in (torch.float32, torch.bfloat16, torch.float16)
               for v in ("none", "all")]
@@ -869,20 +909,32 @@ def phase_flash():
         f"{worst['kernel']:.3e}, plain {worst['plain']:.3e}; max abs err "
         f"against the plain version {err}")
     # the dropout mask: q = k = 0 and V = identity (T = D), so O's zero
-    # pattern is the mask
-    for T in (64, 128):
-        z = torch.zeros(12, T, T, device=DEVICE)
-        eye = torch.eye(T, device=DEVICE).expand(12, T, T).contiguous()
-        words = torch.tensor([SEED + 7, 99], dtype=torch.int32,
-                             device=DEVICE)
-        o, _ = ops.flash_fwd(z, z, eye, 3, 1.0, seed=words, rate=0.1)
-        keep = fa._keep(z, words, 0.1)
-        assert torch.equal(o != 0, keep), f"dropout mask at T = {T}"
-        assert torch.equal(o, torch.where(keep, fa._inv_keep(0.1) / T, 0.0)
-                           .float()), f"kept values at T = {T}"
+    # pattern is the mask (under the causal mask, the mask's lower
+    # triangle), and each kept value is round_T(1/(1 - rate)) over the
+    # row's count of valid keys: the plain version's bits
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for T in (64, 128):
+            for causal in (False, True):
+                z = torch.zeros(12, T, T, device=DEVICE, dtype=dtype)
+                eye = (torch.eye(T, device=DEVICE).expand(12, T, T)
+                       .contiguous().to(dtype))
+                words = torch.tensor([SEED + 7, 99], dtype=torch.int32,
+                                     device=DEVICE)
+                o, _ = ops.flash_fwd(z, z, eye, 3, 1.0, causal, seed=words,
+                                     rate=0.1)
+                keep = fa._keep(z, words, 0.1)
+                if causal:
+                    keep = keep & torch.ones(T, T, dtype=torch.bool,
+                                             device=DEVICE).tril()
+                what = f"{dtype} T = {T} causal {causal}"
+                assert torch.equal(o != 0, keep), f"dropout mask, {what}"
+                po, _ = fa._fwd_plain(z, z, eye, 3, 1.0, causal, None, None,
+                                      words, 0.1)
+                assert torch.equal(o, po), f"kept values, {what}"
     log(f"[kernels] flash dropout: O's zero pattern equals the hash's mask "
-        f"at T = D = 64 and 128 (keep share "
-        f"{float(keep.float().mean()):.4f} at rate 0.1)")
+        f"and O the plain version's bits at T = D = 64 and 128, fp32, bf16 "
+        f"and fp16, with and without the causal mask (keep share "
+        f"{float(keep.float().mean()):.4f} at rate 0.1, causal)")
     B, H, T, D = FLASH_BASE
     q, k, v, do, _, _, words = _flash_case(B, H, T, D, torch.bfloat16,
                                            SEED + 90)
@@ -926,20 +978,79 @@ def phase_flash():
     }
     rows = _time_rows(timing, err, f"{FLASH_BASE} (B, H, T, D) bf16, "
                       f"dropout 0.1, one call; {FLASH_PER_PASS} calls a pass")
-    # T = 512: the kernels' device time, no library or plain timing
-    B, H, T, D = FLASH_LONG
-    q, k, v, do = _flash_case(B, H, T, D, torch.bfloat16, SEED + 91)[:4]
-    args = (H, D ** -0.5, False, None, None, None, 0.0)
-    o, lse = ops.flash_fwd(q, k, v, *args)
-    delta = (do.float() * o.float()).sum(dim=-1)
-    f0 = B * H * T * T * D
-    bwd = (q, k, v, do, lse, delta, *args)
-    t_fwd = graph_ms(lambda: ops.flash_fwd(q, k, v, *args))
-    t_dq = graph_ms(lambda: ops.flash_dq(*bwd))
-    t_dkv = graph_ms(lambda: ops.flash_dkv(*bwd))
-    log(f"[kernels] flash at {FLASH_LONG} bf16: fwd {t_fwd:.4f} ms "
-        f"({4 * f0} flops), dq {t_dq:.4f} ms ({6 * f0}), dkv {t_dkv:.4f} ms "
-        f"({8 * f0})")
+    # the kernels' device time without library or plain timing: fp32 (the
+    # FMA route) at BERT-base's shape, bf16 at BERT-large's and at T = 512
+    flops = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}
+    for shape, dtype, rate in ((FLASH_BASE, torch.float32, 0.1),
+                               (FLASH_LARGE, torch.bfloat16, 0.1),
+                               (FLASH_LONG, torch.bfloat16, 0.0)):
+        B, H, T, D = shape
+        q, k, v, do = _flash_case(B, H, T, D, dtype, SEED + 91)[:4]
+        args = (H, D ** -0.5, False, None, None, words, rate)
+        o, lse = ops.flash_fwd(q, k, v, *args)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        bwd = (q, k, v, do, lse, delta, *args)
+        f0 = B * H * T * T * D
+        ms = {"flash_fwd": graph_ms(lambda: ops.flash_fwd(q, k, v, *args)),
+              "flash_dq": graph_ms(lambda: ops.flash_dq(*bwd)),
+              "flash_dkv": graph_ms(lambda: ops.flash_dkv(*bwd))}
+        tag = f"{shape} {str(dtype)[6:]} dropout {rate}"
+        for name, t in ms.items():
+            rows[name].setdefault("also", {})[tag] = {
+                "ms": t, "tflops": flops[name] * f0 / t / 1e9}
+        log(f"[kernels] flash at {tag}: " + ", ".join(
+            f"{n[6:]} {t:.4f} ms ({flops[n] * f0} flops, "
+            f"{flops[n] * f0 / t / 1e9:.1f} TFLOP/s)" for n, t in ms.items()))
+    # the launch shape and resources of each instantiation the paths and
+    # checks run: grid at BERT-base's and BERT-large's shapes, resident
+    # blocks an SM (the occupancy API), registers and spills (the runtime's
+    # attributes of the built kernel)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in timing:
+        which = name[6:]
+        res = {}
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for D in (32, 64, 128):
+                info = fa.kernel_info(which, dtype, D)
+                res[f"{str(dtype)[6:]} D<={D}"] = info
+                log(f"[kernels] {name} {str(dtype)[6:]} D <= {D}: {info}")
+        for shape in (FLASH_BASE, FLASH_LARGE):
+            B, H, T, D = shape
+            grid = B * H * -(-T // 64)
+            dp = next(w for w in (32, 64, 128) if D <= w)
+            info = res[f"bfloat16 D<={dp}"]
+            resident = min(grid, info["blocks_per_sm"] * sms)
+            warps = resident * info["threads"] // 32 / sms
+            log(f"[kernels] {name} bf16 at {shape}: {grid} blocks of "
+                f"{info['threads']} threads, {info['blocks_per_sm']} "
+                f"resident an SM, {grid / (info['blocks_per_sm'] * sms):.2f} "
+                f"waves on {sms} SMs, {warps:.1f} warps an SM in the first")
+    # the dK/dV register cap (flash_attention.cu, APEX_FLASH_DKV_BLOCKS):
+    # the same bits with and without it, and the time of each
+    capped = _build.library("flash_attention")
+    for shape in (FLASH_BASE, FLASH_LARGE):
+        B, H, T, D = shape
+        q, k, v, do = _flash_case(B, H, T, D, torch.bfloat16, SEED + 92)[:4]
+        args = (H, D ** -0.5, False, None, None, words, 0.1)
+        o, lse = ops.flash_fwd(q, k, v, *args)
+        bwd = (q, k, v, do, lse, (do.float() * o.float()).sum(dim=-1), *args)
+        want = ops.flash_dkv(*bwd)
+        t_cap = graph_ms(lambda: ops.flash_dkv(*bwd))
+        _build._LIBS["flash_attention"] = uncapped
+        try:
+            got = ops.flash_dkv(*bwd)
+            t_free = graph_ms(lambda: ops.flash_dkv(*bwd))
+            info = fa.kernel_info("dkv", torch.bfloat16, D)
+        finally:
+            _build._LIBS["flash_attention"] = capped
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            f"flash_dkv with and without the register cap differ at {shape}"
+        tag = f"{shape} bfloat16 dropout 0.1 uncapped"
+        rows["flash_dkv"]["also"][tag] = {
+            "ms": t_free, "tflops": 8 * B * H * T * T * D / t_free / 1e9}
+        log(f"[kernels] flash_dkv register cap at {shape} bf16, dropout "
+            f"0.1: capped {t_cap:.4f} ms, uncapped {t_free:.4f} ms "
+            f"(uncapped: {info}), the same bits")
     return rows
 
 
@@ -1294,7 +1405,8 @@ _PORT_KERNELS = ("scale_kernel", "axpby_kernel", "l2norm_", "adam_kernel",
                  "lamb_stage")
 _PORT_BN = ("bn_fwd_kernel", "bn_bwd_rows_kernel")
 _PORT_LN = ("ln_fwd_", "ln_bwd_", "ln_colsum_kernel")
-_PORT_ATTN = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+_PORT_ATTN = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+              "flash_fwd_mma_kernel", "flash_dkv_mma_kernel")
 _LIBRARY_MATH = ("conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad", "dgrad",
                  "fprop", "implicit", "nvjet")
 
@@ -1357,6 +1469,12 @@ def phase_profile(step, step_ms: float, tag: str = "profile",
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     for name, ms in top:
         log(f"[{tag}]   kernel {ms / steps:8.3f} ms/step  {name[:100]}")
+    # each port attention kernel, in or out of the top list
+    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
+        if _category(name) == "port attention kernels":
+            short = re.search(r"flash_\w+<[^>]*>", name)
+            log(f"[{tag}]   attention {ms / steps:8.3f} ms/step  "
+                f"{short.group() if short else name[:80]}")
     # the host side: self CPU time of the operators (inflated by the
     # profiler's own cost, so read as shares) and device launches a step
     host, launches = {}, 0
@@ -1641,11 +1759,11 @@ BERT_LARGE_COUNTS = dict(
 def main():
     name, smi = phase_device()
     import apex_tpu_torch  # noqa: F401  (fails outside the repository)
-    phase_build()
+    uncapped = phase_build()
     rows = phase_kernels()
     rows.update(phase_syncbn())
     rows.update(phase_layer_norm())
-    rows.update(phase_flash())
+    rows.update(phase_flash(uncapped))
     rows.update(phase_lamb())
     counts_train, _, train = phase_train(smi)
     phase_reference()

@@ -234,11 +234,16 @@ def _flash_case(cuda, B, H, T, D, dtype, seed=0):
     return q, k, v, do, kvm, seg.to(cuda)
 
 
+# bf16 and fp16 take the tensor-core forward and dK/dV, fp32 the FMA
+# kernels; D = 20 takes the tensor-core kernels' element-wise tile loads
+# (their 16-byte copies need D % 8 == 0)
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["none", "causal", "kv_mask", "segments",
                                      "dropout", "all"])
-@pytest.mark.parametrize("T,D", [(128, 64), (200, 64), (77, 128), (64, 24)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,D", [(128, 64), (200, 64), (77, 128), (64, 24),
+                                 (512, 64), (50, 20)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 def test_flash_kernels_match_plain(cuda, variant, T, D, dtype):
     B, H = 2, 3
     q, k, v, do, kvm, seg = _flash_case(cuda, B, H, T, D, dtype)
@@ -252,8 +257,9 @@ def test_flash_kernels_match_plain(cuda, variant, T, D, dtype):
     o, lse = ops.flash_fwd(q, k, v, *args, **kw)
     po, plse = fa._fwd_plain(q, k, v, *args, kw["causal"], kw["kv_mask"],
                              kw["segment_ids"], seed, kw["rate"])
-    # fp32: sums in another order; bf16: P rounds to bf16 on either side,
-    # and a p one fp32 ulp apart can round to neighbouring bf16 values
+    # fp32: sums in another order; bf16/fp16: P rounds to the type on
+    # either side, and a p one fp32 ulp apart can round to neighbouring
+    # values of the type
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(o.float(), po.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
@@ -271,18 +277,40 @@ def test_flash_kernels_match_plain(cuda, variant, T, D, dtype):
                                    atol=tol * scale)
     if kw["kv_mask"] is not None:
         assert float(o[:H].float().abs().max()) == 0.0   # no valid key
+    # each block writes only its own rows (no atomics): a second launch of
+    # the forward and of dK/dV gives the same bits
+    o2, lse2 = ops.flash_fwd(q, k, v, *args, **kw)
+    dk2, dv2 = ops.flash_dkv(q, k, v, do, plse, delta, *args, **kw)
+    for x, y in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
-def test_flash_dropout_mask_is_the_hash(cuda):
-    """q = k = 0 and V = identity (T = D): O's zero pattern is the mask."""
-    BH, T = 6, 64
-    z = torch.zeros(BH, T, T, device=cuda)
-    eye = torch.eye(T, device=cuda).expand(BH, T, T).contiguous()
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_dropout_mask_is_the_hash(cuda, dtype, T, causal):
+    """q = k = 0 and V = identity (T = D): O's zero pattern is the mask
+    (under the causal mask, its lower triangle), each kept value the plain
+    version's bits (round_T of 1/(1 - rate) over the row's count of valid
+    keys), and lse the log of that count.  A wrong fragment-to-position
+    map in the tensor-core kernels moves the pattern."""
+    BH = 6
+    z = torch.zeros(BH, T, T, device=cuda, dtype=dtype)
+    eye = torch.eye(T, device=cuda).expand(BH, T, T).contiguous().to(dtype)
     seed = torch.tensor([7, 99], dtype=torch.int32, device=cuda)
-    o, _ = ops.flash_fwd(z, z, eye, 2, 1.0, seed=seed, rate=0.25)
+    o, lse = ops.flash_fwd(z, z, eye, 2, 1.0, causal, seed=seed, rate=0.25)
     keep = fa._keep(z, seed, 0.25)
+    count = torch.full((T,), float(T), device=cuda)
+    if causal:
+        keep = keep & torch.ones(T, T, dtype=torch.bool, device=cuda).tril()
+        count = torch.arange(1, T + 1, device=cuda).float()
     assert torch.equal(o != 0, keep)
+    po, _ = fa._fwd_plain(z, z, eye, 2, 1.0, causal, None, None, seed, 0.25)
+    assert torch.equal(o, po)
+    torch.testing.assert_close(lse, torch.log(count).expand(BH, T),
+                               rtol=1e-6, atol=1e-6)
 
 
 # -- LAMB and the per-tensor l2norm ---------------------------------------------
