@@ -48,7 +48,7 @@ _P, _F, _I, _L = _c.c_void_p, _c.c_float, _c.c_int, _c.c_longlong
 SOURCES: Dict[str, Dict[str, Tuple]] = {
     "multi_tensor": {
         "apex_scale": (_P, _P, _L, _P, _P, _I, _P),
-        "apex_axpby": (_P, _P, _P, _L, _P, _I, _P, _I, _P),
+        "apex_axpby": (_P, _P, _P, _L, _P, _P, _I, _P, _P),
         "apex_l2norm": (_P, _L, _P, _I, _P, _P),
         "apex_l2norm_per_tensor": (_P, _P, _L, _P, _I, _P, _P, _P),
     },

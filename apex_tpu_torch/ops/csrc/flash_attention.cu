@@ -25,21 +25,22 @@
 // round-to-nearest and scaled by 2^-31.  The two seed words are read from
 // device memory inside the kernel, so no step waits on the host for them.
 //
-// Two routes, by dtype code.  bf16 and fp16 (codes 1, 2) run the forward
-// and dK/dV on tensor cores: flash_fwd_mma_kernel and flash_dkv_mma_kernel,
-// mma.sync.m16n8k16 with fp32 accumulators, which is the JAX kernels' _dot
-// (native half operands, fp32 accumulation; P and dS rounded to the type
-// before their products).  fp32 (code 0) and every dQ run fp32 FMAs
-// (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel): a tensor-core
-// fp32 product would be TF32, which the JAX package's full-precision fp32
-// contract rules out, and dQ is the next kernel to move.
+// Two routes, by dtype code.  bf16 and fp16 (codes 1, 2) run all three
+// passes on tensor cores: flash_fwd_mma_kernel, flash_dq_mma_kernel and
+// flash_dkv_mma_kernel, mma.sync.m16n8k16 with fp32 accumulators, which is
+// the JAX kernels' _dot (native half operands, fp32 accumulation; P and dS
+// rounded to the type before their products).  fp32 (code 0) runs fp32
+// FMAs (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel): a
+// tensor-core fp32 product would be TF32, which the JAX package's
+// full-precision fp32 contract rules out.
 //
 // Bound.  At BERT-base (T = 128, D = 64) device-memory bytes; from T of a
 // few hundred on, the tensor-core rate.  The FMA kernels are bound by
 // their FMAs from shared memory (16 FMAs per 8 shared loads, about 1/15
 // of the bf16 tensor-core peak).  The tensor-core kernels at T = 128 are
 // bound by what surrounds the products: the dropout hash and expf at
-// every score, and the latency of two 64-row tiles a block.
+// every score, and the latency of two 64-row tiles a block.  dQ does
+// three products a score (S, dP, dS K), the forward two, dK/dV four.
 //
 // Design, FMA kernels.  The TPU grid (BH, q blocks, k blocks) runs its k
 // axis in order and carries the softmax state in VMEM scratch; here that
@@ -53,15 +54,17 @@
 //
 // Design, tensor-core kernels (the section below has the details).  The
 // same grids, 4 warps a block, each warp 16 rows of the block's tile.
-// The resident operand (Q; K and V) is read into fragments once; the
-// streamed tiles arrive as the input type by 16-byte cp.async into two
-// buffers, so the next tile's copy overlaps this tile's math.  Scores stay
-// in the accumulator registers: the scale, the masks and the hash apply
-// there at each element's own (q, k), the forward's online softmax
-// reduces a row across the quad of lanes that holds it (two shuffles, no
-// barrier), and P (dS) goes from accumulator to A fragment in registers.
-// Key validity and segment ids come into shared memory once a tile.  No
-// output is summed across blocks: no atomics, the same bits every run.
+// The resident operands (Q for the forward, Q and dO for dQ, K and V for
+// dK/dV) are read into fragments once (from shared memory each tile at
+// D = 128); the streamed tiles arrive as the input type by 16-byte
+// cp.async into two buffers, so the next tile's copy overlaps this tile's
+// math.  Scores stay in the accumulator registers: the scale, the masks
+// and the hash apply there at each element's own (q, k), the forward's
+// online softmax reduces a row across the quad of lanes that holds it
+// (two shuffles, no barrier), and P (dS) goes from accumulator to A
+// fragment in registers.  Key validity and segment ids come into shared
+// memory once a tile.  No output is summed across blocks: no atomics, the
+// same bits every run.
 // Each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -491,7 +494,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_tile<T, DP>(dv + base, acc_v, k0, T_, D, ty, tx);
 }
 
-// -- tensor-core kernels (bf16, fp16): forward and dK/dV --------------------
+// -- tensor-core kernels (bf16, fp16): forward, dQ and dK/dV ----------------
 //
 // A block of kWarps warps per 64-row tile; warp w owns rows 16w..16w+15.
 // Products are mma.sync.m16n8k16 (bf16 or fp16 operands, fp32
@@ -659,6 +662,28 @@ __device__ __forceinline__ void load_row_async(void* dst, const void* src,
   }
 }
 
+// K/V tile kt of one (T, D) slab each, its keys' validity (k < T and
+// kv_mask) and segment ids, into buffer kt & 1 of the forward's and dQ's
+// K/V stream; one cp.async group
+template <typename T, int DP>
+__device__ __forceinline__ void load_kv_tile(T* Ks, T* Vs, int* kseg_s,
+                                             uint8_t* kok_s, const T* k,
+                                             const T* v, int kt, int D,
+                                             int vec, const Masks& mk,
+                                             long long mbase) {
+  constexpr int S = DP + 8;
+  const int buf = kt & 1, k0 = kt * kTile;
+  load_tile_async<T, DP>(Ks + buf * kTile * S, k, k0, mk.T, D, vec);
+  load_tile_async<T, DP>(Vs + buf * kTile * S, v, k0, mk.T, D, vec);
+  if (mk.seg) load_row_async(kseg_s + buf * kTile, mk.seg + mbase, k0, mk.T);
+  if (threadIdx.x < kTile) {
+    const int kp = k0 + threadIdx.x;
+    kok_s[buf * kTile + threadIdx.x] =
+        kp < mk.T && (!mk.kv_mask || mk.kv_mask[mbase + kp]);
+  }
+  cp_async_commit();
+}
+
 // A warp's accumulators (16 rows, DP columns, times `mul`) to rows
 // [r0, r0 + 16) of a (rows, D) slab: staged through the warp's own rows
 // of `stage` for 16-byte stores when `vec`, else element stores.
@@ -725,22 +750,9 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int nk = (T_ + kTile - 1) / kTile;
   if (mk.causal) nk = min(nk, q0 / kTile + 1);
 
-  // K/V tile kt, its keys' validity (k < T and kv_mask) and segment ids,
-  // into buffer kt & 1
-  auto load_kv = [&](int kt) {
-    const int buf = kt & 1, k0 = kt * kTile;
-    load_tile_async<T, DP>(Ks + buf * kTile * S, k + base, k0, T_, D, vec);
-    load_tile_async<T, DP>(Vs + buf * kTile * S, v + base, k0, T_, D, vec);
-    if (mk.seg) load_row_async(kseg_s + buf * kTile, mk.seg + mbase, k0, T_);
-    if (threadIdx.x < kTile) {
-      const int kp = k0 + threadIdx.x;
-      kok_s[buf * kTile + threadIdx.x] =
-          kp < T_ && (!mk.kv_mask || mk.kv_mask[mbase + kp]);
-    }
-    cp_async_commit();
-  };
   load_tile_async<T, DP>(Qs, q + base, q0, T_, D, vec);
-  load_kv(0);
+  load_kv_tile<T, DP>(Ks, Vs, kseg_s, kok_s, k + base, v + base, 0, D, vec,
+                      mk, mbase);
 
   // this lane's query rows (e < 2: qa, else qb) and their segment ids
   const int qa = q0 + w0 + frag_row(lane, 0), qb = qa + 8;
@@ -759,7 +771,8 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kt = 0; kt < nk; ++kt) {
     if (kt + 1 < nk) {
-      load_kv(kt + 1);
+      load_kv_tile<T, DP>(Ks, Vs, kseg_s, kok_s, k + base, v + base, kt + 1, D,
+                          vec, mk, mbase);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -870,6 +883,172 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qa < T_) lse[(long long)bh * T_ + qa] = m_r[0] + logf(ls[0]);
     if (qb < T_) lse[(long long)bh * T_ + qb] = m_r[1] + logf(ls[1]);
   }
+}
+
+// dQ: the forward's grid and K/V stream.  Per K tile and per 32 keys, S =
+// Q K^T and dP = dO V^T into fp32 accumulators; p, the dropout and dS =
+// round_T(p (dp - delta)) in registers at each element's own (q, k); then
+// dQ += dS K with K's B fragments read transposed from the same K tile in
+// shared memory, so K comes from device memory once for both products.
+// Q and dO fragments stay in registers up to D = 64; at 128 they would not
+// fit beside the 16 x 128 fp32 accumulator and are re-read from shared
+// memory.  dQ is scaled once, at the end, as the plain version does.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int D, int vec, Masks mk) {
+  constexpr int S = DP + 8;
+  constexpr int NC = DP / 16;          // depth chunks of Q.K^T and dO.V^T
+  constexpr int NT = DP / 8;           // 8-wide column tiles of dQ
+  constexpr bool kRegQ = DP <= 64;
+  constexpr int KC = 32;               // keys a step
+  constexpr int NK = KC / 8;           // 8-wide score tiles a step
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  T* Qs = reinterpret_cast<T*>(smem_mma);
+  T* dOs = Qs + kTile * S;
+  T* Ks = dOs + kTile * S;                // two buffers each
+  T* Vs = Ks + 2 * kTile * S;
+  int* kseg_s = reinterpret_cast<int*>(Vs + 2 * kTile * S);        // [2][64]
+  uint8_t* kok_s = reinterpret_cast<uint8_t*>(kseg_s + 2 * kTile);  // [2][64]
+
+  const int T_ = mk.T;
+  const int nq = (T_ + kTile - 1) / kTile;
+  const int bh = blockIdx.x / nq, b = bh / mk.H;
+  const int q0 = (blockIdx.x % nq) * kTile;
+  const int lane = threadIdx.x & 31, w0 = (threadIdx.x >> 5) * 16;
+  const long long base = (long long)bh * T_ * D, mbase = (long long)b * T_;
+  uint32_t s0 = 0, s1 = 0;
+  if (mk.rate > 0.0f) {
+    s0 = (uint32_t)mk.seed[0];
+    s1 = (uint32_t)mk.seed[1];
+  }
+  int nk = (T_ + kTile - 1) / kTile;
+  if (mk.causal) nk = min(nk, q0 / kTile + 1);
+
+  load_tile_async<T, DP>(Qs, q + base, q0, T_, D, vec);
+  load_tile_async<T, DP>(dOs, dout + base, q0, T_, D, vec);
+  load_kv_tile<T, DP>(Ks, Vs, kseg_s, kok_s, k + base, v + base, 0, D, vec,
+                      mk, mbase);
+
+  // this lane's query rows (e < 2: qa, else qb): lse, delta, segment ids
+  const int qa = q0 + w0 + frag_row(lane, 0), qb = qa + 8;
+  const long long sbase = (long long)bh * T_;
+  const float lsa = qa < T_ ? lse[sbase + qa] : 0.0f;
+  const float lsb = qb < T_ ? lse[sbase + qb] : 0.0f;
+  const float dla = qa < T_ ? delta[sbase + qa] : 0.0f;
+  const float dlb = qb < T_ ? delta[sbase + qb] : 0.0f;
+  int sega = 0, segb = 0;
+  if (mk.seg) {
+    sega = qa < T_ ? mk.seg[mbase + qa] : 0;
+    segb = qb < T_ ? mk.seg[mbase + qb] : 0;
+  }
+  uint32_t qf[kRegQ ? NC : 1][4], of[kRegQ ? NC : 1][4];
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) {
+      load_kv_tile<T, DP>(Ks, Vs, kseg_s, kok_s, k + base, v + base, kt + 1, D,
+                          vec, mk, mbase);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kRegQ && kt == 0) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        frag_a<S>(qf[kRegQ ? c : 0], Qs, w0, c, lane);
+        frag_a<S>(of[kRegQ ? c : 0], dOs, w0, c, lane);
+      }
+    }
+    const int buf = kt & 1, k0 = kt * kTile;
+    const T* Kb = Ks + buf * kTile * S;
+    const T* Vb = Vs + buf * kTile * S;
+    const int* ksg = kseg_s + buf * kTile;
+    const uint8_t* kok = kok_s + buf * kTile;
+#pragma unroll 1
+    for (int hk = 0; hk < kTile / KC; ++hk) {
+      // S = Q K^T and dP = dO V^T, 16 x KC a warp
+      float st[NK][4], dpt[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        uint32_t aq[4], ao[4];
+        if (kRegQ) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            aq[i] = qf[kRegQ ? c : 0][i];
+            ao[i] = of[kRegQ ? c : 0][i];
+          }
+        } else {
+          frag_a<S>(aq, Qs, w0, c, lane);
+          frag_a<S>(ao, dOs, w0, c, lane);
+        }
+#pragma unroll
+        for (int np = 0; np < NK / 2; ++np) {
+          uint32_t bf[4];
+          frag_b_rows<S>(bf, Kb, hk * KC + np * 16, c, lane);
+          Mma<T>::run(st[2 * np], aq, bf[0], bf[1]);
+          Mma<T>::run(st[2 * np + 1], aq, bf[2], bf[3]);
+          frag_b_rows<S>(bf, Vb, hk * KC + np * 16, c, lane);
+          Mma<T>::run(dpt[2 * np], ao, bf[0], bf[1]);
+          Mma<T>::run(dpt[2 * np + 1], ao, bf[2], bf[3]);
+        }
+      }
+      // p = valid ? exp(s scale - lse[q]) : 0; dp dropped and rescaled by
+      // the hash; dS = round_T(p (dp - delta[q])) packed into A fragments
+      // (16 keys a chunk)
+      uint32_t sf[NK / 2][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = hk * KC + frag_col(lane, j, e), kp = k0 + c;
+          const int h = e >> 1, qp = h ? qb : qa;
+          const bool val = kok[c] && (!mk.causal || qp >= kp) &&
+                           (!mk.seg || (h ? segb : sega) == ksg[c]);
+          const float p =
+              val ? expf(st[j][e] * mk.scale - (h ? lsb : lsa)) : 0.0f;
+          float d = dpt[j][e];
+          if (mk.rate > 0.0f)
+            d = (keep(mk, s0, s1, bh, qp, kp) ? d : 0.0f) * mk.inv_keep;
+          ds[e] = p * (d - (h ? dlb : dla));
+        }
+        sf[j >> 1][(j & 1) * 2] = Mma<T>::pack(ds[0], ds[1]);
+        sf[j >> 1][(j & 1) * 2 + 1] = Mma<T>::pack(ds[2], ds[3]);
+      }
+      // dQ += dS K
+#pragma unroll
+      for (int c = 0; c < NK / 2; ++c)
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bf[4];
+          frag_b_cols<S>(bf, Kb, hk * KC + c * 16, np * 16, lane);
+          Mma<T>::run(acc[2 * np], sf[c], bf[0], bf[1]);
+          Mma<T>::run(acc[2 * np + 1], sf[c], bf[2], bf[3]);
+        }
+    }
+    __syncthreads();                     // buffer kt & 1 is free again
+  }
+  // dQ times scale once; the warp's own rows of Qs stage the stores
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= mk.scale;
+  const float one[2] = {1.0f, 1.0f};
+  store_acc<T, DP>(dq + base, Qs + w0 * S, acc, one, q0 + w0, T_, D, vec,
+                   lane);
 }
 
 // Up to D = 64, registers capped so that APEX_FLASH_DKV_BLOCKS blocks
@@ -1084,6 +1263,11 @@ constexpr size_t dkv_bytes(int DP) {
 constexpr size_t fwd_mma_bytes(int DP) {
   return 5 * (size_t)kTile * (DP + 8) * 2 + 2 * kTile * (sizeof(int) + 1);
 }
+// Q, dO, two K and two V tiles; two buffers of key segment ids and
+// validity bytes
+constexpr size_t dq_mma_bytes(int DP) {
+  return 6 * (size_t)kTile * (DP + 8) * 2 + 2 * kTile * (sizeof(int) + 1);
+}
 // K, V, two Q and two dO tiles; two buffers of lse, delta, segment ids
 constexpr size_t dkv_mma_bytes(int DP) {
   return 6 * (size_t)kTile * (DP + 8) * 2 + 6 * kTile * sizeof(float);
@@ -1162,6 +1346,24 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
 }
 
 template <typename T, int DP>
+cudaError_t dq_mma(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dqp, int BH, int D, const Masks& mk,
+                   cudaStream_t st) {
+  const size_t bytes = dq_mma_bytes(DP);
+  auto kern = flash_dq_mma_kernel<T, DP>;
+  static unsigned long long done = 0;
+  const cudaError_t e = allow_smem(kern, bytes, done);
+  if (e != cudaSuccess) return e;
+  const int nq = (mk.T + kTile - 1) / kTile;
+  kern<<<BH * nq, kMmaThreads, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dqp), D, vec_ok(D, {q, k, v, dout, dqp}), mk);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
 cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dkp, void* dvp,
                 int BH, int D, const Masks& mk, cudaStream_t st) {
@@ -1226,6 +1428,11 @@ cudaError_t info_fwd_mma(int* out) {
 template <typename T, int DP>
 cudaError_t info_dq(int* out) {
   return kernel_info(flash_dq_kernel<T, DP>, 256, dq_bytes(DP), out);
+}
+template <typename T, int DP>
+cudaError_t info_dq_mma(int* out) {
+  return kernel_info(flash_dq_mma_kernel<T, DP>, kMmaThreads,
+                     dq_mma_bytes(DP), out);
 }
 template <typename T, int DP>
 cudaError_t info_dkv(int* out) {
@@ -1297,8 +1504,8 @@ int apex_flash_dq(const void* q, const void* k, const void* v,
                   cudaStream_t stream) {
   const Masks mk = make_masks(kv_mask, seg, seed, T, H, causal, scale, rate,
                               inv_keep);
-  APEX_FLASH_DISPATCH(dq, dq, q, k, v, dout, lse, delta, dqp, BH, D, mk,
-                      stream);
+  APEX_FLASH_DISPATCH(dq, dq_mma, q, k, v, dout, lse, delta, dqp, BH, D,
+                      mk, stream);
 }
 
 int apex_flash_dkv(const void* q, const void* k, const void* v,
@@ -1317,7 +1524,7 @@ int apex_flash_dkv(const void* q, const void* k, const void* v,
 int apex_flash_kernel_info(int pass, int dtype, int D, int* out) {
   switch (pass) {
     case 0: APEX_FLASH_DISPATCH(info_fwd, info_fwd_mma, out);
-    case 1: APEX_FLASH_DISPATCH(info_dq, info_dq, out);
+    case 1: APEX_FLASH_DISPATCH(info_dq, info_dq_mma, out);
     case 2: APEX_FLASH_DISPATCH(info_dkv, info_dkv_mma, out);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -13,7 +13,13 @@
 //   axpby   reads x and y, writes out   12 bytes/element
 //   l2norm  reads x                      4 bytes/element (either mode)
 // Design: one pass, each thread moving 16 bytes per load (float4) in a
-// grid-stride loop, with a scalar loop for the n % 4 tail.  The
+// grid-stride loop, with a scalar loop for the n % 4 tail.  scale and
+// l2norm cap the grid at 1,024 blocks (l2norm's partial sums need the
+// cap).  axpby, three streams, takes a block per 256 float4s, a grid
+// that covers the buffer once: on the H100 a grid of resident blocks that
+// stride (1,024 of one float4 a thread, or fewer of four) ran at
+// 1.06-1.08x torch.add's device time, this one at torch.add's.  Its a and
+// b come as two device pointers.  The
 // found-inf flag is a per-thread bool stored once as 1.0f: the OR is
 // order-free, so plain stores replace the TPU's sequential (1,1) SMEM
 // accumulator.  l2norm cannot carry a sum across blocks as the TPU grid
@@ -61,11 +67,12 @@ __global__ void scale_kernel(const float* x, float* out, long long n,
   if (bad) *flag = 1.0f;
 }
 
+// out may alias x or y: each index is read, then written, by one thread
 __global__ void axpby_kernel(const float* x, const float* y, float* out,
-                             long long n, const float* ab,
+                             long long n, const float* a_p, const float* b_p,
                              int arg_to_check, float* flag) {
-  const float a = ab[0];
-  const float b = ab[1];
+  const float a = *a_p;
+  const float b = *b_p;
   const bool chk_x = arg_to_check != 1;    // 0: x, 1: y, -1: both
   const bool chk_y = arg_to_check != 0;
   const long long n4 = n >> 2;
@@ -167,10 +174,15 @@ int apex_scale(const float* x, float* out, long long n, const float* scale,
   return (int)cudaGetLastError();
 }
 
+// a, b: device scalars; a block per kThreads float4s (the loop strides
+// only past 2^31 - 1 blocks)
 int apex_axpby(const float* x, const float* y, float* out, long long n,
-               const float* ab, int arg_to_check, float* flag, int blocks,
+               const float* a, const float* b, int arg_to_check, float* flag,
                cudaStream_t stream) {
-  axpby_kernel<<<blocks, kThreads, 0, stream>>>(x, y, out, n, ab,
+  const long long need = ((n >> 2) + kThreads - 1) / kThreads;
+  const int blocks = need < 1 ? 1 : (need > 2147483647LL ? 2147483647
+                                                          : (int)need);
+  axpby_kernel<<<blocks, kThreads, 0, stream>>>(x, y, out, n, a, b,
                                                 arg_to_check, flag);
   return (int)cudaGetLastError();
 }

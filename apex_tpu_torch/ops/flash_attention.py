@@ -24,9 +24,10 @@ bounds.  The seed words stay on the device: the kernels read them there,
 so no wrapper calls ``.item()``.
 
 The wrappers take (BH, T, D) contiguous operands, fp32, bf16 or fp16,
-D <= 128.  For bf16 and fp16 the forward and dK/dV kernels do their
-products on tensor cores; fp32 operands and dQ run fp32 FMAs (see the
-kernel source's header).  A wrapper given CUDA tensors launches its
+D <= 128 (:func:`fits` says whether a shape is within the kernels'
+limits).  For bf16 and fp16 the forward, dQ and dK/dV kernels do their
+products on tensor cores; fp32 operands run fp32 FMAs (see the kernel
+source's header).  A wrapper given CUDA tensors launches its
 kernel and adds one to its ``launches`` count; given CPU tensors it runs
 the plain version
 (dense (BH, T, T) scores, which at the test sizes equal the JAX kernel's
@@ -45,7 +46,7 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_fwd", "flash_dq", "flash_dkv",
-           "keep_unit"]
+           "fits", "keep_unit"]
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _NEG = -1e30
@@ -88,6 +89,15 @@ def _inv_keep(rate: float) -> float:
 
 
 # -- checks -------------------------------------------------------------------
+
+def fits(shape) -> bool:
+    """Whether (..., T, D) operands of ``shape`` are within the kernels'
+    limits, which :func:`_check` enforces: head dim 1 to 128 and every
+    index an int.  The attention dispatch sends other shapes to its dense
+    route, as the JAX package's does when ``fits_vmem`` fails."""
+    D, n = shape[-1], math.prod(shape)
+    return 1 <= D <= 128 and n <= 2 ** 31 - 1
+
 
 def _check(H: int, *ts: torch.Tensor, names=("q", "k", "v", "do")) -> None:
     q = ts[0]

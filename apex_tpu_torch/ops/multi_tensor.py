@@ -118,18 +118,17 @@ def multi_tensor_axpby(a: Scalar, b: Scalar, x: torch.Tensor,
     if not x.numel() == y.numel() == out.numel():
         raise ValueError("x, y and out differ in length")
     a, b = as_scalar(a, x), as_scalar(b, x)
-    if not _build.use_kernel(x, y, out, a):
+    if not _build.use_kernel(x, y, out, a, b):
         return _axpby_plain(a, b, x, y, arg_to_check, out)
     flag = torch.zeros((), dtype=torch.float32, device=x.device)
     n = x.numel()
     if n:
-        ab = torch.stack([a, b])
         lib = _build.library("multi_tensor")
         _build.check(lib.apex_axpby(x.data_ptr(), y.data_ptr(),
-                                    out.data_ptr(), n, ab.data_ptr(),
-                                    int(arg_to_check), flag.data_ptr(),
-                                    _build.grid_blocks(n),
-                                    _build.stream_ptr(x)), "apex_axpby")
+                                    out.data_ptr(), n, a.data_ptr(),
+                                    b.data_ptr(), int(arg_to_check),
+                                    flag.data_ptr(), _build.stream_ptr(x)),
+                     "apex_axpby")
         multi_tensor_axpby.launches += 1
     return out, flag
 

@@ -3,11 +3,13 @@
 Counterpart of ``apex_tpu/transformer/attention.py``.  The dispatch is the
 JAX package's, with one change: where JAX asks ``use_pallas_for(q)`` and
 ``fits_vmem``, the port takes the flash route whenever the mask is None or
-key-padding shaped and q, k and v have one shape.  On a CUDA tensor that
-route runs the flash kernels; on a CPU tensor their plain versions (never
-the dense path).  ``fits_vmem`` has no counterpart: the kernels stream
-K/V.  Arbitrary per-pair masks take the dense path, plain torch ops as in
-JAX.
+key-padding shaped, q, k and v have one shape, and that shape is within
+the kernels' limits (``ops.flash_attention.fits``: head dim 1 to 128, int
+indices).  On a CUDA tensor that route runs the flash kernels; on a CPU
+tensor their plain versions (never the dense path).  The kernels stream
+K/V, so sequence length needs no gate.  Arbitrary per-pair masks and
+shapes past the kernels' limits take the dense path, plain torch ops as
+in JAX, on either device.
 
 Dropout.  Where the JAX package reads the apply context's train flag and
 rng, the port's caller decides: attention dropout runs when
@@ -85,7 +87,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             and mask.shape[0] in (1, B) and mask.shape[-1] == Tk):
         kv_mask = (mask[:, 0, 0, :] != 0).expand(B, Tk)
     if ((mask is None or kv_mask is not None) and q.dim() == 4
-            and q.shape == k.shape == v.shape):
+            and q.shape == k.shape == v.shape and fa.fits(q.shape)):
         _note_path("flash")
         return fa.flash_attention(
             q, k, v, causal=causal, scale=scale, kv_mask=kv_mask,

@@ -8,9 +8,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. device   the card's name and power limit; TF32 off for matmul and cuDNN.
 2. build    nvcc builds every kernel of ops/csrc from the checkout.
 3. kernels  each kernel against its plain PyTorch version on the card, with
-            timings (kernel, plain version, nearest library call) and the
-            bound (bytes over the card's memory rate, or operations over
-            its bf16 tensor-core rate, whichever is longer): scale, axpby,
+            device times by CUDA-graph replay (kernel, plain version,
+            nearest library call; one eager call beside them as call_ms)
+            and the bound (bytes over the card's memory rate, or operations
+            over its bf16 tensor-core rate, whichever is longer): scale, axpby,
             l2norm and Adam at ResNet-50's flat length (25,557,032) and an
             odd length; the syncbn forward and backward at every BatchNorm
             shape of ResNet-50 at batch 128 (y and dx bitwise; the row sums
@@ -18,12 +19,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
             shapes, timed as one training step's 53 layers; the LayerNorm
             forward and backward at BERT-base's (4096, 768) bf16 and odd
             shapes, and the flash forward, dQ and dK/dV at BERT-base's
-            (32, 12, 128, 64) in bf16 and fp16 (the forward and dK/dV on
-            tensor cores) in every variant (causal, key padding, segments,
+            (32, 12, 128, 64) in bf16 and fp16 (all three on tensor
+            cores) in every variant (causal, key padding, segments,
             dropout), at T = 512, at D = 128 with 16 heads and at odd
             shapes (also fp32, the FMA kernels), each output held against
-            an fp64 evaluation within a stated bound and each forward and
-            dK/dV launched twice, bitwise; the dropout mask shown to be the
+            an fp64 evaluation within a stated bound and each kernel
+            launched twice, bitwise; the dropout mask shown to be the
             hash's (q = k = 0, V = identity) in fp32, bf16 and fp16, with
             and without the causal mask; the flash kernels' registers,
             spills and resident blocks an SM;
@@ -347,7 +348,10 @@ def phase_kernels():
         pp, mp, vp = p0.clone(), m0.clone(), v0.clone()
         pl = p0.clone()
         pl.grad = g0.clone()
-        lib_adam = torch.optim.Adam([pl], lr=1e-3, fused=True)
+        # capturable: its step count stays on the card, so graph_ms can
+        # capture the step (a non-capturable fused Adam refuses capture)
+        lib_adam = torch.optim.Adam([pl], lr=1e-3, fused=True,
+                                    capturable=True)
         timing = {
             "multi_tensor_scale": (
                 8 * n,
@@ -374,20 +378,21 @@ def phase_kernels():
                                              zero),
                 lib_adam.step),   # writes no half copy
         }
+        # device time by graph replay; the one eager call (host time
+        # included) beside it as call_ms
         for name, (nbytes, kern, plain, libcall) in timing.items():
-            kms = time_ms(kern)
-            pms = time_ms(plain)
-            lms = time_ms(libcall)
+            kms, pms, lms = graph_ms(kern), graph_ms(plain), graph_ms(libcall)
             bound = nbytes / MEM_BYTES_PER_S * 1e3
             rows[name] = {"name": name, "route": "cuda",
                           "source": SOURCE[name], "replaces": REPLACES[name],
                           "launches": 0, "max_abs_err": err[name],
                           "ms": kms, "plain_ms": pms, "bound_ms": bound,
                           "bound_by": "bytes", "library_ms": lms,
-                          "bytes": nbytes, "n": n}
+                          "call_ms": time_ms(kern), "bytes": nbytes, "n": n}
             log(f"[kernels] {name} n={n}: kernel_ms {kms:.4f} bound_ms "
                 f"{bound:.4f} ({nbytes} B at {MEM_BYTES_PER_S / 1e12} TB/s) "
-                f"plain_ms {pms:.4f} library_ms {lms:.4f}")
+                f"plain_ms {pms:.4f} library_ms {lms:.4f} (device time, "
+                f"graph replay); one eager call {rows[name]['call_ms']:.4f}")
         # the max over both lengths
         for name in rows:
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
@@ -861,9 +866,12 @@ def _flash_check(shape, dtype, variant, seed):
     # the same bits on a second launch: each block writes only its rows
     o2, lse2 = ops.flash_fwd(q, k, v, *args)
     delta = (do.float() * got["o"].float()).sum(dim=-1)
+    dq2 = ops.flash_dq(q, k, v, do, lse, delta, *args)
     dk2, dv2 = ops.flash_dkv(q, k, v, do, lse, delta, *args)
     assert torch.equal(o2, got["o"]) and torch.equal(lse2, lse), \
         f"flash_fwd differs between launches {shape} {dtype} {variant}"
+    assert torch.equal(dq2, got["dq"]), \
+        f"flash_dq differs between launches {shape} {dtype} {variant}"
     assert torch.equal(dk2, got["dk"]) and torch.equal(dv2, got["dv"]), \
         f"flash_dkv differs between launches {shape} {dtype} {variant}"
     errs = {"flash_fwd": max_abs(got["o"], want["o"]),
@@ -875,9 +883,9 @@ def _flash_check(shape, dtype, variant, seed):
 
 def phase_flash(uncapped):
     """The flash kernels at BERT-base's shape (every variant, bf16 and
-    fp16: the forward and dK/dV on tensor cores), at T = 512, at D = 128
-    with 16 heads and at odd shapes (fp32 on the FMA kernels, bf16, fp16),
-    each against fp64 and each forward and dK/dV twice, bitwise; the
+    fp16: all three on tensor cores), at T = 512, at D = 128 with 16 heads
+    and at odd shapes (fp32 on the FMA kernels, bf16, fp16), each against
+    fp64 and each kernel twice, bitwise; the
     dropout mask shown equal to the hash in every dtype, with and without
     the causal mask; timed at BERT-base's shape with the path's dropout
     0.1, in bf16 (the rows) and fp32 (the FMA route); the dK/dV kernel
@@ -1224,7 +1232,7 @@ def phase_lamb():
     timing = {
         # reads g, p, m, v; writes u, m, v
         "lamb_stage1": (
-            28 * n, 20 * n, time_ms,
+            28 * n, 20 * n,
             lambda: ops.lamb_stage1(g, p, mk, vk, *scal, *hp, noop=zero,
                                     out=uk),
             lambda: lm._stage1_plain(g, p, mp, vp, up, *scal, *hp, zero),
@@ -1232,22 +1240,22 @@ def phase_lamb():
         # reads p, u, the ratios and the chunk table; writes p and the
         # bf16 copy
         "lamb_stage2": (
-            14 * n + 4 * T + table_bytes, 3 * n, time_ms,
+            14 * n + 4 * T + table_bytes, 3 * n,
             lambda: ops.lamb_stage2(pk, u, ratio, table, lr, half=hk,
                                     noop=zero),
             lambda: lm._stage2_plain(pp, u, ratio, table, lr, hpl, zero),
             None),
         # reads x and the chunk table; writes one sum a tensor
         "multi_tensor_l2norm_per_tensor": (
-            4 * n + table_bytes + 4 * T, 2 * n, graph_ms,
+            4 * n + table_bytes + 4 * T, 2 * n,
             lambda: ops.multi_tensor_l2norm_per_tensor(p, table),
             lambda: mt._l2norm_per_tensor_plain(p, table),
             lambda: [torch.linalg.vector_norm(p[o:o + k]) for o, k in spans]),
     }
     rows = {}
-    for name, (nbytes, flops, clock, kern, plain, libcall) in timing.items():
-        kms, pms = clock(kern), clock(plain)
-        lms = None if libcall is None else clock(libcall)
+    for name, (nbytes, flops, kern, plain, libcall) in timing.items():
+        kms, pms = graph_ms(kern), graph_ms(plain)
+        lms = None if libcall is None else graph_ms(libcall)
         t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOPS * 1e3
         rows[name] = {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -1264,9 +1272,8 @@ def phase_lamb():
             f"{rows[name]['bound_ms']:.4f} ({nbytes} B at "
             f"{MEM_BYTES_PER_S / 1e12} TB/s; {flops} fp32 flops) plain_ms "
             f"{pms:.4f} library_ms "
-            f"{'none' if lms is None else '%.4f' % lms} (clock "
-            f"{clock.__name__}); one eager call "
-            f"{rows[name]['call_ms']:.4f}")
+            f"{'none' if lms is None else '%.4f' % lms} (device time, graph "
+            f"replay); one eager call {rows[name]['call_ms']:.4f}")
     del g, m0, v0, mk, vk, mp, vp, uk, up, u, pk, pp, hk, hpl, p
     torch.cuda.empty_cache()
     return rows
@@ -1406,7 +1413,8 @@ _PORT_KERNELS = ("scale_kernel", "axpby_kernel", "l2norm_", "adam_kernel",
 _PORT_BN = ("bn_fwd_kernel", "bn_bwd_rows_kernel")
 _PORT_LN = ("ln_fwd_", "ln_bwd_", "ln_colsum_kernel")
 _PORT_ATTN = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-              "flash_fwd_mma_kernel", "flash_dkv_mma_kernel")
+              "flash_fwd_mma_kernel", "flash_dq_mma_kernel",
+              "flash_dkv_mma_kernel")
 _LIBRARY_MATH = ("conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad", "dgrad",
                  "fprop", "implicit", "nvjet")
 

@@ -179,6 +179,41 @@ def test_dispatch_matches_jax(monkeypatch, mask_kind, path):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("variant", ["none", "key_padding", "causal",
+                                     "segments"])
+def test_head_dim_above_128_takes_the_dense_route(variant):
+    """Head dim 160 is past the flash kernels' limit: the port takes the
+    dense route, as the JAX package does on the CPU, and returns its
+    result."""
+    rs = np.random.RandomState(160)
+    T, Dw = 12, 160
+    q, k, v = (rs.randn(B, H, T, Dw).astype(np.float32) for _ in range(3))
+    mask = segs = None
+    if variant == "key_padding":
+        mask = (rs.rand(B, T) > 0.3)[:, None, None, :]
+    if variant == "segments":
+        segs = np.sort(rs.randint(0, 3, (B, T)), axis=1).astype(np.int32)
+    kw = dict(causal=variant == "causal")
+    seen = []
+    transformer.set_path_hook(seen.append)
+    try:
+        jo = jattn.dot_product_attention(
+            *[jnp.asarray(a) for a in (q, k, v)],
+            None if mask is None else jnp.asarray(mask),
+            segment_ids=None if segs is None else jnp.asarray(segs), **kw)
+        to = transformer.dot_product_attention(
+            *[torch.from_numpy(a) for a in (q, k, v)],
+            None if mask is None else torch.from_numpy(mask),
+            segment_ids=None if segs is None else torch.from_numpy(segs),
+            **kw)
+    finally:
+        transformer.set_path_hook(None)
+    assert seen == ["dense"]
+    assert to.shape == (B, H, T, Dw)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_dropout_runs_only_with_a_generator():
     q, k, v, _, _, _ = _inputs(16)
     args = [torch.from_numpy(a) for a in (q, k, v)]

@@ -65,6 +65,37 @@ def test_cuda_kernels_match_plain(cuda, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 13, 4097, 1_048_579, 4_000_001])
+@pytest.mark.parametrize("arg", [0, 1, -1])
+def test_axpby_matches_plain_at_ragged_lengths(cuda, n, arg):
+    """Lengths that are not a multiple of 4 (the scalar tail) around the
+    kernel's unrolled float4 runs and its resident grid: out and flag
+    bitwise the plain version's, an inf in the tail of x or y seen by
+    the checks that cover it, and out aliasing y."""
+    rs = np.random.RandomState(n % 101)
+    x = _t(rs.randn(n).astype(np.float32)).to(cuda)
+    y = _t(rs.randn(n).astype(np.float32)).to(cuda)
+    a = torch.tensor(1.0 / 1024.0, device=cuda)
+    b = torch.tensor(-0.75, device=cuda)
+    for bad in (None, "x", "y"):
+        xi, yi = x.clone(), y.clone()
+        if bad:
+            (xi if bad == "x" else yi)[n - 1] = float("inf")
+        out, flag = ops.multi_tensor_axpby(a, b, xi, yi, arg)
+        pout, pflag = mt._axpby_plain(a, b, xi, yi, arg,
+                                      torch.empty_like(xi))
+        want = float(bad is not None and (arg == -1 or (arg == 0)
+                                          == (bad == "x")))
+        assert torch.equal(out.isnan(), pout.isnan())
+        assert torch.equal(out.nan_to_num(0.0), pout.nan_to_num(0.0))
+        assert float(flag) == float(pflag) == want
+    yi = y.clone()
+    ops.multi_tensor_axpby(a, b, x, yi, arg, out=yi)
+    assert torch.equal(yi, mt._axpby_plain(a, b, x, y, arg,
+                                           torch.empty_like(x))[0])
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_count_their_launches(cuda):
     x = torch.ones(4099, device=cuda)
     one = torch.ones((), device=cuda)
@@ -234,9 +265,51 @@ def _flash_case(cuda, B, H, T, D, dtype, seed=0):
     return q, k, v, do, kvm, seg.to(cuda)
 
 
-# bf16 and fp16 take the tensor-core forward and dK/dV, fp32 the FMA
-# kernels; D = 20 takes the tensor-core kernels' element-wise tile loads
-# (their 16-byte copies need D % 8 == 0)
+# a unit in the last place (relative) and half the subnormal spacing of
+# each type, as chip_smoke.py states its fp64 bound
+_UNIT = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7,
+         torch.float16: 2.0 ** -10}
+_TINY = {torch.float32: 2.0 ** -150, torch.bfloat16: 2.0 ** -134,
+         torch.float16: 2.0 ** -25}
+
+
+def _dq_bound_ratio(dq, q, k, v, do, o, H, scale, causal, kvm, seg, seed,
+                    rate):
+    """max(|dq - dQ64| / bound): dQ64 from the same inputs in fp64 (delta
+    from ``o``), the bound one rounding to dq's type plus (u + 256*2^-24)
+    of the fp64 sum of the terms' magnitudes plus the rounding of dS
+    values too small for the type's normal range (chip_smoke.py's
+    _flash_check)."""
+    valid = fa._valid(q, H, causal, kvm, seg)
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    s = torch.where(valid, q64 @ k64.transpose(1, 2) * scale, -np.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - torch.where(m.isfinite(), m, 0.0)),
+                    0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(l == 0, 1.0, l)
+    dp = do64 @ v64.transpose(1, 2)
+    dpa = do64.abs() @ v64.abs().transpose(1, 2)
+    if rate:
+        keep, ik = fa._keep(q, seed, rate), fa._inv_keep(rate)
+        dp = torch.where(keep, dp, 0.0) * ik
+        dpa = torch.where(keep, dpa, 0.0) * ik
+    delta = (do64 * o.double()).sum(dim=-1, keepdim=True)
+    want = p * (dp - delta) @ k64 * scale
+    mag = p * (dpa + delta.abs()) @ k64.abs() * scale
+    floor = k64.abs().sum(dim=1, keepdim=True) * scale
+    u = _UNIT[q.dtype]
+    bound = (u * want.abs() + (u + 256 * 2.0 ** -24) * mag
+             + _TINY[q.dtype] * floor)
+    err = (dq.double() - want).abs()
+    r = torch.where(bound > 0, err / bound.clamp_min(1e-300),
+                    torch.where(err > 0, np.inf, 0.0))
+    return float(r.max())
+
+
+# bf16 and fp16 take the tensor-core kernels, fp32 the FMA kernels; D = 20
+# takes the tensor-core kernels' element-wise tile loads (their 16-byte
+# copies need D % 8 == 0)
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["none", "causal", "kv_mask", "segments",
                                      "dropout", "all"])
@@ -275,13 +348,18 @@ def test_flash_kernels_match_plain(cuda, variant, T, D, dtype):
         scale = max(float(p.float().abs().max()), 1.0)
         torch.testing.assert_close(g.float(), p.float(), rtol=tol,
                                    atol=tol * scale)
+    # dQ, kernel and plain version, within chip_smoke.py's fp64 bound
+    for who, g in (("kernel", dq), ("plain", pdq)):
+        r = _dq_bound_ratio(g, q, k, v, do, po, *args, *pargs)
+        assert r <= 1.0, f"dq {who}: {r} of the fp64 bound"
     if kw["kv_mask"] is not None:
         assert float(o[:H].float().abs().max()) == 0.0   # no valid key
     # each block writes only its own rows (no atomics): a second launch of
-    # the forward and of dK/dV gives the same bits
+    # each kernel gives the same bits
     o2, lse2 = ops.flash_fwd(q, k, v, *args, **kw)
+    dq2 = ops.flash_dq(q, k, v, do, plse, delta, *args, **kw)
     dk2, dv2 = ops.flash_dkv(q, k, v, do, plse, delta, *args, **kw)
-    for x, y in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2)):
+    for x, y in ((o, o2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)):
         assert torch.equal(x, y)
 
 
@@ -311,6 +389,33 @@ def test_flash_dropout_mask_is_the_hash(cuda, dtype, T, causal):
     assert torch.equal(o, po)
     torch.testing.assert_close(lse, torch.log(count).expand(BH, T),
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_above_128_takes_the_dense_route(cuda, dtype):
+    """Head dim 160 is past the flash kernels' limit: on the card the
+    dispatch takes the dense route (no kernel raises), forward and
+    backward, and agrees with the same call on the CPU."""
+    from apex_tpu_torch import transformer
+    rs = np.random.RandomState(160)
+    x = [_t(rs.randn(2, 3, 64, 160).astype(np.float32)).to(dtype)
+         for _ in range(3)]
+    seen = []
+    transformer.set_path_hook(seen.append)
+    try:
+        xs = [t.to(cuda).requires_grad_() for t in x]
+        got = transformer.dot_product_attention(*xs, causal=True)
+        got.float().sum().backward()
+        want = transformer.dot_product_attention(*x, causal=True)
+    finally:
+        transformer.set_path_hook(None)
+    assert seen == ["dense", "dense"]
+    assert all(t.grad is not None and bool(t.grad.isfinite().all())
+               for t in xs)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.detach().cpu().float(), want.float(),
+                               rtol=tol, atol=tol)
 
 
 # -- LAMB and the per-tensor l2norm ---------------------------------------------
