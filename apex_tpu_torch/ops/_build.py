@@ -68,7 +68,8 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
     },
     "layer_norm": {
         "apex_ln_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
-        "apex_ln_bwd": (_P,) * 10 + (_I, _I, _I, _I, _P),
+        "apex_ln_bwd": (_P,) * 9 + (_I,) * 7 + (_P,),
+        "apex_ln_bwd_kernel_info": (_I,) * 4 + (_P,),
     },
     "flash_attention": {
         "apex_flash_fwd": (_P,) * 8 + (_I,) * 5 + (_F,) * 3 + (_I, _P),

@@ -20,7 +20,8 @@ given CPU tensors it runs the plain version; anything else raises.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,9 +30,11 @@ from . import _build
 __all__ = ["layer_norm_fwd", "layer_norm_bwd"]
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_WARPS = 8             # rows in flight per block (kWarps in the source)
-_REG_COLS = 1024       # widest row kept in registers
-_MAX_BWD_BLOCKS = 256  # the backward's partial rows of dw, db (n2 <= 1024)
+_WARPS = 8             # warps a block of the streamed backward (kWarps)
+_REG_COLS = 1024       # widest row the backward keeps per lane (kMaxRegCols)
+_STREAM_BLOCKS = 256   # blocks of the streamed backward (n2 > 1024), most
+_BWD_WARPS = 8         # warps a block of the backward at n2 <= 1024, most
+_BWD_BLOCKS = 128      # the backward's blocks, hence partial rows, at most
 _INT_MAX = 2 ** 31 - 1
 
 
@@ -108,6 +111,46 @@ def _bwd_plain(dy, x2, w, mean, inv):
     return dx.to(x2.dtype), (d * xhat).sum(dim=0), d.sum(dim=0)
 
 
+class BwdPlan(NamedTuple):
+    """How the backward covers an (n1, n2) problem.  ``path``: "vector"
+    (16-byte loads), "element" or "stream" (n2 > 1024); ``blocks`` of
+    ``warps`` warps, each warp over ``rows_per_warp`` consecutive rows (a
+    grid stride on the stream path); ``parts`` partial rows of dw and db
+    (one a block at n2 <= 1024, one a warp above), ``scratch`` fp32
+    elements for them."""
+    path: str
+    warps: int
+    rows_per_warp: int
+    blocks: int
+    parts: int
+    scratch: int
+
+
+def _bwd_plan(n1: int, n2: int, itemsize: int, aligned: bool) -> BwdPlan:
+    """The backward's path and grid.  The vector path needs rows of whole
+    16-byte chunks (n2 * itemsize % 16 == 0) and ``aligned`` operands (dy,
+    x, w and dx on 16-byte addresses).  The grid, and so the number of
+    partial rows and the order of every sum of dw and db, depends on
+    (n1, n2) alone: not on the dtype, the alignment or the card."""
+    if n2 > _REG_COLS:
+        blocks = min(-(-n1 // _WARPS), _STREAM_BLOCKS)
+        parts = blocks * _WARPS
+        return BwdPlan("stream", _WARPS, 1, blocks, parts, 2 * parts * n2)
+    # at most 128 blocks, each warp two rows or more where it can (so the
+    # ring has the next row in flight), up to 8 warps a block
+    rows_per_block = -(-n1 // _BWD_BLOCKS)
+    warps = min(_BWD_WARPS, max(1, rows_per_block // 2))
+    rows_per_warp = -(-rows_per_block // warps)
+    blocks = -(-n1 // (warps * rows_per_warp))
+    vector = aligned and n2 * itemsize % 16 == 0
+    return BwdPlan("vector" if vector else "element", warps, rows_per_warp,
+                   blocks, blocks, 2 * blocks * n2)
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def layer_norm_bwd(dy: torch.Tensor, x2: torch.Tensor,
                    w: Optional[torch.Tensor], mean: torch.Tensor,
                    inv: torch.Tensor
@@ -125,21 +168,43 @@ def layer_norm_bwd(dy: torch.Tensor, x2: torch.Tensor,
     if not _build.use_kernel(dy, x2, w, mean, inv):
         return _bwd_plain(dy, x2, w, mean, inv)
     dx = torch.empty_like(dy)
-    f32 = dict(dtype=torch.float32, device=x2.device)
     if not (n1 and n2):
+        f32 = dict(dtype=torch.float32, device=x2.device)
         return dx, torch.zeros(n2, **f32), torch.zeros(n2, **f32)
-    blocks = min(-(-n1 // _WARPS), _MAX_BWD_BLOCKS)
-    parts = blocks if n2 <= _REG_COLS else blocks * _WARPS
-    part = torch.empty((2, parts, n2), **f32)
+    plan = _bwd_plan(n1, n2, x2.element_size(), _aligned(dy, x2, w, dx))
+    dw, db = _launch_bwd(dy, x2, w, mean, inv, dx, plan)
+    layer_norm_bwd.launches += 1
+    return dx, dw, db
+
+
+layer_norm_bwd.launches = 0
+
+
+def _launch_bwd(dy, x2, w, mean, inv, dx, plan: BwdPlan):
+    """The backward's kernels for ``plan``; returns (dw, db)."""
+    n1, n2 = x2.shape
+    f32 = dict(dtype=torch.float32, device=x2.device)
+    part = torch.empty(plan.scratch, **f32)
     grads = torch.empty((2, n2), **f32)
     lib = _build.library("layer_norm")
     _build.check(lib.apex_ln_bwd(
         dy.data_ptr(), x2.data_ptr(), w.data_ptr(), mean.data_ptr(),
-        inv.data_ptr(), dx.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-        grads[0].data_ptr(), grads[1].data_ptr(), n1, n2, blocks,
-        _KIND[x2.dtype], _build.stream_ptr(x2)), "apex_ln_bwd")
-    layer_norm_bwd.launches += 1
-    return dx, grads[0], grads[1]
+        inv.data_ptr(), dx.data_ptr(), part.data_ptr(), grads[0].data_ptr(),
+        grads[1].data_ptr(), n1, n2, int(plan.path == "vector"), plan.warps,
+        plan.rows_per_warp, plan.blocks, _KIND[x2.dtype],
+        _build.stream_ptr(x2)), "apex_ln_bwd")
+    return grads[0], grads[1]
 
 
-layer_norm_bwd.launches = 0
+def bwd_kernel_info(dtype: torch.dtype, n2: int, plan: BwdPlan) -> dict:
+    """Resources of the row kernel that ``plan`` launches for ``dtype`` and
+    ``n2``, from the CUDA runtime: resident blocks per SM, threads a block,
+    dynamic shared bytes, registers and local (spill) bytes a thread.
+    Builds the library; needs a GPU."""
+    lib = _build.library("layer_norm")
+    out = (ctypes.c_int * 5)()
+    _build.check(lib.apex_ln_bwd_kernel_info(
+        _KIND[dtype], n2, int(plan.path == "vector"), plan.warps, out),
+        "apex_ln_bwd_kernel_info")
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes", "registers",
+                     "local_bytes"), out))

@@ -2,6 +2,13 @@
 """Smoke run of apex_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
+
+The second form builds the kernels and times the LayerNorm backward of
+this checkout against the one in PARENT_CHECKOUT (another tree of this
+repository), at BERT-base's and BERT-large's shapes, by graph replay in
+the order parent, change, change, parent, with each one's device time by
+kernel and this backward at other grids; it runs nothing else.
 
 Phases, in order; any failure raises and the exit code is non-zero:
 
@@ -17,8 +24,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
             shape of ResNet-50 at batch 128 (y and dx bitwise; the row sums
             within f(hw)*2^-24*sum|term| of their fp64 sums) and at odd
             shapes, timed as one training step's 53 layers; the LayerNorm
-            forward and backward at BERT-base's (4096, 768) bf16 and odd
-            shapes, and the flash forward, dQ and dK/dV at BERT-base's
+            forward and backward at BERT-base's (4096, 768) and
+            BERT-large's (1024, 1024) bf16, at odd shapes and on views off
+            16 bytes (the backward the same bits on a second launch and on
+            graph replays; its device time split by kernel; the
+            registers, spills and shared bytes of its kernels), and the
+            flash forward, dQ and dK/dV at BERT-base's
             (32, 12, 128, 64) in bf16 and fp16 (all three on tensor
             cores) in every variant (causal, key padding, segments,
             dropout), at T = 512, at D = 128 with 16 heads and at odd
@@ -208,7 +219,8 @@ def phase_device():
 def phase_build():
     """Every library, and flash_attention.cu once more without the dK/dV
     kernel's register cap (``-DAPEX_FLASH_DKV_BLOCKS=1``), one ``nvcc``
-    each, all started together; returns the uncapped library."""
+    each, all started together; returns the uncapped library and
+    ``nvcc``'s output by source (``-Xptxas -v``)."""
     from apex_tpu_torch.ops import _build
     t0 = time.time()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -230,7 +242,45 @@ def phase_build():
                 log(f"[build] {src}.cu: {line.strip()}")
     log(f"[build] {sorted(logs)} and flash_attention.cu uncapped built in "
         f"{secs:.2f} s")
-    return _build._load("flash_attention", uncapped)
+    return _build._load("flash_attention", uncapped), logs
+
+
+def ptxas_resources(text: str) -> dict:
+    """Registers, spill bytes and static shared bytes a thread of each
+    kernel in ``nvcc -Xptxas -v`` output, by mangled name."""
+    res, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            res[name] = {"registers": 0, "spill_stores": 0, "spill_loads": 0,
+                         "smem_bytes": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            res[name]["spill_stores"] = int(m.group(1))
+            res[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            res[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            res[name]["smem_bytes"] = int(m.group(1)) if m else 0
+    return res
+
+
+_TYPE = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
+
+
+def kernel_short(mangled: str) -> str:
+    """``ln_bwd_vec_kernel<bf16,4>`` from the mangled name of a LayerNorm
+    kernel in its anonymous namespace (``_ZN12_GLOBAL__N_1...``)."""
+    m = re.search(r"\d+(ln_\w*?kernel)(?:I(f|13__nv_bfloat16|6__half)"
+                  r"(?:Li(\d+)E)?E)?", mangled)
+    if not m:
+        return mangled
+    args = [a for a in (_TYPE.get(m.group(2) or ""), m.group(3)) if a]
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -576,7 +626,14 @@ def phase_syncbn():
 
 LN_ROWS, LN_WIDTH = 32 * 128, 768   # BERT-base at 32 x 128 tokens
 LN_PER_PASS = 26                    # LayerNorms in one BERT-base pass
-LN_ODD = ((7, 1), (33, 100), (300, 1024), (9, 1500))
+# the rows of the kernels' JSON line: BERT-base first (its launches), then
+# BERT-large at 8 x 128 tokens
+LN_SHAPES = ((LN_ROWS, LN_WIDTH), (8 * 128, 1024))
+# odd shapes, and the main paths' with a tail block (4097), in fp32, bf16
+# and fp16; the misaligned views take the backward's element path
+LN_ODD = ((7, 1), (33, 100), (300, 1024), (9, 1500), (LN_ROWS, LN_WIDTH),
+          (8 * 128, 1024), (4097, 768))
+LN_MISALIGNED = ((33, 104), (LN_ROWS, LN_WIDTH))
 FLASH_BASE = (32, 12, 128, 64)      # B, H, T, D of BERT-base at 32 x 128
 FLASH_LONG = (8, 12, 512, 64)
 FLASH_ODD = ((2, 3, 200, 64), (2, 3, 77, 128), (3, 2, 64, 24))
@@ -615,27 +672,60 @@ def _sum_f(n: int) -> float:
     return max(math.sqrt(n), 8.0)
 
 
-def _ln_case(n1, n2, dtype, seed):
+def _off16(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a contiguous view one element past a fresh
+    allocation: contiguous, but off 16 bytes."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _ln_case(n1, n2, dtype, seed, misaligned=False):
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*s):
         return torch.randn(*s, generator=gen, device=dev)
 
-    return ((rnd(n1, n2) * 2.0 + 0.5).to(dtype), rnd(n1, n2).to(dtype),
+    case = ((rnd(n1, n2) * 2.0 + 0.5).to(dtype), rnd(n1, n2).to(dtype),
             rnd(n2), rnd(n2))
+    return tuple(map(_off16, case)) if misaligned else case
 
 
-def _ln_check(n1, n2, dtype, seed, eps=1e-12):
+def graph_replays(fn, replays: int = 3):
+    """``fn``'s outputs on each of ``replays`` replays of one CUDA graph
+    that captured it (cloned after each replay)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    got = []
+    for _ in range(replays):
+        graph.replay()
+        got.append([t.clone() for t in outs])
+    torch.cuda.synchronize()
+    del graph
+    return got
+
+
+def _ln_check(n1, n2, dtype, seed, eps=1e-12, misaligned=False):
     """LayerNorm kernels and plain versions, each against an fp64
     evaluation: mean within (f(n2)+1)*2^-24*mean|x|, inv within
     (f(n2)+8)*2^-24 relative, y and dx within one rounding to their type
     plus (f(n2)+8)*2^-24 of the magnitudes of their terms, dw and db within
-    (f(n1)+4)*2^-24*sum|term|.  Returns the inputs, the max abs errors
-    against the plain versions and the worst ratios to the bounds."""
+    (f(n1)+4)*2^-24*sum|term|; the backward the same bits on a second
+    launch and on three replays of a CUDA graph.  ``misaligned``: every
+    input a view off 16 bytes (the backward's element path).  Returns the
+    inputs, the max abs errors against the plain versions and the worst
+    ratios to the bounds."""
     from apex_tpu_torch import ops
     from apex_tpu_torch.ops import layer_norm as lnm
-    x, dy, w, b = _ln_case(n1, n2, dtype, seed)
+    x, dy, w, b = _ln_case(n1, n2, dtype, seed, misaligned)
     u, f, fr = UNIT[dtype], _sum_f(n2), _sum_f(n1)
     x64, dy64, w64, b64 = (t.double() for t in (x, dy, w, b))
     m64 = x64.mean(dim=1)
@@ -684,17 +774,51 @@ def _ln_check(n1, n2, dtype, seed, eps=1e-12):
                                                 fwd["plain"])),
             max(max_abs(a, p_) for a, p_ in zip(bwd["kernel"],
                                                 bwd["plain"])))
-    # the same bits on a second run: no atomics
-    again = ops.layer_norm_bwd(dy, x, w, mean, inv)
-    assert all(torch.equal(a, b_) for a, b_ in zip(again, bwd["kernel"])), \
-        "layer_norm_bwd differs between runs"
+    # the same bits on a second run and on graph replays: no atomics, no
+    # state carried between launches
+    again = [ops.layer_norm_bwd(dy, x, w, mean, inv)]
+    if x.is_cuda:
+        again += graph_replays(lambda: ops.layer_norm_bwd(dy, x, w, mean,
+                                                          inv))
+        if misaligned:
+            plan = lnm._bwd_plan(n1, n2, x.element_size(),
+                                 lnm._aligned(dy, x, w))
+            assert plan.path != "vector", plan
+    for outs in again:
+        assert all(torch.equal(a, b_) for a, b_ in zip(outs, bwd["kernel"])), \
+            f"layer_norm_bwd ({n1}, {n2}) {dtype} differs between runs"
     return (x, dy, w, b, mean, inv), errs, ratios
 
 
-def phase_layer_norm():
-    """LayerNorm forward and backward at BERT-base's shape (4096 rows of
-    768, bf16, eps 1e-12, as O2 runs them) and at odd shapes, each held
-    against fp64; timed per call at BERT-base's shape."""
+def device_split(fn, calls: int = 10) -> dict:
+    """Device time a call of each kernel that ``fn`` launches
+    (torch.profiler over ``calls`` eager calls), by short kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", 0) or 0
+        if evt.device_type == DeviceType.CUDA and us > 0:
+            m = re.search(r"ln_\w+<[^>]*>|ln_\w+", evt.key)
+            name = m.group() if m else evt.key[:60]
+            split[name] = split.get(name, 0.0) + us / 1e3 / calls
+    return split
+
+
+def phase_layer_norm(resources=None):
+    """LayerNorm forward and backward at BERT-base's (4096, 768) and
+    BERT-large's (1024, 1024) shapes (bf16, eps 1e-12, as O2 runs them) and
+    at odd shapes, each held against fp64; timed per call at both main
+    shapes, with the backward's device time split by kernel; logs the
+    backward kernels' registers, spills and shared bytes (``resources``,
+    from ``ptxas_resources``) and the runtime's for the planned grid."""
     from apex_tpu_torch import ops
     from apex_tpu_torch.ops import layer_norm as lnm
     err = {"layer_norm_fwd": 0.0, "layer_norm_bwd": 0.0}
@@ -709,33 +833,128 @@ def phase_layer_norm():
     for i, (n1, n2) in enumerate(LN_ODD):
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             note(*_ln_check(n1, n2, dtype, SEED + 30 + i)[1:])
-    (x, dy, w, b, mean, inv), errs, rat = _ln_check(
-        LN_ROWS, LN_WIDTH, torch.bfloat16, SEED + 40)
-    note(errs, rat)
-    log(f"[kernels] layer_norm at {LN_ODD} (fp32/bf16/fp16) and "
-        f"({LN_ROWS}, {LN_WIDTH}) bf16: within the fp64 bounds, worst "
-        f"ratio kernel {worst['kernel']:.3e}, plain {worst['plain']:.3e}; "
-        f"max abs err against the plain version {err}")
-    n1, n2, isz, eps = LN_ROWS, LN_WIDTH, x.element_size(), 1e-12
-    wl, bl = w.to(x.dtype), b.to(x.dtype)
-    _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [n2], wl, bl, eps)
-    timing = {
-        # reads x, w, b; writes y, mean, inv
-        "layer_norm_fwd": (
-            2 * n1 * n2 * isz + 2 * n2 * 4 + 2 * n1 * 4, 8 * n1 * n2,
-            lambda: ops.layer_norm_fwd(x, w, b, eps),
-            lambda: lnm._fwd_plain(x, w, b, eps),
-            lambda: torch.nn.functional.layer_norm(x, (n2,), wl, bl, eps)),
-        # reads dy, x, w, mean, inv; writes dx, dw, db
-        "layer_norm_bwd": (
-            3 * n1 * n2 * isz + 3 * n2 * 4 + 2 * n1 * 4, 11 * n1 * n2,
-            lambda: ops.layer_norm_bwd(dy, x, w, mean, inv),
-            lambda: lnm._bwd_plain(dy, x, w, mean, inv),
-            lambda: torch.ops.aten.native_layer_norm_backward(
-                dy, x, [n2], lmean, lrstd, wl, bl, [True, True, True])),
-    }
-    return _time_rows(timing, err, f"({n1}, {n2}) bf16, one call; "
-                      f"{LN_PER_PASS} calls a pass")
+    for i, (n1, n2) in enumerate(LN_MISALIGNED):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            note(*_ln_check(n1, n2, dtype, SEED + 50 + i,
+                            misaligned=True)[1:])
+    main = [_ln_check(n1, n2, torch.bfloat16, SEED + 40 + i)
+            for i, (n1, n2) in enumerate(LN_SHAPES)]
+    for _, errs, rat in main:
+        note(errs, rat)
+    log(f"[kernels] layer_norm at {LN_ODD} (fp32/bf16/fp16), misaligned at "
+        f"{LN_MISALIGNED} (fp32/bf16/fp16) and {LN_SHAPES} bf16: within the "
+        f"fp64 bounds, the backward the same bits on a second launch and "
+        f"three graph replays; worst ratio kernel {worst['kernel']:.3e}, "
+        f"plain {worst['plain']:.3e}; max abs err against the plain "
+        f"version {err}")
+    for name, r in sorted((resources or {}).items()):
+        short = kernel_short(name)
+        if short.startswith(("ln_bwd", "ln_colsum")) and "fp" not in short:
+            log(f"[kernels] layer_norm_bwd ptxas {short}: {r}")
+    for n1, n2 in LN_SHAPES:
+        plan = lnm._bwd_plan(n1, n2, 2, True)
+        log(f"[kernels] layer_norm_bwd bf16 ({n1}, {n2}): {plan}, row "
+            f"kernel {lnm.bwd_kernel_info(torch.bfloat16, n2, plan)}")
+    rows = {}
+    for (n1, n2), ((x, dy, w, b, mean, inv), _, _) in zip(LN_SHAPES, main):
+        isz, eps = x.element_size(), 1e-12
+        wl, bl = w.to(x.dtype), b.to(x.dtype)
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [n2], wl, bl,
+                                                           eps)
+        timing = {
+            # reads x, w, b; writes y, mean, inv
+            "layer_norm_fwd": (
+                2 * n1 * n2 * isz + 2 * n2 * 4 + 2 * n1 * 4, 8 * n1 * n2,
+                lambda: ops.layer_norm_fwd(x, w, b, eps),
+                lambda: lnm._fwd_plain(x, w, b, eps),
+                lambda: torch.nn.functional.layer_norm(x, (n2,), wl, bl,
+                                                       eps)),
+            # reads dy, x, w, mean, inv; writes dx, dw, db
+            "layer_norm_bwd": (
+                3 * n1 * n2 * isz + 3 * n2 * 4 + 2 * n1 * 4, 11 * n1 * n2,
+                lambda: ops.layer_norm_bwd(dy, x, w, mean, inv),
+                lambda: lnm._bwd_plain(dy, x, w, mean, inv),
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [n2], lmean, lrstd, wl, bl, [True, True, True])),
+        }
+        per = (f"({n1}, {n2}) bf16, one call; "
+               f"{LN_PER_PASS if n2 == LN_WIDTH else LARGE_LN_PER_PASS} "
+               f"calls a pass")
+        at = _time_rows(timing, err, per)
+        split = device_split(timing["layer_norm_bwd"][2])
+        log(f"[kernels] layer_norm_bwd ({n1}, {n2}) bf16 device time by "
+            f"kernel, ms a call (torch.profiler, 10 eager calls): "
+            f"{json.dumps(split)}")
+        at["layer_norm_bwd"]["split"] = split
+        for name, row in at.items():
+            if name not in rows:
+                rows[name] = dict(row, shapes=[])
+            rows[name]["shapes"].append(
+                {k: row[k] for k in ("per", "ms", "plain_ms", "library_ms",
+                                     "bound_ms", "call_ms", "bytes")}
+                | ({"split": split} if name == "layer_norm_bwd" else {}))
+    return rows
+
+
+def load_ops(root):
+    """The ops package of the checkout at ``root`` (its own sources and
+    build directory), imported as ``parent_ops``."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    init = Path(root).resolve() / "apex_tpu_torch" / "ops" / "__init__.py"
+    spec = importlib.util.spec_from_file_location(
+        "parent_ops", init, submodule_search_locations=[str(init.parent)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_ops"] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# (warps a block, rows a warp) of the backward's vector path, timed beside
+# the plan's own grid
+LN_GRIDS = ((4, 1), (4, 2), (4, 4), (8, 1), (8, 2), (8, 4), (8, 8))
+
+
+def phase_layer_norm_ab(parent):
+    """The LayerNorm backward against ``parent``'s (an ops package from
+    ``load_ops``) at both main shapes in bf16: device time by graph replay
+    in the order parent, change, change, parent, each one's split by
+    kernel, and this backward at the grids of ``LN_GRIDS`` (dx the same
+    bits at every grid)."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import layer_norm as lnm
+    out = {}
+    for i, (n1, n2) in enumerate(LN_SHAPES):
+        x, dy, w, b = _ln_case(n1, n2, torch.bfloat16, SEED + 60 + i)
+        _, mean, inv = lnm._fwd_plain(x, w, b, 1e-12)
+        calls = {"parent": lambda: parent.layer_norm_bwd(dy, x, w, mean, inv),
+                 "change": lambda: ops.layer_norm_bwd(dy, x, w, mean, inv)}
+        diff = max(max_abs(a, p) for a, p in zip(calls["change"](),
+                                                 calls["parent"]()))
+        ms = [(who, graph_ms(calls[who]))
+              for who in ("parent", "change", "change", "parent")]
+        split = {who: device_split(fn) for who, fn in calls.items()}
+        want = calls["change"]()[0]
+        grids = {}
+        for warps, rpw in LN_GRIDS:
+            blocks = -(-n1 // (warps * rpw))
+            plan = lnm.BwdPlan("vector", warps, rpw, blocks, blocks,
+                               2 * blocks * n2)
+            dx = torch.empty_like(dy)
+            lnm._launch_bwd(dy, x, w, mean, inv, dx, plan)
+            assert torch.equal(dx, want), f"dx differs at grid {plan}"
+            grids[f"{warps}x{rpw}"] = graph_ms(
+                lambda: lnm._launch_bwd(dy, x, w, mean, inv, dx, plan))
+        out[f"({n1}, {n2})"] = {"ms": ms, "split": split, "grids": grids,
+                                "max_abs_diff": diff}
+        log(f"[ab] layer_norm_bwd ({n1}, {n2}) bf16, graph replay, ms: "
+            + ", ".join(f"{who} {t:.4f}" for who, t in ms)
+            + f"; by kernel {json.dumps(split)}; change's vector path at "
+            f"(warps, rows a warp) {json.dumps(grids)}; the plan "
+            f"{lnm._bwd_plan(n1, n2, 2, True)}; max abs diff {diff}")
+    log("layer_norm_ab " + json.dumps(out))
+    return out
 
 
 def _time_rows(timing, err, per):
@@ -1767,10 +1986,11 @@ BERT_LARGE_COUNTS = dict(
 def main():
     name, smi = phase_device()
     import apex_tpu_torch  # noqa: F401  (fails outside the repository)
-    uncapped = phase_build()
+    uncapped, logs = phase_build()
     rows = phase_kernels()
     rows.update(phase_syncbn())
-    rows.update(phase_layer_norm())
+    rows.update(phase_layer_norm(ptxas_resources(logs.get("layer_norm",
+                                                          ""))))
     rows.update(phase_flash(uncapped))
     rows.update(phase_lamb())
     counts_train, _, train = phase_train(smi)
@@ -1808,4 +2028,13 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+    if sys.argv[1:2] == ["--layer-norm-ab"]:
+        # python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
+        phase_device()
+        phase_build()
+        parent_ops = load_ops(sys.argv[2])
+        parent_ops._build.build_all(["layer_norm"])
+        phase_layer_norm_ab(parent_ops)
+    else:
+        main()

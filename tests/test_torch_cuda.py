@@ -212,10 +212,12 @@ def test_batchnorm_module_on_the_card_matches_the_cpu(cuda):
 
 # -- LayerNorm ----------------------------------------------------------------
 
-# widths in registers (1, 100, 768, 1024) and streamed (1500)
+# widths in registers (1, 100, 768, 1024) and streamed (1500); BERT-base's
+# and BERT-large's shapes, and a tail of one row (4097)
 @pytest.mark.cuda
 @pytest.mark.parametrize("n1,n2", [(7, 1), (33, 100), (4096, 768),
-                                   (300, 1024), (9, 1500)])
+                                   (300, 1024), (9, 1500), (1024, 1024),
+                                   (4097, 768)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
 @pytest.mark.parametrize("affine", [True, False])
@@ -251,6 +253,79 @@ def test_layer_norm_kernels_match_plain(cuda, n1, n2, dtype, affine):
     # the same bits on a second run (no atomics)
     again = ops.layer_norm_bwd(dy, x, w, mean, inv)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def _off16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a contiguous view one element past a fresh
+    allocation: contiguous, but off 16 bytes."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype,
+                       device=t.device)[1:].view(t.shape)
+    return view.copy_(t)
+
+
+def _ln_bwd_inputs(cuda, n1, n2, dtype, seed):
+    rs = np.random.RandomState(seed)
+    x = (_t(rs.randn(n1, n2).astype(np.float32)) * 3 + 1).to(dtype).to(cuda)
+    dy = _t(rs.randn(n1, n2).astype(np.float32)).to(dtype).to(cuda)
+    w = _t(rs.randn(n2).astype(np.float32)).to(cuda)
+    _, mean, inv = lnm._fwd_plain(x, w, torch.zeros_like(w), 1e-5)
+    return dy, x, w, mean, inv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1,n2", [(33, 104), (4096, 768)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_layer_norm_bwd_misaligned_view_takes_the_element_path(cuda, n1, n2,
+                                                                dtype):
+    """dy, x and w as contiguous views off 16 bytes: the host picks the
+    element path (the same rows, aligned, take the vector path), and it
+    holds as the vector path does: dx within one unit of the type's last
+    place of the plain version, dw and db within 1e-5 of the sum of
+    |term|, the same bits on a second launch."""
+    dy, x, w, mean, inv = _ln_bwd_inputs(cuda, n1, n2, dtype, n1)
+    odd = [_off16(t) for t in (dy, x, w)]
+    assert lnm._bwd_plan(n1, n2, x.element_size(),
+                         lnm._aligned(dy, x, w)).path == "vector"
+    assert lnm._bwd_plan(n1, n2, x.element_size(),
+                         lnm._aligned(*odd)).path == "element"
+    got = ops.layer_norm_bwd(odd[0], odd[1], odd[2], mean, inv)
+    want = lnm._bwd_plain(dy, x, w, mean, inv)
+    torch.cuda.synchronize()
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               rtol=tol[dtype], atol=tol[dtype])
+    d = dy.float()
+    xhat = (x.float() - mean[:, None]) * inv[:, None]
+    for g, terms in ((got[1], d * xhat), (got[2], d)):
+        err = (g.double() - terms.double().sum(0)).abs()
+        assert bool((err <= 1e-5 * terms.double().abs().sum(0) + 1e-30)
+                    .all())
+    again = ops.layer_norm_bwd(odd[0], odd[1], odd[2], mean, inv)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1,n2", [(4096, 768), (1024, 1024), (4097, 768),
+                                   (9, 1500)])
+def test_layer_norm_bwd_graph_replays_give_the_same_bits(cuda, n1, n2):
+    """The backward captured in a CUDA graph and replayed three times gives
+    the eager call's bits each time: no state carried from one launch to
+    the next, no scratch that a replay would find used."""
+    dy, x, w, mean, inv = _ln_bwd_inputs(cuda, n1, n2, torch.bfloat16, n2)
+    want = ops.layer_norm_bwd(dy, x, w, mean, inv)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.layer_norm_bwd(dy, x, w, mean, inv)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = ops.layer_norm_bwd(dy, x, w, mean, inv)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b_) for a, b_ in zip(outs, want))
 
 
 # -- flash attention ----------------------------------------------------------

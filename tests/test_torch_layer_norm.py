@@ -21,6 +21,7 @@ from apex_tpu.ops import pallas_layer_norm as pln
 
 from apex_tpu_torch import ops
 from apex_tpu_torch.normalization import FusedLayerNorm, fused_layer_norm
+from apex_tpu_torch.ops import layer_norm as lnm
 from apex_tpu_torch.utils.jax_interop import _to_numpy, _to_torch
 
 N1 = 24
@@ -156,3 +157,36 @@ def test_layer_norm_wrappers_check_their_operands():
     _, mean, inv = ops.layer_norm_fwd(x, None, None, 1e-5)
     with pytest.raises(ValueError):
         ops.layer_norm_bwd(x.bfloat16(), x, None, mean, inv)
+
+
+@pytest.mark.parametrize("n1", [1, 7, 1024, 4096, 4097, 100_000])
+@pytest.mark.parametrize("n2", [1, 100, 104, 768, 1024, 1500])
+def test_bwd_plan_depends_on_the_shape_alone(n1, n2):
+    """The backward's grid on the card (the host's choice, run here as the
+    pure function it is): the 16-byte path only for rows of whole 16-byte
+    chunks with aligned operands; the partial rows, and so the order of
+    every sum of dw and db, set by (n1, n2) alone; every row covered and
+    the scratch holding every partial row."""
+    plans = {(isz, aligned): lnm._bwd_plan(n1, n2, isz, aligned)
+             for isz in (2, 4) for aligned in (True, False)}
+    for (isz, aligned), plan in plans.items():
+        if n2 > 1024:
+            assert plan.path == "stream"
+        else:
+            whole = n2 * isz % 16 == 0
+            assert plan.path == ("vector" if whole and aligned
+                                 else "element")
+    assert len({plan._replace(path="") for plan in plans.values()}) == 1
+    plan = plans[(2, True)]
+    assert 1 <= plan.warps <= 8 and plan.rows_per_warp >= 1
+    if n2 > 1024:
+        # a grid stride over the rows, a partial row a warp
+        assert plan.parts == plan.blocks * plan.warps
+    else:
+        # consecutive rows a warp, a partial row a block, no block without
+        # rows
+        rows = plan.warps * plan.rows_per_warp
+        assert plan.parts == plan.blocks
+        assert plan.blocks * rows >= n1 > (plan.blocks - 1) * rows
+    assert plan.parts <= 256 * plan.warps
+    assert plan.scratch == 2 * plan.parts * n2
