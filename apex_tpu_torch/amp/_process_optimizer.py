@@ -29,22 +29,82 @@ masters at full precision (not rounded through the half views) whether it
 is called on the bound model, on one of its submodules, or on a wrapper
 that holds it (``parallel.DistributedDataParallel``'s ``module.*`` keys);
 ``DistributedDataParallel``'s rank-0 broadcast takes the same route.
+
+Checkpoints.  :meth:`AmpOptimizer.state_dict` holds the loss scalers (the
+JAX package's ``{"scalers": [...]}``), the inner optimizer's state fields
+and the flat fp32 master buffer: what the JAX package's ``AmpOptState``
+(``inner``, ``masters``, ``scalers``) carries into a checkpoint.
+:meth:`AmpOptimizer.load_state_dict` writes them in place into the bound
+buffers, so every parameter stays a view into them.  The model's and the
+optimizer's loads may come in either order: the model's leaves a half
+parameter's masters alone when the value it brings is the one they
+round to, so the optimizer's full-precision masters win.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from .. import ops
 from ..multi_tensor_apply import ChunkedFlatLayout
+from ..multi_tensor_apply.flatten import ChunkedFlat
 from ..optimizers.base import Optimizer
 from .scaler import LossScaler, ScalerState
 from .stateful import GradStash
 
 __all__ = ["AmpOptimizer", "FlatMasters", "jax_leaf_order"]
+
+_SCALER_FIELDS = {"loss_scale": torch.float32, "unskipped": torch.int32,
+                  "steps_skipped": torch.int32}
+
+
+def _state_to_dict(state: Any) -> Any:
+    """An optimizer state (a dataclass of tensors, moments over a layout,
+    a wrapped optimizer's state) as nested dicts of tensors; layouts,
+    which the bound optimizer rebuilds, are left out."""
+    if dataclasses.is_dataclass(state):
+        return {f.name: _state_to_dict(getattr(state, f.name))
+                for f in dataclasses.fields(state)
+                if not isinstance(getattr(state, f.name), ChunkedFlatLayout)}
+    if isinstance(state, ChunkedFlat):
+        return state.buf
+    return state
+
+
+def _copy_into(dst: torch.Tensor, src, what: str) -> None:
+    if not isinstance(src, torch.Tensor) or src.shape != dst.shape \
+            or src.dtype != dst.dtype:
+        got = (f"{tuple(src.shape)} {src.dtype}"
+               if isinstance(src, torch.Tensor) else type(src).__name__)
+        raise ValueError(f"{what}: the checkpoint holds {got}, the bound "
+                         f"optimizer {tuple(dst.shape)} {dst.dtype} (another "
+                         f"model or layout)")
+    dst.copy_(src)
+
+
+def _load_state(state: Any, sd: Any, what: str) -> None:
+    """Copy ``sd`` (from :func:`_state_to_dict`) into ``state`` in place."""
+    for f in dataclasses.fields(state):
+        cur = getattr(state, f.name)
+        if isinstance(cur, ChunkedFlatLayout):
+            continue
+        if not isinstance(sd, Mapping) or f.name not in sd:
+            raise ValueError(f"{what}: the checkpoint has no {f.name!r}")
+        new, name = sd[f.name], f"{what}.{f.name}"
+        if dataclasses.is_dataclass(cur):
+            _load_state(cur, new, name)
+        elif isinstance(cur, ChunkedFlat):
+            _copy_into(cur.buf, new, name)
+        elif isinstance(cur, torch.Tensor):
+            _copy_into(cur, new, name)
+        elif new is not None or cur is not None:
+            raise ValueError(f"{name}: the checkpoint holds "
+                             f"{type(new).__name__}, the bound optimizer "
+                             f"{type(cur).__name__}")
 
 
 def jax_leaf_order(names: Sequence[str]) -> List[str]:
@@ -201,15 +261,66 @@ class AmpOptimizer:
         for name, p in module._parameters.items():
             v = state_dict.get(prefix + name)
             # a mismatched shape is left to the default load to report
-            if (p is not None and isinstance(v, torch.Tensor)
-                    and v.shape == p.shape):
-                values[qualified + name] = v
+            if (p is None or not isinstance(v, torch.Tensor)
+                    or v.shape != p.shape):
+                continue
+            # a half parameter loaded with the value it holds: its masters
+            # already round to it, and keep their precision
+            if p.dtype != torch.float32 and torch.equal(
+                    v.detach().to(p.device, p.dtype), p.detach()):
+                continue
+            values[qualified + name] = v
         self.write_masters(values)
 
     def _require_bound(self) -> None:
         if self.masters is None:
             raise RuntimeError("AmpOptimizer is not bound to a model: get it "
                                "from amp.initialize(model, optimizer)")
+
+    # -- checkpoints ------------------------------------------------------------
+    def scalers_state_dict(self) -> List[Dict[str, torch.Tensor]]:
+        """The loss scalers as the JAX package's ``amp.state_dict`` holds
+        them: one ``{"loss_scale", "unskipped", "steps_skipped"}`` a loss."""
+        self._require_bound()
+        return [{k: getattr(s, k) for k in _SCALER_FIELDS}
+                for s in self.scalers]
+
+    def load_scalers_state_dict(self, scalers) -> None:
+        self._require_bound()
+        if len(scalers) != self.num_losses:
+            raise ValueError(f"{len(scalers)} loss scalers for "
+                             f"{self.num_losses} losses")
+        device = self.masters.buf.device
+        self.scalers = [ScalerState(**{
+            k: torch.as_tensor(d[k]).to(device=device, dtype=dt).clone()
+            for k, dt in _SCALER_FIELDS.items()}) for d in scalers]
+
+    def state_dict(self) -> Dict[str, Any]:
+        """``{"scalers": [...], "inner": {...}, "masters": buf}``: the loss
+        scalers, the inner optimizer's state fields (FusedAdam's ``step``,
+        ``m``, ``v``; LAMB's, SGD's, LARC's) and the flat fp32 master
+        buffer.  References to the live tensors, as ``torch.optim``
+        gives; ``torch.save`` them, or clone, before the next step."""
+        self._require_bound()
+        return {"scalers": self.scalers_state_dict(),
+                "inner": _state_to_dict(self.state),
+                "masters": self.masters.buf}
+
+    def load_state_dict(self, sd: Mapping[str, Any]) -> None:
+        """Load what :meth:`state_dict` gave, in place: the masters into the
+        flat buffer (and the half copy re-derived from them), the inner
+        state into its tensors, and the scalers.  Raises ``ValueError`` on
+        a checkpoint of another layout.  A ``None`` master buffer (a JAX
+        run without masters, see ``utils.jax_interop``) leaves the
+        parameters to the model's own ``load_state_dict``."""
+        self._require_bound()
+        m = self.masters
+        if sd.get("masters") is not None:
+            _copy_into(m.buf, sd["masters"], "masters")
+            if m.half is not None:
+                m.half.copy_(m.buf)
+        _load_state(self.state, sd["inner"], "inner")
+        self.load_scalers_state_dict(sd["scalers"])
 
     def loss_scale(self, loss_id: int = 0) -> torch.Tensor:
         self._require_bound()

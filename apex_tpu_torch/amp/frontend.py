@@ -5,10 +5,13 @@ struct validated in ``__setattr__``, the O0-O3 presets, and
 ``initialize()``, which applies a preset and then the user's overrides.
 ``half_dtype`` picks bfloat16 (the default) or float16; under bfloat16 a
 preset's "dynamic" loss scale becomes a static 1.0, because bf16 has
-fp32's exponent range.
+fp32's exponent range.  O1, the default, casts nothing at initialize: it
+installs the process-wide ``amp.policy.CastPolicy`` that the port's
+functional ops consult.
 
-O1 inserts casts at op boundaries by a cast policy, which this slice
-does not port: ``opt_level="O1"`` raises ``NotImplementedError``.
+The scaler introspection calls (``scaler_state``, ``current_loss_scale``,
+``steps_skipped``, ``amp_stats``) each make one host fetch: call them
+between steps, not inside one.
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ import torch
 
 from ._amp_state import _amp_state, maybe_print, warn_or_err
 
-__all__ = ["Properties", "O0", "O1", "O2", "O3", "opt_levels", "initialize"]
+__all__ = ["Properties", "O0", "O1", "O2", "O3", "opt_levels", "initialize",
+           "compute_dtype", "scaler_state", "current_loss_scale",
+           "steps_skipped", "amp_stats"]
 
 _HALF_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
                 "fp16": torch.float16, "bf16": torch.bfloat16}
@@ -195,6 +200,18 @@ class O0(OptLevel):
 opt_levels = {"O3": O3(), "O2": O2(), "O1": O1(), "O0": O0()}
 
 
+def compute_dtype(opt_level: str, half_dtype: str = "bfloat16"
+                  ) -> torch.dtype:
+    """The dtype an opt level puts on matmul and convolution operands,
+    forward and backward: fp32 at O0, the half dtype at O1 (whitelist
+    casts), O2 and O3."""
+    if opt_level not in opt_levels:
+        raise ValueError(f"unknown opt_level {opt_level!r}")
+    if opt_level == "O0":
+        return torch.float32
+    return _HALF_DTYPES[half_dtype]
+
+
 def initialize(model, optimizers=None, enabled: bool = True,
                opt_level: str = "O1", cast_model_type=None,
                patch_torch_functions=None, keep_batchnorm_fp32=None,
@@ -208,11 +225,16 @@ def initialize(model, optimizers=None, enabled: bool = True,
         model, optimizer = amp.initialize(model, FusedAdam(lr=1e-3),
                                           opt_level="O2")
 
-    ``model`` is a ``torch.nn.Module``: its parameters are cast in place
-    (BatchNorm kept fp32 when ``keep_batchnorm_fp32``) and its forward
-    patched to cast inputs and outputs.  ``optimizers`` is a port
-    optimizer (``optimizers.FusedAdam``); it comes back wrapped in an
-    ``AmpOptimizer`` bound to the model's parameters.
+    ``model`` is a ``torch.nn.Module``: at O2/O3 its parameters are cast
+    in place (BatchNorm kept fp32 when ``keep_batchnorm_fp32``) and its
+    forward patched to cast inputs and outputs; at O1 (the default) it
+    is left as it is and the process-wide cast policy is installed
+    (``amp.policy.set_policy(amp.policy.NoPolicy())`` removes it).
+    ``optimizers`` is a port optimizer (``optimizers.FusedAdam``); it
+    comes back wrapped in an ``AmpOptimizer`` bound to the model's
+    parameters.  Lists of models and of optimizers are wrapped one by
+    one and come back as lists; with several models, the optimizers are
+    bound to them in order (one optimizer a model).
     """
     from ._initialize import _initialize
 
@@ -230,12 +252,6 @@ def initialize(model, optimizers=None, enabled: bool = True,
             f"Unexpected optimization level {opt_level}. Options are 'O0', "
             "'O1', 'O2', 'O3'. Note that in `O0`, `O1`, etc., the prefix O "
             "is the letter O, not the number zero.")
-    if opt_level == "O1":
-        raise NotImplementedError(
-            "opt_level='O1' needs the op-boundary cast policy "
-            "(amp/policy.py, amp/lists.py), which apex_tpu_torch has not "
-            "ported yet; use O0, O2 or O3")
-
     props = Properties()
     if half_dtype is not None:
         props.half_dtype = half_dtype
@@ -267,3 +283,39 @@ def initialize(model, optimizers=None, enabled: bool = True,
 
     _amp_state.opt_properties = props
     return _initialize(model, optimizers, props)
+
+
+# -- scaler introspection: one host fetch each --------------------------------
+
+def scaler_state(opt, loss_id: int = 0):
+    """The :class:`ScalerState` of ``loss_id`` (device tensors) of an
+    optimizer that ``amp.initialize`` returned."""
+    scalers = getattr(opt, "scalers", None)
+    if not scalers:
+        raise TypeError(f"expected an optimizer returned by amp.initialize "
+                        f"and bound to a model, got {type(opt)!r}")
+    return scalers[loss_id]
+
+
+def current_loss_scale(opt, loss_id: int = 0) -> float:
+    """Current loss scale as a Python float."""
+    return float(scaler_state(opt, loss_id).loss_scale)
+
+
+def steps_skipped(opt, loss_id: int = 0) -> int:
+    """Total overflow-skipped steps as a Python int."""
+    return int(scaler_state(opt, loss_id).steps_skipped)
+
+
+def amp_stats(opt) -> dict:
+    """Every loss's scale, clean-step streak and skips, in one fetch."""
+    scaler_state(opt)
+    fields = torch.stack([torch.stack(
+        [s.loss_scale.double(), s.unskipped.double(),
+         s.steps_skipped.double()]) for s in opt.scalers]).cpu().tolist()
+    per_loss = [{"loss_scale": float(a), "unskipped": int(b),
+                 "steps_skipped": int(c)} for a, b, c in fields]
+    return {"num_losses": len(per_loss),
+            "loss_scale": per_loss[0]["loss_scale"],
+            "steps_skipped": sum(p["steps_skipped"] for p in per_loss),
+            "per_loss": per_loss}

@@ -6,7 +6,9 @@ model's grads are cleared and the loss is scaled; on exit this backward's
 grads are unscaled into the optimizer's flat stash (the scale kernel,
 then axpby for every later backward of the step) and, unless
 ``delay_unscale``, the loss scaler is updated.  An overflowed step is
-skipped on the device by the next ``optimizer.step()``.
+skipped on the device by the next ``optimizer.step()``.  One optimizer
+a context, as in the JAX package.  ``disable_casts`` is the O1 escape
+hatch (``policy.disable_casts``).
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ import contextlib
 import torch
 
 from ._process_optimizer import AmpOptimizer
+from .policy import disable_casts
 
-__all__ = ["scale_loss"]
+__all__ = ["scale_loss", "disable_casts"]
 
 
 @contextlib.contextmanager

@@ -14,7 +14,10 @@ Weights come from ``generator`` (default: a CPU generator seeded 0).
 Dropout, hidden and attention, is active in train mode
 (``module.training``): its masks and the flash kernels' two seed words a
 call are drawn on the device from ``dropout_generator`` (default: one on
-``device`` seeded 0).  Tensor and sequence parallelism (``tp_axis``,
+``device`` seeded 0).  Under O1 the MLM logits go through
+``nn.functional.matmul`` (whitelisted), while the fused head
+(``linear_cross_entropy``) consults no policy and runs in its inputs'
+dtype, fp32 there, as in the JAX package.  Tensor and sequence parallelism (``tp_axis``,
 ``sp_axis``) are not ported yet.
 """
 
@@ -195,7 +198,7 @@ class BertForPretraining(torch.nn.Module):
                                      attention_mask)
         # the decoder is the word-embedding table
         table = self.bert.word_embeddings.weight
-        mlm_logits = torch.matmul(h, table.t().to(h.dtype))
+        mlm_logits = F.matmul(h, table.t().to(h.dtype))
         return mlm_logits, self.nsp(pooled)
 
     def _mlm_hidden(self, input_ids, token_type_ids=None,
@@ -221,8 +224,8 @@ class BertForPretraining(torch.nn.Module):
                                        labels.reshape(-1),
                                        int(self.cfg.head_chunk)).reshape(B, T)
         else:
-            logits = torch.matmul(h, table.t().to(h.dtype))
-            logp = F.log_softmax(logits.float(), dim=-1)
+            logits = F.matmul(h, table.t().to(h.dtype))
+            logp = F.log_softmax(logits.float(), axis=-1)
             nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
         mlm_loss = (nll * valid).sum() / valid.sum().clamp_min(1)
         return mlm_loss + F.cross_entropy(nsp_logits, nsp_labels)

@@ -24,6 +24,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..amp import policy as _policy
 from ..normalization import FusedLayerNorm
 from . import functional as F
 
@@ -198,4 +199,11 @@ class Dropout(torch.nn.Module):
 class LayerNorm(FusedLayerNorm):
     """``nn.LayerNorm`` of the JAX package: weight ones and bias zeros,
     kept fp32 by amp, normalized by the LayerNorm kernels; the output has
-    the input's dtype."""
+    the input's dtype.  The JAX layer goes through ``F.layer_norm``, a
+    blacklist op, so under O1 its input is cast to fp32: this one casts
+    through the policy's "layer_norm" entry, then runs the kernels
+    (``FusedLayerNorm`` itself consults no policy, as the JAX one)."""
+
+    def forward(self, x):
+        (x,), _ = _policy.cast_op_args("layer_norm", (x,), {})
+        return super().forward(x)

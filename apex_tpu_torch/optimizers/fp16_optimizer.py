@@ -8,7 +8,10 @@ reference's overflow signal), skips the update on overflow and moves the
 loss scale (the amp ``LossScaler``'s transitions), and otherwise hands the
 flat grads to FusedAdam with the loss scale as its combined scale.  Then
 the masters are copied back into the half parameters.  Everything stays
-on the device: a skip is FusedAdam's no-op flag.
+on the device: a skip is FusedAdam's no-op flag.  ``state_dict`` /
+``load_state_dict`` checkpoint the state with the JAX package's keys
+(``masters``, ``adam``, ``scaler``): the masters saved apart from the
+model's weights, the reference's "option 2".
 """
 
 from __future__ import annotations
@@ -85,3 +88,18 @@ class FP16_Optimizer:
         state.scaler = self.loss_scaler.update(state.scaler, found_inf)
         return {"found_inf": found_inf, "grad_norm": norm,
                 "loss_scale": state.scaler.loss_scale}
+
+    # -- checkpointing (reference fp16_optimizer.py:211-274) ------------------
+    def state_dict(self, state: FP16OptState) -> dict:
+        """References to ``state``'s tensors, by the JAX package's keys."""
+        return {"masters": state.masters, "adam": dict(vars(state.adam)),
+                "scaler": dict(vars(state.scaler))}
+
+    def load_state_dict(self, sd: dict) -> FP16OptState:
+        """A new state from what :meth:`state_dict` gave (copies)."""
+        def t(v):
+            return torch.as_tensor(v).clone()
+        return FP16OptState(
+            masters=t(sd["masters"]),
+            adam=AdamState(**{k: t(v) for k, v in sd["adam"].items()}),
+            scaler=ScalerState(**{k: t(v) for k, v in sd["scaler"].items()}))

@@ -33,6 +33,7 @@ ported: passing one raises ``NotImplementedError``.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -195,9 +196,20 @@ class DistributedDataParallel(torch.nn.Module):
         self._triggers = self._trigger_indices(allreduce_trigger_params)
         self._queued = False
         self.broadcast_params()
+        # the hook lives in the param's C++ grad accumulator, where the
+        # garbage collector cannot see it: a strong reference to self
+        # would keep this wrapper, its module and the module's optimizer
+        # alive for the life of the process
+        ready = weakref.WeakMethod(self._grad_ready)
+
+        def hook(param):
+            fn = ready()
+            if fn is not None:
+                fn(param)
+
         for p in self._params:
             if p.requires_grad:
-                p.register_post_accumulate_grad_hook(self._grad_ready)
+                p.register_post_accumulate_grad_hook(hook)
 
     def _trigger_indices(self, triggers) -> Optional[set]:
         """Leaf indices of the trigger parameters, given by name (dotted,

@@ -11,6 +11,10 @@ K/V, so sequence length needs no gate.  Arbitrary per-pair masks and
 shapes past the kernels' limits take the dense path, plain torch ops as
 in JAX, on either device.
 
+Under O1 the policy casts q, k and v to the half dtype before the flash
+route, and the dense route's two matmuls go through ``nn.functional.
+matmul``; its softmax is a plain fp32 softmax, as in the JAX package.
+
 Dropout.  Where the JAX package reads the apply context's train flag and
 rng, the port's caller decides: attention dropout runs when
 ``dropout_rate > 0`` and a ``generator`` is given (modules pass theirs in
@@ -27,6 +31,7 @@ from typing import Optional
 import torch
 
 from .. import nn
+from ..amp import policy as _policy
 from ..nn import functional as F
 from ..ops import flash_attention as fa
 
@@ -88,6 +93,11 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_mask = (mask[:, 0, 0, :] != 0).expand(B, Tk)
     if ((mask is None or kv_mask is not None) and q.dim() == 4
             and q.shape == k.shape == v.shape and fa.fits(q.shape)):
+        # the cast the dense route's whitelisted matmuls apply (op
+        # "dot_product_attention" is in amp.lists.FP16_FUNCS), so the
+        # dtype does not depend on the route
+        (q, k, v), _ = _policy.cast_op_args("dot_product_attention",
+                                            (q, k, v), {})
         _note_path("flash")
         return fa.flash_attention(
             q, k, v, causal=causal, scale=scale, kv_mask=kv_mask,
@@ -103,7 +113,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qpos = Tk - Tq + torch.arange(Tq, device=q.device)
         cmask = qpos[:, None] >= torch.arange(Tk, device=q.device)[None, :]
         mask = cmask if mask is None else torch.logical_and(mask, cmask)
-    scores = torch.matmul(q, k.transpose(-1, -2)).float() * scale
+    scores = F.matmul(q, k.transpose(-1, -2)).float() * scale
     if mask is not None:
         scores = torch.where(mask.bool(), scores, -1e30)
     if segment_ids is not None:
@@ -112,7 +122,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     if train_dropout:
         probs = F.dropout(probs, dropout_rate, generator)
-    return torch.matmul(probs.to(v.dtype), v)
+    return F.matmul(probs.to(v.dtype), v)
 
 
 class MultiheadAttention(torch.nn.Module):

@@ -13,6 +13,14 @@ A LAMB state goes across too (:func:`lamb_state_from_jax`,
 which every tensor is padded to a multiple of the chunk (1024), the
 port's are dense (``multi_tensor_apply.ChunkedFlatLayout``), so each
 tensor's slice moves and the padding, zeros, is dropped or restored.
+
+An amp optimizer's state goes across as well (:func:`amp_state_from_jax`,
+:func:`amp_state_to_jax`): the JAX package's ``AmpOptState`` (its loss
+scalers, the inner optimizer's state, the masters: a flat buffer, a
+master tree for LAMB, or none) as the dict that ``AmpOptimizer.
+load_state_dict`` takes, and back.  The JAX side is read by attribute
+(``opt_state.scalers``, ``.inner``, ``.masters``) and ``np.asarray``, so
+nothing here imports it.
 """
 
 from __future__ import annotations
@@ -26,7 +34,10 @@ from ..multi_tensor_apply.flatten import ChunkedFlat, ChunkedFlatLayout
 from ..optimizers.fused_lamb import LambState
 
 __all__ = ["params_from_jax", "params_to_jax", "lamb_state_from_jax",
-           "lamb_state_to_jax", "STATE_KEYS"]
+           "lamb_state_to_jax", "amp_state_from_jax", "amp_state_to_jax",
+           "STATE_KEYS"]
+
+_SCALER_KEYS = ("loss_scale", "unskipped", "steps_skipped")
 
 # the leaves of the JAX package's BatchNorm state dict
 STATE_KEYS = ("running_mean", "running_var", "num_batches_tracked")
@@ -134,3 +145,68 @@ def lamb_state_to_jax(state: LambState, chunk: int = 1024
 
     return {"step": np.asarray(int(state.step), np.int32),
             "m": padded(state.m), "v": padded(state.v)}
+
+
+def amp_state_from_jax(opt_state, layout, chunk: int = 1024,
+                       device="cpu") -> Dict[str, Any]:
+    """A JAX ``AmpOptState`` -> the dict ``AmpOptimizer.load_state_dict``
+    takes, on ``device``.  ``layout`` is the bound optimizer's
+    (``opt.masters.layout``: the same tensors in the same order).  The
+    inner state is FusedAdam's, SGD's or another's with flat buffers, or
+    FusedLAMB's padded moments; the masters a flat buffer, a master tree
+    (LAMB), or None (no masters: the parameters come from the model's own
+    state dict)."""
+    def dev(a):
+        return _to_torch(np.asarray(a)).to(device)
+
+    scalers = [{k: dev(getattr(s, k)) for k in _SCALER_KEYS}
+               for s in opt_state.scalers]
+    inner = opt_state.inner
+    if hasattr(getattr(inner, "m", None), "buf"):       # LAMB's ChunkedFlat
+        lamb = lamb_state_from_jax(
+            {"step": np.asarray(inner.step), "m": np.asarray(inner.m.buf),
+             "v": np.asarray(inner.v.buf)}, layout, chunk, device)
+        inner_sd = {"step": lamb.step, "m": lamb.m.buf, "v": lamb.v.buf}
+    else:
+        inner_sd = {k: None if getattr(inner, k) is None
+                    else dev(getattr(inner, k)) for k in inner._fields}
+    masters = opt_state.masters
+    if masters is None:
+        buf = None
+    elif hasattr(masters, "buf"):
+        buf = dev(np.asarray(masters.buf, np.float32))
+    else:
+        flat: Dict[str, Any] = {}
+        _flatten(masters, "", flat)
+        buf = torch.from_numpy(np.concatenate(
+            [np.asarray(flat[n], np.float32).ravel()
+             for n, f in zip(layout.names, layout.is_float) if f])).to(device)
+    return {"scalers": scalers, "inner": inner_sd, "masters": buf}
+
+
+def amp_state_to_jax(optimizer, chunk: int = 1024) -> Dict[str, Any]:
+    """Inverse of :func:`amp_state_from_jax` for a bound ``AmpOptimizer``:
+    ``{"scalers": [...], "inner": {...}, "masters": ...}`` as numpy in the
+    JAX package's layout (LAMB's moments padded and its masters a tree by
+    parameter path; otherwise the flat buffer).  The JAX package keeps
+    no masters without master weights; drop them there."""
+    sd = optimizer.state_dict()
+    scalers = [{k: _to_numpy(d[k]) for k in _SCALER_KEYS}
+               for d in sd["scalers"]]
+    layout = optimizer.masters.layout
+    if isinstance(optimizer.state, LambState):
+        inner = lamb_state_to_jax(optimizer.state, chunk)
+        masters: Dict[str, Any] = {}
+        for name, piece in zip(layout.names,
+                               layout.pieces(optimizer.masters.buf)):
+            if piece is None:
+                continue
+            node = masters
+            for part in name.split(".")[:-1]:
+                node = node.setdefault(part, {})
+            node[name.rpartition(".")[2]] = _to_numpy(piece)
+    else:
+        inner = {k: None if v is None else _to_numpy(v)
+                 for k, v in sd["inner"].items()}
+        masters = _to_numpy(sd["masters"])
+    return {"scalers": scalers, "inner": inner, "masters": masters}

@@ -21,8 +21,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
             over its bf16 tensor-core rate, whichever is longer): scale, axpby,
             l2norm and Adam at ResNet-50's flat length (25,557,032) and an
             odd length; the syncbn forward and backward at every BatchNorm
-            shape of ResNet-50 at batch 128 (y and dx bitwise; the row sums
-            within f(hw)*2^-24*sum|term| of their fp64 sums) and at odd
+            shape of ResNet-50 at batch 128 in bf16 and fp16 (y and dx
+            bitwise; the row sums within f(hw)*2^-24*sum|term| of their
+            fp64 sums) and at odd
             shapes, timed as one training step's 53 layers; the LayerNorm
             forward and backward at BERT-base's (4096, 768) and
             BERT-large's (1024, 1024) bf16, at odd shapes and on views off
@@ -67,18 +68,35 @@ Phases, in order; any failure raises and the exit code is non-zero:
 8. overflow one fp16 step with an inf in the input, under FusedAdam and
             under FusedLAMB: the loss scale halves and masters, half copy,
             m, v and the step counter stay bitwise.
-9. counts   each path launched each of its kernels exactly as often as it
+9. bert-o1  the BERT path under amp O1 (after every O2 phase, which run
+            under no cast policy): BertForPretraining(bert_base()) -> O1 +
+            FusedAdam(lr=1e-4), bf16, as phase 6; fp32 params with no
+            masters, and a probe forward showing the LayerNorms receive
+            fp32 and attention bf16 q/k/v.
+10. resnet-o1  ResNet-50 -> O1 + FusedAdam(lr=1e-3) in fp16 with the
+            dynamic loss scale from 2**16, batch 128, as phase 4; steps
+            applied + skipped = 14; amp_stats printed.
+11. resume  that model and optimizer saved through torch.save (model,
+            optimizer and amp state dicts), loaded into a fresh pair:
+            every tensor bitwise, then one more step on each with the
+            same overflow flag and scaler and losses within 1e-6.
+12. counts  each path launched each of its kernels exactly as often as it
             runs it (per step, per BatchNorm, LayerNorm or attention layer
             and pass) and no kernel of another path.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.  It
+Phase 3 also times the variants the O1 paths run: Adam without the half
+copy at N = 25,557,032, the LayerNorm forward and backward in fp32 at
+(4096, 768), the syncbn forward and backward in fp16 at ResNet-50's
+BatchNorm shapes; they print as the "kernels_o1" line.  The last lines are the
+kernels' JSON record, the card's name and power limit as nvidia-smi gives
+them, and {"ok": true, "device": {...}}.  It
 imports torch, numpy and apex_tpu_torch, and needs the repository
 beside it.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -428,25 +446,34 @@ def phase_kernels():
                                              zero),
                 lib_adam.step),   # writes no half copy
         }
+        # O1 runs Adam on fp32 params: no half copy (reads p m v g,
+        # writes p m v)
+        timing["fused_adam:no_half"] = (
+            28 * n,
+            lambda: ops.fused_adam(pk, mk, vk, g0, ss, inv, 0.9, 0.999, 1e-8,
+                                   False, 0.0, half=None, noop=zero),
+            lambda: adam_mod._adam_plain(pp, mp, vp, g0, ss, inv, 0.9, 0.999,
+                                         1e-8, False, 0.0, None, zero),
+            lib_adam.step)
         # device time by graph replay; the one eager call (host time
         # included) beside it as call_ms
-        for name, (nbytes, kern, plain, libcall) in timing.items():
+        for key, (nbytes, kern, plain, libcall) in timing.items():
+            name = key.split(":")[0]
             kms, pms, lms = graph_ms(kern), graph_ms(plain), graph_ms(libcall)
             bound = nbytes / MEM_BYTES_PER_S * 1e3
-            rows[name] = {"name": name, "route": "cuda",
-                          "source": SOURCE[name], "replaces": REPLACES[name],
-                          "launches": 0, "max_abs_err": err[name],
-                          "ms": kms, "plain_ms": pms, "bound_ms": bound,
-                          "bound_by": "bytes", "library_ms": lms,
-                          "call_ms": time_ms(kern), "bytes": nbytes, "n": n}
-            log(f"[kernels] {name} n={n}: kernel_ms {kms:.4f} bound_ms "
+            rows[key] = {"name": name, "route": "cuda",
+                         "source": SOURCE[name], "replaces": REPLACES[name],
+                         "launches": 0, "max_abs_err": err[name],
+                         "ms": kms, "plain_ms": pms, "bound_ms": bound,
+                         "bound_by": "bytes", "library_ms": lms,
+                         "call_ms": time_ms(kern), "bytes": nbytes, "n": n}
+            log(f"[kernels] {key} n={n}: kernel_ms {kms:.4f} bound_ms "
                 f"{bound:.4f} ({nbytes} B at {MEM_BYTES_PER_S / 1e12} TB/s) "
                 f"plain_ms {pms:.4f} library_ms {lms:.4f} (device time, "
-                f"graph replay); one eager call {rows[name]['call_ms']:.4f}")
+                f"graph replay); one eager call {rows[key]['call_ms']:.4f}")
         # the max over both lengths
-        for name in rows:
-            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
-                                            err[name])
+        for key, row in rows.items():
+            row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
     return rows
 
 
@@ -536,19 +563,23 @@ def _lib_bn_bwd(dy, x, mean, inv, w, count):
 
 def phase_syncbn():
     """syncbn forward and backward at every BatchNorm shape of ResNet-50 at
-    batch BATCH (bf16, as O2 runs them) and at odd shapes (fp32, bf16 and
-    fp16).  Each time is one training step's: the sum over the 53 layers
-    of the device time at each layer's shape (``graph_ms``), and of one
-    eager call's time (``call_ms``, host time included)."""
+    batch BATCH, in bf16 (as O2 runs them) and in fp16 (as O1 with
+    half_dtype float16 runs them, the "syncbn_*:fp16" rows), and at odd
+    shapes (fp32, bf16 and fp16).  Each time is one training step's: the
+    sum over the 53 layers of the device time at each layer's shape
+    (``graph_ms``), and of one eager call's time (``call_ms``, host time
+    included)."""
     from apex_tpu_torch import ops
     from apex_tpu_torch.ops import syncbn as sbn
     per_layer = Counter(_bn_shapes(IMAGE))
-    err = {"syncbn_fwd": 0.0, "syncbn_bwd": 0.0}
+    tags = {torch.bfloat16: "", torch.float16: ":fp16"}
+    err = {f"{k}{t}": 0.0 for t in tags.values()
+           for k in ("syncbn_fwd", "syncbn_bwd")}
     ratios = {"kernel": 0.0, "plain": 0.0}
 
-    def note(errs, rat):
-        err["syncbn_fwd"] = max(err["syncbn_fwd"], errs[0])
-        err["syncbn_bwd"] = max(err["syncbn_bwd"], errs[1])
+    def note(errs, rat, tag=""):
+        err["syncbn_fwd" + tag] = max(err["syncbn_fwd" + tag], errs[0])
+        err["syncbn_bwd" + tag] = max(err["syncbn_bwd" + tag], errs[1])
         for who in ratios:
             ratios[who] = max(ratios[who], rat[who])
 
@@ -562,62 +593,68 @@ def phase_syncbn():
                "bytes": 0} for k in err}
     for i, ((C, H, W), layers) in enumerate(sorted(per_layer.items())):
         shape = (BATCH, C, H, W)
-        (x, dy, mean, inv, w, b), errs, rat = _bn_check(
-            shape, torch.bfloat16, SEED + 20 + i)
-        note(errs, rat)
-        log(f"[kernels] syncbn_bwd {shape} bf16 row sums: worst error over "
-            f"the bound, kernel {rat['kernel']:.3e}, plain "
-            f"{rat['plain']:.3e}")
-        n, isz = x.numel(), x.element_size()
-        count = torch.full((1,), BATCH * H * W, dtype=torch.int32,
-                           device=x.device)
-        timing = {
-            # reads x and four per-channel vectors, writes y
-            "syncbn_fwd": (
-                2 * n * isz + 4 * C * 4,
-                lambda: ops.syncbn_fwd(x, mean, inv, w, b),
-                lambda: sbn._fwd_plain(x, mean, inv, w, b),
-                lambda: torch.batch_norm_elemt(x, w, b, mean, inv, 1e-5)),
-            # reads dy, x and three vectors, writes dx and two row sums
-            "syncbn_bwd": (
-                3 * n * isz + 3 * C * 4 + 2 * BATCH * C * 4,
-                lambda: ops.syncbn_bwd(dy, x, mean, inv, w),
-                lambda: sbn._bwd_plain(dy, x, mean, inv, w),
-                lambda: _lib_bn_bwd(dy, x, mean, inv, w, count)),
-        }
-        for name, (nbytes, kern, plain, libcall) in timing.items():
-            kms, pms, lms = graph_ms(kern), graph_ms(plain), graph_ms(libcall)
-            cms = time_ms(kern)
-            t = tot[name]
-            t["ms"] += layers * kms
-            t["plain_ms"] += layers * pms
-            t["library_ms"] += layers * lms
-            t["call_ms"] += layers * cms
-            t["bytes"] += layers * nbytes
-            log(f"[kernels] {name} {shape} bf16 x{layers} layers: kernel_ms "
-                f"{kms:.4f} bound_ms {nbytes / MEM_BYTES_PER_S * 1e3:.4f} "
-                f"plain_ms {pms:.4f} library_ms {lms:.4f} (device time, "
-                f"graph replay); one eager call {cms:.4f}")
-        del x, dy
+        for j, (dtype, tag) in enumerate(tags.items()):
+            dname = str(dtype).replace("torch.", "")
+            (x, dy, mean, inv, w, b), errs, rat = _bn_check(
+                shape, dtype, SEED + 20 + i + 100 * j)
+            note(errs, rat, tag)
+            log(f"[kernels] syncbn_bwd {shape} {dname} row sums: worst "
+                f"error over the bound, kernel {rat['kernel']:.3e}, plain "
+                f"{rat['plain']:.3e}")
+            n, isz = x.numel(), x.element_size()
+            count = torch.full((1,), BATCH * H * W, dtype=torch.int32,
+                               device=x.device)
+            timing = {
+                # reads x and four per-channel vectors, writes y
+                "syncbn_fwd" + tag: (
+                    2 * n * isz + 4 * C * 4,
+                    lambda: ops.syncbn_fwd(x, mean, inv, w, b),
+                    lambda: sbn._fwd_plain(x, mean, inv, w, b),
+                    lambda: torch.batch_norm_elemt(x, w, b, mean, inv,
+                                                   1e-5)),
+                # reads dy, x and three vectors, writes dx and two row sums
+                "syncbn_bwd" + tag: (
+                    3 * n * isz + 3 * C * 4 + 2 * BATCH * C * 4,
+                    lambda: ops.syncbn_bwd(dy, x, mean, inv, w),
+                    lambda: sbn._bwd_plain(dy, x, mean, inv, w),
+                    lambda: _lib_bn_bwd(dy, x, mean, inv, w, count)),
+            }
+            for key, (nbytes, kern, plain, libcall) in timing.items():
+                kms, pms = graph_ms(kern), graph_ms(plain)
+                lms, cms = graph_ms(libcall), time_ms(kern)
+                t = tot[key]
+                t["ms"] += layers * kms
+                t["plain_ms"] += layers * pms
+                t["library_ms"] += layers * lms
+                t["call_ms"] += layers * cms
+                t["bytes"] += layers * nbytes
+                log(f"[kernels] {key.split(':')[0]} {shape} {dname} "
+                    f"x{layers} layers: kernel_ms {kms:.4f} bound_ms "
+                    f"{nbytes / MEM_BYTES_PER_S * 1e3:.4f} plain_ms "
+                    f"{pms:.4f} library_ms {lms:.4f} (device time, graph "
+                    f"replay); one eager call {cms:.4f}")
+            del x, dy
     rows = {}
-    for name, t in tot.items():
+    for key, t in tot.items():
+        name = key.split(":")[0]
+        dname = "fp16" if key.endswith(":fp16") else "bf16"
         bound = t["bytes"] / MEM_BYTES_PER_S * 1e3
-        rows[name] = {"name": name, "route": "cuda", "source": SOURCE[name],
-                      "replaces": REPLACES[name], "launches": 0,
-                      "max_abs_err": err[name], "ms": t["ms"],
-                      "plain_ms": t["plain_ms"], "bound_ms": bound,
-                      "bound_by": "bytes", "library_ms": t["library_ms"],
-                      "call_ms": t["call_ms"], "bytes": t["bytes"],
-                      "per": f"training step: {BN_LAYERS} BatchNorm layers "
-                             f"of ResNet-50 at batch {BATCH}, bf16"}
-        log(f"[kernels] {name} per step ({BN_LAYERS} layers, "
-            f"{len(per_layer)} shapes): kernel_ms {t['ms']:.4f} bound_ms "
-            f"{bound:.4f} ({t['bytes']} B) plain_ms {t['plain_ms']:.4f} "
-            f"library_ms {t['library_ms']:.4f} (device time); eager calls "
-            f"{t['call_ms']:.4f}; max abs err {err[name]}")
+        rows[key] = {"name": name, "route": "cuda", "source": SOURCE[name],
+                     "replaces": REPLACES[name], "launches": 0,
+                     "max_abs_err": err[key], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": bound,
+                     "bound_by": "bytes", "library_ms": t["library_ms"],
+                     "call_ms": t["call_ms"], "bytes": t["bytes"],
+                     "per": f"training step: {BN_LAYERS} BatchNorm layers "
+                            f"of ResNet-50 at batch {BATCH}, {dname}"}
+        log(f"[kernels] {key} per step ({BN_LAYERS} layers, "
+            f"{len(per_layer)} shapes, {dname}): kernel_ms {t['ms']:.4f} "
+            f"bound_ms {bound:.4f} ({t['bytes']} B) plain_ms "
+            f"{t['plain_ms']:.4f} library_ms {t['library_ms']:.4f} (device "
+            f"time); eager calls {t['call_ms']:.4f}; max abs err {err[key]}")
     rows["syncbn_bwd"]["row_sum_bound_ratio"] = ratios
-    log(f"[kernels] syncbn_bwd row sums, all shapes: worst error against "
-        f"the fp64 sums over f(hw)*2^-24*sum|term|: kernel "
+    log(f"[kernels] syncbn_bwd row sums, all shapes and types: worst error "
+        f"against the fp64 sums over f(hw)*2^-24*sum|term|: kernel "
         f"{ratios['kernel']:.3e}, plain {ratios['plain']:.3e} (<= 1 passes)")
     return rows
 
@@ -837,12 +874,18 @@ def phase_layer_norm(resources=None):
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             note(*_ln_check(n1, n2, dtype, SEED + 50 + i,
                             misaligned=True)[1:])
-    main = [_ln_check(n1, n2, torch.bfloat16, SEED + 40 + i)
+    # the main paths' cases: bf16 at both shapes (O2), and fp32 at
+    # BERT-base's (the O1 path: its residual adds hand LayerNorm fp32)
+    main = [(n1, n2, torch.bfloat16, _ln_check(n1, n2, torch.bfloat16,
+                                               SEED + 40 + i))
             for i, (n1, n2) in enumerate(LN_SHAPES)]
-    for _, errs, rat in main:
+    main.append((LN_ROWS, LN_WIDTH, torch.float32,
+                 _ln_check(LN_ROWS, LN_WIDTH, torch.float32, SEED + 45)))
+    for *_, (_, errs, rat) in main:
         note(errs, rat)
     log(f"[kernels] layer_norm at {LN_ODD} (fp32/bf16/fp16), misaligned at "
-        f"{LN_MISALIGNED} (fp32/bf16/fp16) and {LN_SHAPES} bf16: within the "
+        f"{LN_MISALIGNED} (fp32/bf16/fp16), {LN_SHAPES} bf16 and "
+        f"{(LN_ROWS, LN_WIDTH)} fp32: within the "
         f"fp64 bounds, the backward the same bits on a second launch and "
         f"three graph replays; worst ratio kernel {worst['kernel']:.3e}, "
         f"plain {worst['plain']:.3e}; max abs err against the plain "
@@ -856,43 +899,46 @@ def phase_layer_norm(resources=None):
         log(f"[kernels] layer_norm_bwd bf16 ({n1}, {n2}): {plan}, row "
             f"kernel {lnm.bwd_kernel_info(torch.bfloat16, n2, plan)}")
     rows = {}
-    for (n1, n2), ((x, dy, w, b, mean, inv), _, _) in zip(LN_SHAPES, main):
+    for n1, n2, dtype, ((x, dy, w, b, mean, inv), _, _) in main:
         isz, eps = x.element_size(), 1e-12
+        tag = "" if dtype == torch.bfloat16 else ":fp32"
         wl, bl = w.to(x.dtype), b.to(x.dtype)
         _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [n2], wl, bl,
                                                            eps)
         timing = {
             # reads x, w, b; writes y, mean, inv
-            "layer_norm_fwd": (
+            "layer_norm_fwd" + tag: (
                 2 * n1 * n2 * isz + 2 * n2 * 4 + 2 * n1 * 4, 8 * n1 * n2,
                 lambda: ops.layer_norm_fwd(x, w, b, eps),
                 lambda: lnm._fwd_plain(x, w, b, eps),
                 lambda: torch.nn.functional.layer_norm(x, (n2,), wl, bl,
                                                        eps)),
             # reads dy, x, w, mean, inv; writes dx, dw, db
-            "layer_norm_bwd": (
+            "layer_norm_bwd" + tag: (
                 3 * n1 * n2 * isz + 3 * n2 * 4 + 2 * n1 * 4, 11 * n1 * n2,
                 lambda: ops.layer_norm_bwd(dy, x, w, mean, inv),
                 lambda: lnm._bwd_plain(dy, x, w, mean, inv),
                 lambda: torch.ops.aten.native_layer_norm_backward(
                     dy, x, [n2], lmean, lrstd, wl, bl, [True, True, True])),
         }
-        per = (f"({n1}, {n2}) bf16, one call; "
+        dname = str(dtype).replace("torch.", "")
+        per = (f"({n1}, {n2}) {dname}, one call; "
                f"{LN_PER_PASS if n2 == LN_WIDTH else LARGE_LN_PER_PASS} "
                f"calls a pass")
         at = _time_rows(timing, err, per)
-        split = device_split(timing["layer_norm_bwd"][2])
-        log(f"[kernels] layer_norm_bwd ({n1}, {n2}) bf16 device time by "
+        split = device_split(timing["layer_norm_bwd" + tag][2])
+        log(f"[kernels] layer_norm_bwd ({n1}, {n2}) {dname} device time by "
             f"kernel, ms a call (torch.profiler, 10 eager calls): "
             f"{json.dumps(split)}")
-        at["layer_norm_bwd"]["split"] = split
-        for name, row in at.items():
-            if name not in rows:
-                rows[name] = dict(row, shapes=[])
-            rows[name]["shapes"].append(
+        at["layer_norm_bwd" + tag]["split"] = split
+        for key, row in at.items():
+            if key not in rows:
+                rows[key] = dict(row, shapes=[])
+            rows[key]["shapes"].append(
                 {k: row[k] for k in ("per", "ms", "plain_ms", "library_ms",
                                      "bound_ms", "call_ms", "bytes")}
-                | ({"split": split} if name == "layer_norm_bwd" else {}))
+                | ({"split": split} if row["name"] == "layer_norm_bwd"
+                   else {}))
     return rows
 
 
@@ -962,23 +1008,24 @@ def _time_rows(timing, err, per):
     of ``timing`` = name -> (bytes, flops, kernel, plain, library), the
     library a call or its time already taken."""
     rows = {}
-    for name, (nbytes, flops, kern, plain, libcall) in timing.items():
+    for key, (nbytes, flops, kern, plain, libcall) in timing.items():
+        name = key.split(":")[0]      # "name:variant" times a variant
         kms, pms = graph_ms(kern), graph_ms(plain)
         lms = libcall if isinstance(libcall, float) else graph_ms(libcall)
         t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS * 1e3
-        rows[name] = {"name": name, "route": "cuda", "source": SOURCE[name],
-                      "replaces": REPLACES[name], "launches": 0,
-                      "max_abs_err": err[name], "ms": kms, "plain_ms": pms,
-                      "bound_ms": max(t_bytes, t_ops),
-                      "bound_by": "bytes" if t_bytes >= t_ops
-                      else "operations",
-                      "library_ms": lms, "call_ms": time_ms(kern),
-                      "bytes": nbytes, "flops": flops, "per": per}
-        log(f"[kernels] {name} {per}: kernel_ms {kms:.4f} bound_ms "
-            f"{rows[name]['bound_ms']:.4f} ({nbytes} B, {flops} flops) "
+        rows[key] = {"name": name, "route": "cuda", "source": SOURCE[name],
+                     "replaces": REPLACES[name], "launches": 0,
+                     "max_abs_err": err[name], "ms": kms, "plain_ms": pms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "library_ms": lms, "call_ms": time_ms(kern),
+                     "bytes": nbytes, "flops": flops, "per": per}
+        log(f"[kernels] {key} {per}: kernel_ms {kms:.4f} bound_ms "
+            f"{rows[key]['bound_ms']:.4f} ({nbytes} B, {flops} flops) "
             f"plain_ms {pms:.4f} library_ms {lms:.4f} (device time, graph "
-            f"replay); one eager call {rows[name]['call_ms']:.4f}")
+            f"replay); one eager call {rows[key]['call_ms']:.4f}")
     return rows
 
 
@@ -1472,7 +1519,8 @@ def phase_lamb():
             lambda: [torch.linalg.vector_norm(p[o:o + k]) for o, k in spans]),
     }
     rows = {}
-    for name, (nbytes, flops, kern, plain, libcall) in timing.items():
+    for key, (nbytes, flops, kern, plain, libcall) in timing.items():
+        name = key.split(":")[0]      # "name:variant" times a variant
         kms, pms = graph_ms(kern), graph_ms(plain)
         lms = None if libcall is None else graph_ms(libcall)
         t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
@@ -1520,13 +1568,26 @@ def _batch(rs, batch, hw, classes, device):
     return x.to(device), y.to(device)
 
 
-def _drive(opt, step, tag: str, smi: str, items: int, unit: str):
+def _mem_floor() -> int:
+    """The bytes still allocated on the card before a path builds its
+    model: what earlier phases left behind, once their garbage (reference
+    cycles included) is collected."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _drive(opt, step, tag: str, smi: str, items: int, unit: str,
+           floor: int):
     """A path's run: 12 steps (the last 10 timed), then two steps of two
     micro-batches (axpby), with the launch counts set to 0 just before and
     read just after; then three steps profiled.  ``step(micro)`` runs one
     optimizer step and returns its mean loss; ``items`` (images or
-    sequences) make one step's batch."""
-    from apex_tpu_torch import ops
+    sequences) make one step's batch.  ``floor`` is ``_mem_floor()`` taken
+    before the path built its model: the path's peak memory is the card's
+    peak less that floor (model, optimizer state and activations)."""
+    from apex_tpu_torch import amp, ops
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1545,22 +1606,29 @@ def _drive(opt, step, tag: str, smi: str, items: int, unit: str):
     counts = ops.launch_counts()                    # the path ends
 
     vals = [float(l) for l in losses]
-    peak = torch.cuda.max_memory_allocated()
-    steps_done = int(opt.state.step)
+    peak = torch.cuda.max_memory_allocated() - floor
+    # FusedAdam's step counts applied updates only; fp16's dynamic scale
+    # skips the steps that overflow
+    steps_done, skipped = int(opt.state.step), amp.steps_skipped(opt)
     assert all(math.isfinite(v) for v in vals), f"non-finite loss {vals}"
     assert vals[11] < vals[0], f"loss did not fall: {vals}"
-    assert steps_done == 14, f"the optimizer applied {steps_done} steps, expected 14"
+    assert steps_done + skipped == 14, \
+        f"applied {steps_done} + skipped {skipped} steps, expected 14"
+    assert opt.scaler.dynamic or skipped == 0, f"{skipped} steps skipped"
     med = statistics.median(step_ms)
     log(f"[{tag}] {items} {unit} a step on {smi}: losses "
-        f"{['%.4f' % v for v in vals]}")
+        f"{['%.4f' % v for v in vals]}; steps applied {steps_done}, "
+        f"skipped {skipped}")
     log(f"[{tag}] step_ms median {med:.2f} over {len(step_ms)} steps "
         f"(all: {['%.2f' % t for t in step_ms]}), {unit}/s "
-        f"{items / med * 1e3:.1f}, max_memory_allocated {peak} B "
-        f"({peak / 2**30:.2f} GiB), grad_norm "
+        f"{items / med * 1e3:.1f}, max_memory_allocated less the floor "
+        f"{peak} B ({peak / 2**30:.2f} GiB; floor left by earlier phases "
+        f"{floor} B), grad_norm "
         f"{float(opt.last_info['grad_norm']):.4f}")
     by_cat = phase_profile(lambda: step(1), med, tag=f"{tag}-profile")
     return counts, steps_done, {"step_ms": med, f"{unit}_per_s":
                                 items / med * 1e3, "peak_bytes": peak,
+                                "floor_bytes": floor,
                                 "losses": vals, "profile_ms": by_cat}
 
 
@@ -1572,13 +1640,14 @@ def _resnet_step(model, opt):
 def phase_train(smi):
     """The single-card path: ResNet-50 -> O2 + FusedAdam."""
     from apex_tpu_torch import amp, models, optimizers
+    floor = _mem_floor()
     model = models.resnet50(device=DEVICE,
                             generator=torch.Generator().manual_seed(SEED))
     model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
                                 opt_level="O2", verbosity=0)
     log("[train] resnet50 O2 FusedAdam, one card")
     out = _drive(opt, _resnet_step(model, opt), "train", smi, BATCH,
-                 "images")
+                 "images", floor)
     del model, opt
     torch.cuda.empty_cache()
     return out
@@ -1591,6 +1660,7 @@ def phase_ddp(smi):
     convert_syncbn_model -> O2 + FusedAdam -> DistributedDataParallel."""
     import torch.distributed as dist
     from apex_tpu_torch import amp, models, optimizers, parallel
+    floor = _mem_floor()
     parallel.init_process_group(
         init_method=parallel.multiproc.local_init_method(), world_size=1,
         rank=0)
@@ -1618,7 +1688,7 @@ def phase_ddp(smi):
             f"-> DistributedDataParallel; broadcast left masters and half "
             f"copy consistent")
         out = _drive(opt, _resnet_step(ddp, opt), "ddp", smi, BATCH,
-                     "images")
+                     "images", floor)
         log(f"[ddp] buckets of the last all-reduce: {ddp.last_comm_stats}")
         del model, opt, ddp
         torch.cuda.empty_cache()
@@ -1790,6 +1860,7 @@ def phase_bert(smi):
     """The BERT path: BertForPretraining(bert_base()) -> O2 + FusedAdam(lr
     1e-4), train mode with the config's dropout 0.1, 32 x 128 tokens."""
     from apex_tpu_torch import amp, models, optimizers
+    floor = _mem_floor()
     cfg = models.bert_base()
     model = models.BertForPretraining(
         cfg, device=DEVICE, generator=torch.Generator().manual_seed(SEED),
@@ -1808,7 +1879,7 @@ def phase_bert(smi):
     batch = _bert_batch(cfg.vocab_size, np.random.RandomState(SEED),
                         BERT_BATCH, BERT_SEQ, DEVICE)
     out = _drive(opt, _bert_step(model, opt, batch), "bert", smi,
-                 BERT_BATCH, "sequences")
+                 BERT_BATCH, "sequences", floor)
     del model, opt
     torch.cuda.empty_cache()
     return out
@@ -1863,6 +1934,7 @@ def phase_bert_large(smi):
     train mode with the config's dropout 0.1, 8 x 128 tokens."""
     import torch.distributed as dist
     from apex_tpu_torch import amp, models, optimizers, parallel
+    floor = _mem_floor()
     parallel.init_process_group(
         init_method=parallel.multiproc.local_init_method(), world_size=1,
         rank=0)
@@ -1891,7 +1963,7 @@ def phase_bert_large(smi):
         batch = _bert_batch(cfg.vocab_size, np.random.RandomState(SEED),
                             BERT_LARGE_BATCH, BERT_SEQ, DEVICE)
         out = _drive(opt, _bert_step(model, opt, batch), "bert-large", smi,
-                     BERT_LARGE_BATCH, "sequences")
+                     BERT_LARGE_BATCH, "sequences", floor)
         log(f"[bert-large] buckets of the last all-reduce: "
             f"{ddp.last_comm_stats}")
         del model, opt, ddp
@@ -1947,6 +2019,163 @@ def phase_overflow(inner):
     torch.cuda.empty_cache()
 
 
+# -- phases 9-11, amp O1 and resume ------------------------------------------
+
+def _o1_dtype_probe(model, batch) -> dict:
+    """One forward of ``model.loss`` on two sequences of ``batch``: the
+    dtypes each LayerNorm and the flash kernels receive."""
+    from apex_tpu_torch import normalization
+    from apex_tpu_torch.transformer import attention
+    seen = {"layer_norm": set(), "qkv": set()}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen["layer_norm"].add(args[0].dtype))
+        for m in model.modules()
+        if isinstance(m, normalization.FusedLayerNorm)]
+    flash = attention.fa.flash_attention
+
+    def probe(q, k, v, **kw):
+        seen["qkv"].update((q.dtype, k.dtype, v.dtype))
+        return flash(q, k, v, **kw)
+
+    attention.fa.flash_attention = probe
+    try:
+        with torch.no_grad():
+            model.loss(*(t[:2] for t in batch))
+    finally:
+        attention.fa.flash_attention = flash
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def phase_o1_bert(smi):
+    """The BERT path under O1: BertForPretraining(bert_base()) -> O1 +
+    FusedAdam(lr 1e-4), bf16, train mode with the config's dropout 0.1,
+    32 x 128 tokens."""
+    from apex_tpu_torch import amp, models, optimizers
+    floor = _mem_floor()
+    cfg = models.bert_base()
+    model = models.BertForPretraining(
+        cfg, device=DEVICE, generator=torch.Generator().manual_seed(SEED),
+        dropout_generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    try:
+        model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-4),
+                                    opt_level="O1", verbosity=0)
+        model.train()
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        assert not opt.master_weights and opt.masters.half is None, \
+            "O1 keeps no masters: the fp32 params are the flat buffer"
+        assert not opt.scaler.dynamic and amp.current_loss_scale(opt) == 1.0
+        batch = _bert_batch(cfg.vocab_size, np.random.RandomState(SEED),
+                            BERT_BATCH, BERT_SEQ, DEVICE)
+        seen = _o1_dtype_probe(model, batch)
+        assert seen == {"layer_norm": {torch.float32},
+                        "qkv": {torch.bfloat16}}, seen
+        log(f"[bert-o1] BertForPretraining(bert_base) O1 FusedAdam(lr=1e-4), "
+            f"params fp32 with no masters or half copy, static scale 1.0; "
+            f"the LayerNorms receive {sorted(map(str, seen['layer_norm']))}, "
+            f"attention q/k/v {sorted(map(str, seen['qkv']))}; batch "
+            f"{BERT_BATCH} x {BERT_SEQ}, dropout {cfg.hidden_dropout_prob}")
+        out = _drive(opt, _bert_step(model, opt, batch), "bert-o1", smi,
+                     BERT_BATCH, "sequences", floor)
+        del model, opt
+        torch.cuda.empty_cache()
+    finally:
+        amp.set_policy(amp.NoPolicy())
+    return out
+
+
+def _resnet_o1(seed):
+    from apex_tpu_torch import amp, models, optimizers
+    model = models.resnet50(device=DEVICE,
+                            generator=torch.Generator().manual_seed(seed))
+    return amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
+                          opt_level="O1", half_dtype="float16", verbosity=0)
+
+
+def phase_o1_resnet(smi):
+    """The ResNet path under O1 as the reference ran it: ResNet-50 -> O1 +
+    FusedAdam(lr 1e-3) in fp16 with the dynamic loss scale from 2**16, at
+    batch 128.  Returns the path's results and its model and optimizer."""
+    from apex_tpu_torch import amp
+    floor = _mem_floor()
+    try:
+        model, opt = _resnet_o1(SEED)
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        assert not opt.master_weights and opt.masters.half is None
+        assert opt.scaler.dynamic and amp.current_loss_scale(opt) == 2 ** 16
+        log("[resnet-o1] resnet50 O1 FusedAdam(lr=1e-3), fp16, dynamic "
+            "loss scale from 2**16, one card")
+        out = _drive(opt, _resnet_step(model, opt), "resnet-o1", smi, BATCH,
+                     "images", floor)
+        out[2]["amp_stats"] = amp.amp_stats(opt)
+        log(f"[resnet-o1] amp_stats {json.dumps(out[2]['amp_stats'])}")
+    finally:
+        amp.set_policy(amp.NoPolicy())
+    return out, model, opt
+
+
+def _state_of(model, opt) -> dict:
+    """Clones of everything a resume restores: the model's state dict, the
+    masters, m, v, the step counter and the scalers' fields."""
+    from apex_tpu_torch import amp
+    out = {"model." + k: v.detach().clone()
+           for k, v in model.state_dict().items()}
+    out.update({"masters": opt.masters.buf.clone(),
+                "m": opt.state.m.clone(), "v": opt.state.v.clone(),
+                "step": opt.state.step.clone()})
+    for i, sc in enumerate(amp.state_dict(opt)["scalers"]):
+        out.update({f"scaler{i}.{k}": t.clone() for k, t in sc.items()})
+    return out
+
+
+def phase_resume(model, opt):
+    """Checkpoint the O1 ResNet path's model and optimizer through
+    ``torch.save`` into memory, load it into a fresh ResNet-50 and
+    optimizer under the same options, and hold the two: every restored
+    tensor bitwise, then one more step on each from the same batch with
+    the same overflow flag and scaler state and losses within 1e-6."""
+    import io
+    from apex_tpu_torch import amp
+    try:
+        buf = io.BytesIO()
+        torch.save({"model": model.state_dict(),
+                    "optimizer": opt.state_dict(),
+                    "amp": amp.state_dict(opt)}, buf)
+        size = buf.tell()
+        saved = _state_of(model, opt)
+        buf.seek(0)
+        ck = torch.load(buf, map_location=DEVICE, weights_only=True)
+        fresh, fopt = _resnet_o1(SEED + 7)
+        fresh.train()
+        fresh.load_state_dict(ck["model"])
+        fopt.load_state_dict(ck["optimizer"])
+        amp.load_state_dict(fopt, ck["amp"])
+        loaded = _state_of(fresh, fopt)
+        assert loaded.keys() == saved.keys()
+        for k in saved:
+            assert same(saved[k], loaded[k]), f"resume: {k} differs"
+        # the path's own batch
+        x, y = _batch(np.random.RandomState(SEED), BATCH, IMAGE, 1000,
+                      DEVICE)
+        la = float(_train_step(model, opt, x, y))
+        lb = float(_train_step(fresh, fopt, x, y))
+        fa, fb = (float(o.last_info["found_inf"]) for o in (opt, fopt))
+        sa, sb = amp.amp_stats(opt), amp.amp_stats(fopt)
+        assert math.isfinite(la) and abs(la - lb) <= 1e-6 * abs(la), \
+            f"resume: losses {la} and {lb}"
+        assert fa == fb and sa == sb, f"resume: {fa} {sa} against {fb} {sb}"
+        log(f"[resume] state dict {size} B ({size / 2**20:.1f} MiB) through "
+            f"torch.save; {len(saved)} tensors restored bitwise (model, "
+            f"masters, m, v, step, scaler); one more step: losses {la} / "
+            f"{lb}, found_inf {fa} / {fb}, amp_stats {json.dumps(sa)}")
+        del fresh, fopt, ck
+        torch.cuda.empty_cache()
+    finally:
+        amp.set_policy(amp.NoPolicy())
+    return {"bytes": size, "tensors": len(saved), "losses": [la, lb]}
+
+
 def _check_counts(tag: str, counts, expect) -> None:
     """Each wrapper launched exactly as often as the path needs it, and the
     wrappers of other paths not at all."""
@@ -1983,6 +2212,16 @@ BERT_LARGE_COUNTS = dict(
     flash_dkv=LARGE_FLASH_PER_PASS * PASSES)
 
 
+# O1 launches each wrapper as often as O2 on the same model: the policy
+# casts around the kernels, and Adam runs with no half copy
+BERT_O1_COUNTS = BERT_COUNTS
+RESNET_O1_COUNTS = RESNET_COUNTS
+# the variant rows of phase 3, by the O1 path that runs them
+O1_ROWS = {"fused_adam:no_half": "resnet_o1", "layer_norm_fwd:fp32":
+           "bert_o1", "layer_norm_bwd:fp32": "bert_o1",
+           "syncbn_fwd:fp16": "resnet_o1", "syncbn_bwd:fp16": "resnet_o1"}
+
+
 def main():
     name, smi = phase_device()
     import apex_tpu_torch  # noqa: F401  (fails outside the repository)
@@ -2003,11 +2242,24 @@ def main():
     counts_large, _, large = phase_bert_large(smi)
     phase_overflow(optimizers.FusedAdam(lr=1e-3))
     phase_overflow(optimizers.FusedLAMB(lr=1e-3))
+    # O1 after every O2 phase: those ran under no cast policy
+    counts_bert_o1, _, bert_o1 = phase_o1_bert(smi)
+    (counts_resnet_o1, _, resnet_o1), model, opt = phase_o1_resnet(smi)
+    resume = phase_resume(model, opt)
+    del model, opt
+    torch.cuda.empty_cache()
 
     _check_counts("train", counts_train, RESNET_COUNTS)
     _check_counts("ddp", counts_ddp, RESNET_COUNTS)
     _check_counts("bert", counts_bert, BERT_COUNTS)
     _check_counts("bert-large", counts_large, BERT_LARGE_COUNTS)
+    _check_counts("bert-o1", counts_bert_o1, BERT_O1_COUNTS)
+    _check_counts("resnet-o1", counts_resnet_o1, RESNET_O1_COUNTS)
+    variants = {k: rows.pop(k) for k in list(rows) if ":" in k}
+    o1_counts = {"bert_o1": counts_bert_o1, "resnet_o1": counts_resnet_o1}
+    for k, row in variants.items():
+        row["variant"] = k
+        row["launches"] = o1_counts[O1_ROWS[k]][row["name"]]
     # each row's launches from the path that runs it: the optimizer
     # kernels from the single-card ResNet path, syncbn from the DDP path,
     # LayerNorm and flash from the BERT-base path (the shapes of their
@@ -2019,7 +2271,9 @@ def main():
     for k in rows:
         rows[k]["launches"] = path_of.get(k, counts_bert)[k]
     log(json.dumps({"train": train, "ddp": ddp, "bert": bert,
-                    "bert_large": large, "card": smi}))
+                    "bert_large": large, "bert_o1": bert_o1,
+                    "resnet_o1": resnet_o1, "resume": resume, "card": smi}))
+    log("kernels_o1 " + json.dumps({"kernels": list(variants.values())}))
     log(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -402,9 +402,18 @@ def test_initialize_casts_and_guards():
         amp.initialize(model, optimizers.FusedAdam(), opt_level="O2",
                        verbosity=0)
     fresh = _Node(_toy_arrays(np.random.RandomState(0)))
-    with pytest.raises(NotImplementedError, match="O1"):
-        amp.initialize(fresh, optimizers.FusedAdam(), opt_level="O1",
-                       verbosity=0)
+    # O1: the params stay fp32 views into the flat buffer, no half copy,
+    # and the process-wide cast policy is installed
+    try:
+        m1, o1 = amp.initialize(fresh, optimizers.FusedAdam(),
+                                opt_level="O1", verbosity=0)
+        assert all(p.dtype == torch.float32 for p in m1.parameters())
+        assert not o1.master_weights and o1.masters.half is None
+        assert isinstance(amp.current_policy(), amp.CastPolicy)
+        assert amp.current_policy().half_dtype == torch.bfloat16
+    finally:
+        amp.set_policy(amp.NoPolicy())
+    fresh = _Node(_toy_arrays(np.random.RandomState(0)))
     with pytest.raises(RuntimeError, match="letter O"):
         amp.initialize(fresh, optimizers.FusedAdam(), opt_level="02",
                        verbosity=0)

@@ -565,3 +565,129 @@ def test_lamb_stage2_matches_plain(cuda, sizes, half, noop):
         assert torch.equal(hk, hp)
     if noop:
         assert torch.equal(pk, p)
+
+
+# -- amp O1 and checkpoints on the card -------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_layer_norm_fp32_at_bert_base_within_the_fp64_bounds(cuda,
+                                                             misaligned):
+    """The O1 BERT path's LayerNorm: fp32 at (4096, 768), kernels and
+    plain versions each within ``chip_smoke``'s fp64 bounds, the backward
+    the same bits on a second launch and on graph replays."""
+    import chip_smoke
+    _, errs, ratios = chip_smoke._ln_check(4096, 768, torch.float32, 71,
+                                           misaligned=misaligned)
+    assert max(ratios.values()) <= 1.0 and max(errs) < 1e-3
+
+
+_TINY_BERT = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
+                  num_attention_heads=4, intermediate_size=128,
+                  max_position_embeddings=64, hidden_dropout_prob=0.0,
+                  attention_probs_dropout_prob=0.0, head_chunk=48)
+
+
+@pytest.mark.cuda
+def test_o1_bert_two_steps_on_the_card_match_the_cpu(cuda):
+    """A tiny BERT under O1 + FusedAdam, two steps on the card (cuBLAS
+    bf16 products, the LayerNorm kernels in fp32, the flash kernels in
+    bf16) and on the CPU (plain versions) from the same weights and batch:
+    the loss falls on both; losses within 1e-3 relative (bf16 products
+    round apart, as against the JAX package); the update (params less the
+    start) within 0.1 of the CPU's in norm, as the CPU port against the
+    JAX package (measured there: 0.044)."""
+    from apex_tpu_torch import amp, models, optimizers
+    rs = np.random.RandomState(5)
+    ids = _t(rs.randint(5, 128, (4, 32)))
+    labels = torch.where(_t(rs.rand(4, 32) < 0.15), ids, -100)
+    nsp = _t(rs.randint(0, 2, (4,)))
+    runs = []
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            model = models.BertForPretraining(
+                models.BertConfig(**_TINY_BERT), device=dev,
+                generator=torch.Generator().manual_seed(0))
+            model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-4),
+                                        opt_level="O1", verbosity=0)
+            start = opt.masters.buf.detach().cpu().double()
+            losses = []
+            for _ in range(2):
+                loss = model.loss(ids.to(dev), labels.to(dev), nsp.to(dev))
+                with amp.scale_loss(loss, opt) as scaled:
+                    scaled.backward()
+                opt.step()
+                opt.zero_grad()
+                losses.append(float(loss.detach()))
+            runs.append((losses, opt.masters.buf.cpu().double() - start))
+    finally:
+        amp.set_policy(amp.NoPolicy())
+    (lc, dc), (lp, dp) = runs
+    assert lc[-1] < lc[0] and lp[-1] < lp[0], (lc, lp)
+    np.testing.assert_allclose(lc, lp, rtol=1e-3)
+    gap = float((dc - dp).norm() / dp.norm())
+    assert gap <= 0.1, gap
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card_is_bitwise(cuda):
+    """O1 fp16 with the dynamic scale on a small ResNet on the card:
+    model, optimizer and amp state dicts through torch.save into a fresh
+    pair restore every tensor bitwise; one more step on each gives the
+    same overflow flag and scaler, losses within 1e-6."""
+    import io
+    from apex_tpu_torch import amp, models, optimizers
+    from apex_tpu_torch.nn.functional import cross_entropy
+
+    def pair(seed):
+        model = models.ResNet(models.Bottleneck, [1, 1, 1, 1],
+                              num_classes=10, device=cuda,
+                              generator=torch.Generator().manual_seed(seed))
+        return amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
+                              opt_level="O1", half_dtype="float16",
+                              verbosity=0)
+
+    def step(model, opt, x, y):
+        loss = cross_entropy(model(x), y)
+        with amp.scale_loss(loss, opt) as scaled:
+            scaled.backward()
+        opt.step()
+        opt.zero_grad()
+        return float(loss.detach())
+
+    def state(model, opt):
+        out = {k: v.clone() for k, v in model.state_dict().items()}
+        out.update(masters=opt.masters.buf.clone(), m=opt.state.m.clone(),
+                   v=opt.state.v.clone(), step=opt.state.step.clone())
+        for k, t in amp.state_dict(opt)["scalers"][0].items():
+            out["scaler." + k] = t.clone()
+        return out
+
+    rs = np.random.RandomState(9)
+    x = _t(rs.randn(8, 3, 32, 32).astype(np.float32)).to(cuda)
+    y = _t(rs.randint(0, 10, 8)).to(cuda)
+    try:
+        model, opt = pair(0)
+        for _ in range(5):
+            step(model, opt, x, y)
+        buf = io.BytesIO()
+        torch.save({"model": model.state_dict(),
+                    "optimizer": opt.state_dict(),
+                    "amp": amp.state_dict(opt)}, buf)
+        buf.seek(0)
+        ck = torch.load(buf, map_location=cuda, weights_only=True)
+        fresh, fopt = pair(1)
+        fresh.load_state_dict(ck["model"])
+        fopt.load_state_dict(ck["optimizer"])
+        amp.load_state_dict(fopt, ck["amp"])
+        want, got = state(model, opt), state(fresh, fopt)
+        assert want.keys() == got.keys()
+        for k in want:
+            assert torch.equal(want[k], got[k]), k
+        la, lb = step(model, opt, x, y), step(fresh, fopt, x, y)
+        assert abs(la - lb) <= 1e-6 * abs(la)
+        assert float(opt.last_info["found_inf"]) == float(
+            fopt.last_info["found_inf"])
+        assert amp.amp_stats(opt) == amp.amp_stats(fopt)
+    finally:
+        amp.set_policy(amp.NoPolicy())

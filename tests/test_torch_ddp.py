@@ -539,6 +539,26 @@ def test_load_state_dict_through_ddp_after_initialize(one_rank_group,
         {"module." + k: v for k, v in sd.items()}))
 
 
+def test_ddp_lets_its_module_and_optimizer_go(one_rank_group):
+    """The wrapper's grad hooks live in the params' grad accumulators,
+    where the garbage collector cannot see them: they must not keep the
+    wrapper, its module and the module's optimizer alive once the caller
+    drops them.  While the wrapper lives, a backward still all-reduces."""
+    import gc
+    import weakref
+    model, opt = amp.initialize(_port_small(), optimizers.FusedAdam(),
+                                opt_level="O2", verbosity=0)
+    ddp = parallel.DistributedDataParallel(model)
+    rs = np.random.RandomState(15)
+    x = _t(rs.randn(2, 3, 32, 32).astype(np.float32))
+    _step(ddp, opt, x, _t(rs.randint(0, 10, 2)))
+    assert ddp.last_comm_stats
+    refs = [weakref.ref(o) for o in (ddp, model, opt, opt.masters.buf)]
+    del ddp, model, opt
+    gc.collect()
+    assert [r() for r in refs] == [None] * 4
+
+
 def test_load_state_dict_after_initialize_keeps_full_precision():
     model, opt = amp.initialize(_port_small(), optimizers.FusedAdam(),
                                 opt_level="O2", verbosity=0)
