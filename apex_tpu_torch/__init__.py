@@ -19,7 +19,7 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("amp", "models", "multi_tensor_apply", "nn",
+_SUBPACKAGES = ("amp", "data", "models", "multi_tensor_apply", "nn",
                 "normalization", "ops", "optimizers", "parallel",
                 "transformer", "utils")
 

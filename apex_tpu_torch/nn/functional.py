@@ -12,7 +12,12 @@ unclassified ops are not wrapped, as in the JAX package.  Argument names
 (``axis``, ``keepdims``) are the JAX package's.
 
 Convolution and linear are ``torch.nn.functional`` calls (the JAX package
-leaves them to XLA, outside any Pallas kernel).  Batch norm follows the JAX
+leaves them to XLA, outside any Pallas kernel).  Convolutions and pools
+take ``data_format="NCHW"`` (the default) or ``"NHWC"``, the JAX names;
+weights stay OIHW either way.  An NHWC call runs the torch op on the view
+``x.permute(0, 3, 1, 2)``, which is NCHW with ``torch.channels_last``
+strides, and permutes the result back: no copy, and cuDNN sees NHWC
+memory.  Batch norm follows the JAX
 formula: single-pass fp32 statistics E[x^2] - mean^2 clamped at 0, in
 torch ops, then the apply in fp32 cast back to the input dtype.  On NCHW
 input the apply is ``ops.batch_norm_apply_fused`` (the syncbn kernels on
@@ -70,6 +75,33 @@ def _bias_nd(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     return y + bias.to(y.dtype).view((1, -1) + (1,) * (y.dim() - 2))
 
 
+def _check_data_format(data_format: str) -> None:
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"data_format must be NCHW or NHWC, "
+                         f"got {data_format!r}")
+
+
+def _as_nchw(x: torch.Tensor, data_format: str) -> torch.Tensor:
+    """The NCHW view of a 4-d activation: NHWC memory read as NCHW with
+    channels-last strides (no copy)."""
+    _check_data_format(data_format)
+    return x if data_format == "NCHW" else x.permute(0, 3, 1, 2)
+
+
+def _from_nchw(y: torch.Tensor, data_format: str) -> torch.Tensor:
+    return y if data_format == "NCHW" else y.permute(0, 2, 3, 1)
+
+
+def _conv_pads(padding):
+    """``padding`` as ((lo, hi), (lo, hi)) for H and W: an int, an (h, w)
+    pair, or explicit pairs, as the JAX package takes it."""
+    if isinstance(padding, int):
+        return ((padding, padding), (padding, padding))
+    if isinstance(padding[0], int):
+        return ((padding[0], padding[0]), (padding[1], padding[1]))
+    return tuple(tuple(p) for p in padding)
+
+
 # ---------------------------------------------------------------------------
 # whitelist (tensor-core) ops
 # ---------------------------------------------------------------------------
@@ -89,18 +121,36 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 @op("conv2d")
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride=1, padding=0,
-           dilation=1, groups: int = 1) -> torch.Tensor:
-    """NCHW convolution with OIHW weights."""
-    return _F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+           dilation=1, groups: int = 1,
+           data_format: str = "NCHW") -> torch.Tensor:
+    """Convolution with OIHW weights, activations NCHW or NHWC.
+    ``padding`` is an int, an (h, w) pair or ((lo, hi), (lo, hi)); an
+    asymmetric one is applied with ``F.pad`` before a convolution with no
+    padding of its own (torch's ``conv2d`` takes only symmetric
+    padding)."""
+    xc = _as_nchw(x, data_format)
+    (hlo, hhi), (wlo, whi) = _conv_pads(padding)
+    if hlo == hhi and wlo == whi:
+        pad = (hlo, wlo)
+    else:
+        # padded in x's own layout, so an NHWC x stays NHWC in memory
+        x = _F.pad(x, (wlo, whi, hlo, hhi) if data_format == "NCHW"
+                   else (0, 0, wlo, whi, hlo, hhi))
+        xc, pad = _as_nchw(x, data_format), 0
+    return _from_nchw(_F.conv2d(xc, weight, bias, stride, pad, dilation,
+                                groups), data_format)
 
 
 @op("conv_transpose2d")
 def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,
                      bias: Optional[torch.Tensor] = None, stride=1,
-                     padding=0, output_padding=0) -> torch.Tensor:
-    """NCHW transposed convolution; weight (I, O, kH, kW) like torch."""
-    return _bias_nd(_F.conv_transpose2d(x, weight, None, stride, padding,
-                                        output_padding), bias)
+                     padding=0, output_padding=0,
+                     data_format: str = "NCHW") -> torch.Tensor:
+    """Transposed convolution; weight (I, O, kH, kW) like torch;
+    activations NCHW or NHWC."""
+    y = _F.conv_transpose2d(_as_nchw(x, data_format), weight, None, stride,
+                            padding, output_padding)
+    return _from_nchw(_bias_nd(y, bias), data_format)
 
 
 # ---------------------------------------------------------------------------
@@ -228,26 +278,32 @@ def dropout(x: torch.Tensor, rate: float,
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-def max_pool2d(x: torch.Tensor, kernel_size, stride=None, padding=0
-               ) -> torch.Tensor:
-    """NCHW max pool; padding counts as -inf, as in the JAX package."""
-    return _F.max_pool2d(x, kernel_size, stride, padding)
+def max_pool2d(x: torch.Tensor, kernel_size, stride=None, padding=0,
+               data_format: str = "NCHW") -> torch.Tensor:
+    """Max pool, NCHW or NHWC; padding counts as -inf, as in the JAX
+    package."""
+    y = _F.max_pool2d(_as_nchw(x, data_format), kernel_size, stride, padding)
+    return _from_nchw(y, data_format)
 
 
-def avg_pool2d(x: torch.Tensor, kernel_size, stride=None, padding=0
-               ) -> torch.Tensor:
-    """NCHW average pool; zero padding counts in the denominator, as in
-    the JAX package."""
-    return _F.avg_pool2d(x, kernel_size, stride, padding,
-                         count_include_pad=True)
+def avg_pool2d(x: torch.Tensor, kernel_size, stride=None, padding=0,
+               data_format: str = "NCHW") -> torch.Tensor:
+    """Average pool, NCHW or NHWC; zero padding counts in the denominator,
+    as in the JAX package."""
+    y = _F.avg_pool2d(_as_nchw(x, data_format), kernel_size, stride, padding,
+                      count_include_pad=True)
+    return _from_nchw(y, data_format)
 
 
-def adaptive_avg_pool2d(x: torch.Tensor, output_size=1) -> torch.Tensor:
+def adaptive_avg_pool2d(x: torch.Tensor, output_size=1,
+                        data_format: str = "NCHW") -> torch.Tensor:
     """Global average pool (output_size 1 only, as in the JAX package),
     summed in fp32 and cast back."""
+    _check_data_format(data_format)
     if output_size not in (1, (1, 1)):
         raise NotImplementedError("adaptive_avg_pool2d supports output_size=1")
-    return x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
+    dims = (2, 3) if data_format == "NCHW" else (1, 2)
+    return x.float().mean(dim=dims, keepdim=True).to(x.dtype)
 
 
 def embedding(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -260,9 +316,7 @@ def space_to_depth(x: torch.Tensor, block_size: int = 2,
     """Rearrange ``block_size x block_size`` spatial tiles into channels:
     (B, C, H, W) -> (B, b*b*C, H/b, W/b), channel ``a*(b*C) + bb*C + c``
     for tile offset (a, bb); the same logical order in NHWC."""
-    if data_format not in ("NCHW", "NHWC"):
-        raise ValueError(f"data_format must be NCHW or NHWC, "
-                         f"got {data_format!r}")
+    _check_data_format(data_format)
     b = int(block_size)
     if b < 1:
         raise ValueError(f"block_size must be >= 1, got {block_size}")

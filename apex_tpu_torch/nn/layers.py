@@ -1,6 +1,9 @@
-"""Layers ResNet and BERT need, as ``torch.nn.Module``s.
+"""The layer library, as ``torch.nn.Module``s.
 
-Counterpart of the ResNet and BERT subset of ``apex_tpu/nn/layers.py``.
+Counterpart of ``apex_tpu/nn/layers.py``, with its class names and
+defaults.  ``Conv2d``, ``ConvTranspose2d`` and the pools take the JAX
+package's ``data_format`` ("NCHW" or "NHWC"); weights stay OIHW (I, O,
+kH, kW for the transposed convolution) in both.
 Parameters are made on the CPU from an explicit ``torch.Generator``
 (uniform in +-sqrt(1/fan_in), as the JAX package draws them; N(0,
 ``init_std``) for ``Embedding``) and moved to ``device``.  ``Dropout``
@@ -28,8 +31,11 @@ from ..amp import policy as _policy
 from ..normalization import FusedLayerNorm
 from . import functional as F
 
-__all__ = ["Conv2d", "Linear", "BatchNorm2d", "MaxPool2d",
-           "AdaptiveAvgPool2d", "Embedding", "Dropout", "LayerNorm"]
+__all__ = [
+    "Linear", "Conv2d", "ConvTranspose2d", "BatchNorm2d", "LayerNorm",
+    "Embedding", "Dropout", "ReLU", "LeakyReLU", "GELU", "Tanh", "Sigmoid",
+    "Identity", "Flatten", "MaxPool2d", "AvgPool2d", "AdaptiveAvgPool2d",
+]
 
 
 def _uniform(shape, fan_in: int, generator: torch.Generator,
@@ -43,21 +49,56 @@ def _uniform(shape, fan_in: int, generator: torch.Generator,
 class Conv2d(torch.nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Union[int, Tuple[int, int]], stride=1,
-                 padding=0, bias: bool = True, *, device=None,
+                 padding=0, dilation=1, groups: int = 1, bias: bool = True,
+                 data_format: str = "NCHW", *, device=None,
                  generator: torch.Generator):
         super().__init__()
         if isinstance(kernel_size, int):
             kernel_size = (kernel_size, kernel_size)
         self.stride = stride
         self.padding = padding
-        fan_in = in_channels * kernel_size[0] * kernel_size[1]
-        self.weight = _uniform((out_channels, in_channels, *kernel_size),
+        self.dilation = dilation
+        self.groups = groups
+        self.data_format = data_format
+        fan_in = (in_channels // groups) * kernel_size[0] * kernel_size[1]
+        self.weight = _uniform(
+            (out_channels, in_channels // groups, *kernel_size), fan_in,
+            generator, device)
+        self.bias = (_uniform((out_channels,), fan_in, generator, device)
+                     if bias else None)
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding,
+                        self.dilation, self.groups, self.data_format)
+
+
+class ConvTranspose2d(torch.nn.Module):
+    """Transposed convolution, weight (in, out, kH, kW); its fan-in is
+    torch's, from ``weight.size(1)`` (out_channels), as the JAX
+    package's."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Union[int, Tuple[int, int]], stride=1,
+                 padding=0, output_padding=0, bias: bool = True,
+                 data_format: str = "NCHW", *, device=None,
+                 generator: torch.Generator):
+        super().__init__()
+        if isinstance(kernel_size, int):
+            kernel_size = (kernel_size, kernel_size)
+        self.stride = stride
+        self.padding = padding
+        self.output_padding = output_padding
+        self.data_format = data_format
+        fan_in = out_channels * kernel_size[0] * kernel_size[1]
+        self.weight = _uniform((in_channels, out_channels, *kernel_size),
                                fan_in, generator, device)
         self.bias = (_uniform((out_channels,), fan_in, generator, device)
                      if bias else None)
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        return F.conv_transpose2d(x, self.weight, self.bias, self.stride,
+                                  self.padding, self.output_padding,
+                                  self.data_format)
 
 
 class Linear(torch.nn.Module):
@@ -148,21 +189,78 @@ class BatchNorm2d(torch.nn.Module):
 
 
 class MaxPool2d(torch.nn.Module):
-    def __init__(self, kernel_size, stride=None, padding=0):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format: str = "NCHW"):
         super().__init__()
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+        self.data_format = data_format
 
     def forward(self, x):
-        return F.max_pool2d(x, self.kernel_size, self.stride, self.padding)
+        return F.max_pool2d(x, self.kernel_size, self.stride, self.padding,
+                            self.data_format)
+
+
+class AvgPool2d(torch.nn.Module):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format: str = "NCHW"):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.avg_pool2d(x, self.kernel_size, self.stride, self.padding,
+                            self.data_format)
 
 
 class AdaptiveAvgPool2d(torch.nn.Module):
-    def __init__(self, output_size=1):
+    def __init__(self, output_size=1, data_format: str = "NCHW"):
         super().__init__()
         self.output_size = output_size
+        self.data_format = data_format
 
     def forward(self, x):
-        return F.adaptive_avg_pool2d(x, self.output_size)
+        return F.adaptive_avg_pool2d(x, self.output_size, self.data_format)
+
+
+class ReLU(torch.nn.Module):
+    def forward(self, x):
+        return F.relu(x)
+
+
+class LeakyReLU(torch.nn.Module):
+    def __init__(self, negative_slope: float = 0.01):
+        super().__init__()
+        self.negative_slope = negative_slope
+
+    def forward(self, x):
+        return F.leaky_relu(x, self.negative_slope)
+
+
+class GELU(torch.nn.Module):
+    """``F.gelu``'s default, the tanh form, as the JAX package's."""
+
+    def forward(self, x):
+        return F.gelu(x)
+
+
+class Tanh(torch.nn.Module):
+    def forward(self, x):
+        return F.tanh(x)
+
+
+class Sigmoid(torch.nn.Module):
+    def forward(self, x):
+        return F.sigmoid(x)
+
+
+class Identity(torch.nn.Module):
+    def forward(self, x):
+        return x
+
+
+class Flatten(torch.nn.Module):
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
 
 
 class Embedding(torch.nn.Module):

@@ -80,9 +80,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
             optimizer and amp state dicts), loaded into a fresh pair:
             every tensor bitwise, then one more step on each with the
             same overflow flag and scaler and losses within 1e-6.
-12. counts  each path launched each of its kernels exactly as often as it
+12. counts  (checked last, after 13 and 14) each path launched each of
+            its kernels exactly as often as it
             runs it (per step, per BatchNorm, LayerNorm or attention layer
-            and pass) and no kernel of another path.
+            and pass) and no kernel of another path; phase 13's runs too
+            (zero syncbn launches on the NHWC models).
+13. imagenet  the port's user entry point, examples/imagenet/
+            main_amp_torch.main(argv), in process at batch 128, 3x224x224,
+            O2: (a) resnet50 + FusedAdam, NCHW, 20 iterations; (b) the same
+            channels-last with the space-to-depth stem; (c) resnet34, 101
+            and 152 with SGD, 5 iterations; (d) a uint8 NHWC blob of 256
+            images (38.5 MB) through the native DataLoader, channels-last,
+            10 iterations; (e) resnet18 checkpointed over two epochs of 3
+            iterations, then resumed into the space-to-depth stem (its
+            first-batch logits the conv7 model's: within 1e-5 in fp32, and
+            under O2 within twice the conv7 model's own move under a
+            one-ulp input move).
+            Each prints img/s, step_ms and peak memory less the floor; (a)
+            and (b) also device time by category and the ten kernels that
+            take the most, from a chrome trace the example's --prof window
+            writes over two more steps.
+14. l1      tests/L1/run_l1_torch.py's matrix on the card: ResNet-18 at
+            batch 16, 32x32, 50 iterations, under the 48 amp configs, each
+            run twice and bitwise the same (trajectory and parameter
+            digest), finite and falling; the 12 O0 configs also on the CPU
+            for 10 steps, the first three losses within 1e-3 and all
+            within twice the card's own move under a one-ulp input move.
 
 Phase 3 also times the variants the O1 paths run: Adam without the half
 copy at N = 25,557,032, the LayerNorm forward and backward in fp32 at
@@ -104,6 +127,7 @@ import statistics
 import subprocess
 import time
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2176,6 +2200,288 @@ def phase_resume(model, opt):
     return {"bytes": size, "tensors": len(saved), "losses": [la, lb]}
 
 
+# -- phase 13, the imagenet example --------------------------------------------
+
+IMAGENET_ITERS = 20                 # (a) and (b): one epoch of 20 steps
+DEPTH_ITERS = 5                     # (c)
+# BatchNorm layers: the stem's, two (BasicBlock) or three (Bottleneck) a
+# block, one a downsample (layers 2-4, and layer1's of a Bottleneck)
+BN_OF = {"resnet18": 1 + 2 * 8 + 3, "resnet34": 1 + 2 * 16 + 3,
+         "resnet50": 1 + 3 * 16 + 4, "resnet101": 1 + 3 * 33 + 4,
+         "resnet152": 1 + 3 * 50 + 4}
+BLOB_IMAGES, BLOB_VAL = 256, 128    # (d): 256 x 224 x 224 x 3 uint8, 38.5 MB
+
+
+class _Tee:
+    """Writes to the console and keeps a copy (the example's lines)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _load(*parts):
+    """A module of this checkout by its path (a host may have packages of
+    the same name, ``tests`` for one)."""
+    import importlib.util
+    path = Path(__file__).resolve().parent.joinpath(*parts)
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example():
+    return _load("examples", "imagenet", "main_amp_torch.py")
+
+
+def _run_example(example, tag, argv, floor=None):
+    """``example.main(argv)`` on the card, with the launch counts set to 0
+    just before and read just after; returns its img/s, the counts, its
+    printed lines, the peak memory less ``floor`` and the losses it
+    printed (all finite)."""
+    import contextlib
+    import sys
+    from apex_tpu_torch import ops
+    argv = ["--device", DEVICE] + argv
+    log(f"[{tag}] main_amp_torch.main({argv})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    ops.reset_launch_counts()                       # the path starts
+    with contextlib.redirect_stdout(tee):
+        ips = example.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()                    # the path ends
+    text = "".join(tee.parts)
+    losses = [float(v) for v in re.findall(r"Loss ([-0-9.a-z]+) ", text)]
+    assert losses and all(math.isfinite(v) for v in losses), losses
+    assert "=> done. avg" in text, text[-2000:]
+    peak = None if floor is None else torch.cuda.max_memory_allocated() - floor
+    return ips, counts, text, peak, losses
+
+
+def _trace_breakdown(tag, capture, steps, step_ms):
+    """Device time a step by category and the ten kernels that take the
+    most, from the chrome trace the example's ``--prof`` window wrote."""
+    with open(Path(capture) / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    # each kernel's launching operator, through the id they share
+    op_of = {e["args"]["External id"]: e["name"] for e in events
+             if e.get("cat") == "cpu_op" and "External id" in e.get("args",
+                                                                    {})}
+    per_kernel, per_op = Counter(), Counter()
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            ms = e["dur"] / 1e3 / steps
+            per_kernel[e["name"]] += ms
+            per_op[op_of.get(e.get("args", {}).get("External id"),
+                             "(no operator)")] += ms
+    device_ms = sum(per_kernel.values())
+    if device_ms == 0:
+        log(f"[{tag}] the trace holds no device time: not measured")
+        return None
+    by_cat = Counter()
+    for name, ms in per_kernel.items():
+        by_cat[_category(name)] += ms
+    log(f"[{tag}] device ms per step {device_ms:.3f} of step_ms "
+        f"{step_ms:.3f}: idle share {1 - device_ms / step_ms:.4f} "
+        f"({steps} steps profiled by --prof)")
+    for cat, ms in by_cat.most_common():
+        log(f"[{tag}]   {ms:9.3f} ms  {ms / device_ms:7.2%}  {cat}")
+    top = [(_short(n), ms) for n, ms in per_kernel.most_common(10)]
+    for name, ms in top:
+        log(f"[{tag}]   top kernel {ms:8.3f} ms/step  {name}")
+    # cuDNN's own layout transforms around its convolutions
+    layout = sum(ms for n, ms in per_kernel.items()
+                 if "nchwToNhwc" in n or "nhwcToNchw" in n)
+    log(f"[{tag}]   cuDNN layout transforms (nchwToNhwc, nhwcToNchw) "
+        f"{layout:.3f} ms/step; {len(per_kernel)} kernels by name")
+    for op, ms in per_op.most_common(12):
+        log(f"[{tag}]   by launching operator {ms:8.3f} ms/step  {op}")
+    return {"device_ms_per_step": device_ms, "step_ms": step_ms,
+            "by_category": dict(by_cat), "layout_transform_ms": layout,
+            "by_operator": dict(per_op.most_common(12)),
+            "top10_ms_per_step": top}
+
+
+def _imagenet_path(example, smi, tag, argv, profile=False):
+    """One run of the example at batch 128 for img/s, step_ms, peak memory
+    and launch counts; with ``profile``, a second, short one (12 steps,
+    ``--prof`` over the last two) for device time by kernel."""
+    floor = _mem_floor()
+    ips, counts, _, peak, losses = _run_example(example, tag, argv, floor)
+    step_ms = BATCH / ips * 1e3
+    log(f"[{tag}] {smi}: img/s {ips:.1f}, step_ms {step_ms:.2f}, "
+        f"max_memory_allocated less the floor {peak} B ({peak / 2**30:.2f} "
+        f"GiB; floor {floor} B), losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+    out = {"img_per_s": ips, "step_ms": step_ms, "peak_bytes": peak,
+           "floor_bytes": floor, "losses": losses}
+    if profile:
+        from apex_tpu_torch.utils import profiler
+        _run_example(example, tag + "-prof", argv + ["--iters", "12",
+                                                     "--prof"])
+        out["profile"] = _trace_breakdown(tag, profiler.last_capture_dir(),
+                                          2, step_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def _stem_check(example, ckpt_dir, x):
+    """The conv7 -> space-to-depth conversion of the example's resume on
+    the card, from the checkpoint in ``ckpt_dir``: (1) in fp32, the
+    checkpoint's own conv7 model and the converted model give the same
+    train-mode logits on ``x`` to rounding (1e-5 in norm); (2) under O2,
+    both models restored by the example's resume (the same bf16 weights),
+    the converted model's logits lie no further from the conv7 model's
+    than twice the conv7 model's own move when ``x`` moves by one ulp
+    (bf16 rounds each layer's output: that move is the noise floor).
+    Returns the three distances."""
+    from apex_tpu_torch import amp, models, optimizers
+    from apex_tpu_torch.utils import checkpoint
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    m7 = models.resnet18(device=DEVICE)
+    m7.load_state_dict(checkpoint.restore_checkpoint(
+        ckpt_dir, {"model": m7.state_dict()})["model"])
+    out = {}
+    for level, stem in (("O0", "space_to_depth"), ("O2", "conv7"),
+                        ("O2", "space_to_depth")):
+        model, opt = amp.initialize(
+            models.resnet18(stem=stem, device=DEVICE),
+            optimizers.SGD(lr=0.1), opt_level=level, verbosity=0)
+        assert example.resume_state(ckpt_dir, model, opt, stem) == 2
+        out[level, stem] = model.train()
+    xp = torch.nextafter(x, torch.full_like(x, math.inf))
+    with torch.no_grad():
+        fp32 = rel(out["O0", "space_to_depth"](x), m7.train()(x))
+        l7 = out["O2", "conv7"](x)
+        half = rel(out["O2", "space_to_depth"](x), l7)
+        spread = rel(out["O2", "conv7"](xp), l7)
+    assert fp32 <= 1e-5, f"fp32: s2d logits {fp32} from conv7's"
+    assert half <= 2 * spread, f"O2: s2d logits {half}, spread {spread}"
+    return {"fp32": fp32, "o2": half, "o2_one_ulp_spread": spread}
+
+
+def _short(kernel: str) -> str:
+    """A kernel's name without its namespaces and argument list."""
+    for noise in ("void ", "at::native::", "(anonymous namespace)::",
+                  "binary_internal::", "cudnn::engines_precompiled::"):
+        kernel = kernel.replace(noise, "")
+    cut = kernel.rfind(">(")
+    return (kernel[:cut + 1] if cut > 0 else kernel)[:200]
+
+
+def phase_imagenet(smi):
+    """The port's user entry point, examples/imagenet/main_amp_torch.py, on
+    the card at batch 128, 3 x 224 x 224, O2, synthetic data unless said:
+    (a) resnet50 + FusedAdam, NCHW; (b) the same channels-last with the
+    space-to-depth stem; (c) resnet34, resnet101 and resnet152 with SGD;
+    (d) a uint8 NHWC blob through the native DataLoader, channels-last;
+    (e) resnet18 checkpointed over two epochs, then resumed into the
+    space-to-depth stem.  Returns each run's launch counts and results."""
+    import tempfile
+    example = _example()
+    counts, results = {}, {}
+    adam = ["-b", str(BATCH), "--image-size", str(IMAGE), "--fused-adam",
+            "--lr", "1e-3", "--iters", str(IMAGENET_ITERS)]
+    counts["a"], results["a"] = _imagenet_path(
+        example, smi, "imagenet-a", ["--arch", "resnet50"] + adam,
+        profile=True)
+    counts["b"], results["b"] = _imagenet_path(
+        example, smi, "imagenet-b", ["--arch", "resnet50", "--channels-last",
+                                     "--stem", "space_to_depth"] + adam,
+        profile=True)
+    for arch in ("resnet34", "resnet101", "resnet152"):
+        counts[arch], results[arch] = _imagenet_path(
+            example, smi, f"imagenet-c-{arch}",
+            ["--arch", arch, "-b", str(BATCH), "--image-size", str(IMAGE),
+             "--iters", str(DEPTH_ITERS)])
+    with tempfile.TemporaryDirectory() as tmp:
+        rs = np.random.RandomState(SEED)
+        blob = Path(tmp) / "blob.npz"
+        np.savez(blob, images=rs.randint(
+            0, 256, (BLOB_IMAGES, IMAGE, IMAGE, 3)).astype(np.uint8),
+            labels=rs.randint(0, 1000, BLOB_IMAGES),
+            val_images=rs.randint(0, 256, (BLOB_VAL, IMAGE, IMAGE, 3))
+            .astype(np.uint8), val_labels=rs.randint(0, 1000, BLOB_VAL))
+        # two batches an epoch: five epochs make ten iterations
+        ips, counts["d"], text, _, losses = _run_example(
+            example, "imagenet-d",
+            ["--arch", "resnet50", "-b", str(BATCH), "--data", str(blob),
+             "--channels-last", "--epochs", "5", "--iters", "10"])
+        assert "=> native data loader: True (2 batches/epoch)" in text, \
+            "the DataLoader did not take the native ring on this host"
+        assert len(re.findall(r"\* Prec@1 ", text)) == 5, text[-2000:]
+        results["d"] = {"img_per_s": ips, "losses": losses, "native": True}
+        log(f"[imagenet-d] {BLOB_IMAGES} uint8 NHWC images "
+            f"({blob.stat().st_size} B npz) through the native DataLoader: "
+            f"img/s {ips:.1f} over 10 iterations")
+    counts["e-save"], counts["e-resume"], results["e"] = \
+        _imagenet_resume(example)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, results
+
+
+def _imagenet_resume(example):
+    """(e): resnet18 checkpointed over two epochs of three iterations,
+    then resumed into the space-to-depth stem (the conv7 -> s2d
+    conversion); the converted model's first-batch logits held against
+    the conv7 model's (``_stem_check``)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "ck")
+        base = ["--arch", "resnet18", "-b", str(BATCH), "--image-size",
+                str(IMAGE), "--iters", "3", "--checkpoint-dir", ck]
+        _, save, _, _, _ = _run_example(example, "imagenet-e",
+                                        base + ["--epochs", "2"])
+        # the first batch of the synthetic data, as the example draws it
+        x = torch.from_numpy(np.random.RandomState(0).randn(
+            BATCH, 3, IMAGE, IMAGE).astype(np.float32)).to(DEVICE)
+        stem = _stem_check(example, ck, x)
+        _, resume, text, _, _ = _run_example(
+            example, "imagenet-e-resume",
+            base + ["--epochs", "3", "--resume", "--stem", "space_to_depth"])
+        assert "converting" in text and "resumed from epoch 2" in text
+    log(f"[imagenet-e] resnet18 conv7 checkpoint -> space_to_depth, "
+        f"first-batch logits in train mode, distance in norm: fp32 "
+        f"{stem['fp32']:.3e} (<= 1e-5), O2 {stem['o2']:.3e} (<= 2 x the "
+        f"conv7 model's one-ulp spread {stem['o2_one_ulp_spread']:.3e}); "
+        f"the resume trained epoch 3")
+    return save, resume, stem
+
+
+# -- phase 14, L1 -------------------------------------------------------------
+
+L1_ITERS, L1_BATCH, L1_IMAGE = 50, 16, 32
+
+
+def phase_l1():
+    """tests/L1/run_l1_torch.py's matrix on the card: ResNet-18 under the
+    48 amp configs, each twice (bitwise the same), the O0 ones also on the
+    CPU (within the tolerance that file states)."""
+    l1 = _load("tests", "L1", "run_l1_torch.py")
+    t0 = time.time()
+    _, summary = l1.run(l1.FULL_MATRIX, DEVICE, L1_ITERS, L1_BATCH,
+                        L1_IMAGE, log=lambda line: log(f"[l1] {line}"))
+    summary["wall_s"] = time.time() - t0
+    log("l1 " + json.dumps(summary))
+    assert summary["total"] == len(l1.FULL_MATRIX) == 48
+    assert not summary["failures"], summary["failures"]
+    return summary
+
+
 def _check_counts(tag: str, counts, expect) -> None:
     """Each wrapper launched exactly as often as the path needs it, and the
     wrappers of other paths not at all."""
@@ -2210,6 +2516,32 @@ BERT_LARGE_COUNTS = dict(
     flash_fwd=LARGE_FLASH_PER_PASS * PASSES,
     flash_dq=LARGE_FLASH_PER_PASS * PASSES,
     flash_dkv=LARGE_FLASH_PER_PASS * PASSES)
+
+
+# phase 13: a run of the example takes one warm-up step and then its
+# iterations, each one backward pass; AmpOptimizer.step runs the l2norm (the
+# grad norm) every step, the scale kernel unscales every pass, FusedAdam's
+# kernel runs a step and SGD none; the syncbn kernels run at every NCHW
+# BatchNorm of a pass, and the NHWC models (b, d) take the plain route
+def _example_counts(steps, bn_layers=0, adam=False):
+    out = {"multi_tensor_scale": steps, "multi_tensor_l2norm": steps}
+    if adam:
+        out["fused_adam"] = steps
+    if bn_layers:
+        out.update(syncbn_fwd=bn_layers * steps, syncbn_bwd=bn_layers * steps)
+    return out
+
+
+EXAMPLE_COUNTS = {
+    "a": _example_counts(1 + IMAGENET_ITERS, BN_OF["resnet50"], adam=True),
+    "b": _example_counts(1 + IMAGENET_ITERS, adam=True),
+    "resnet34": _example_counts(1 + DEPTH_ITERS, BN_OF["resnet34"]),
+    "resnet101": _example_counts(1 + DEPTH_ITERS, BN_OF["resnet101"]),
+    "resnet152": _example_counts(1 + DEPTH_ITERS, BN_OF["resnet152"]),
+    "d": _example_counts(1 + 10),
+    "e-save": _example_counts(1 + 2 * 3, BN_OF["resnet18"]),
+    "e-resume": _example_counts(1 + 3, BN_OF["resnet18"]),
+}
 
 
 # O1 launches each wrapper as often as O2 on the same model: the policy
@@ -2248,6 +2580,8 @@ def main():
     resume = phase_resume(model, opt)
     del model, opt
     torch.cuda.empty_cache()
+    counts_imagenet, imagenet = phase_imagenet(smi)
+    l1 = phase_l1()
 
     _check_counts("train", counts_train, RESNET_COUNTS)
     _check_counts("ddp", counts_ddp, RESNET_COUNTS)
@@ -2255,6 +2589,8 @@ def main():
     _check_counts("bert-large", counts_large, BERT_LARGE_COUNTS)
     _check_counts("bert-o1", counts_bert_o1, BERT_O1_COUNTS)
     _check_counts("resnet-o1", counts_resnet_o1, RESNET_O1_COUNTS)
+    for run, expect in EXAMPLE_COUNTS.items():
+        _check_counts(f"imagenet-{run}", counts_imagenet[run], expect)
     variants = {k: rows.pop(k) for k in list(rows) if ":" in k}
     o1_counts = {"bert_o1": counts_bert_o1, "resnet_o1": counts_resnet_o1}
     for k, row in variants.items():
@@ -2272,7 +2608,8 @@ def main():
         rows[k]["launches"] = path_of.get(k, counts_bert)[k]
     log(json.dumps({"train": train, "ddp": ddp, "bert": bert,
                     "bert_large": large, "bert_o1": bert_o1,
-                    "resnet_o1": resnet_o1, "resume": resume, "card": smi}))
+                    "resnet_o1": resnet_o1, "resume": resume,
+                    "imagenet": imagenet, "l1": l1, "card": smi}))
     log("kernels_o1 " + json.dumps({"kernels": list(variants.values())}))
     log(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     log(smi)

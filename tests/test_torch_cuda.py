@@ -691,3 +691,88 @@ def test_checkpoint_round_trip_on_the_card_is_bitwise(cuda):
         assert amp.amp_stats(opt) == amp.amp_stats(fopt)
     finally:
         amp.set_policy(amp.NoPolicy())
+
+
+# -- layouts, the ResNet family, the imagenet example -----------------------------
+
+@pytest.fixture
+def fp32_exact():
+    """TF32 off for cuDNN and cuBLAS while a test compares fp32 results."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data_format", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("padding", [1, (1, 2), ((2, 1), (2, 1))])
+def test_conv_and_pools_on_the_card_match_the_cpu(cuda, fp32_exact,
+                                                 data_format, padding):
+    """cuDNN against oneDNN in fp32 (sums in other orders: 1e-5), forward
+    and grads; an NHWC call keeps NHWC memory on the card too."""
+    from apex_tpu_torch.nn import functional as F
+    rs = np.random.RandomState(3)
+    x = rs.randn(2, 8, 11, 12).astype(np.float32)
+    if data_format == "NHWC":
+        x = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    w = (rs.randn(16, 8, 3, 3) * 0.1).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        xt = _t(x).to(dev).requires_grad_()
+        wt = _t(w).to(dev).requires_grad_()
+        y = F.conv2d(xt, wt, None, 1, padding, data_format=data_format)
+        z = F.max_pool2d(y, 3, 2, 1, data_format)
+        z = F.adaptive_avg_pool2d(z, 1, data_format)
+        z.sum().backward()
+        assert y.is_contiguous()
+        outs[str(dev)] = [t.detach().cpu() for t in (y, xt.grad, wt.grad)]
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels_last,stem,syncbn",
+                         [(False, "conv7", True),
+                          (True, "space_to_depth", False)])
+def test_resnet_layouts_on_the_card(cuda, channels_last, stem, syncbn):
+    """One O2 step of resnet18 on the card: finite; the NCHW model runs
+    the syncbn kernels at its 20 BatchNorms, the NHWC one none."""
+    from apex_tpu_torch import amp, models, optimizers
+    model, opt = amp.initialize(
+        models.resnet18(channels_last=channels_last, stem=stem,
+                        device=cuda),
+        optimizers.FusedAdam(lr=1e-3), opt_level="O2", verbosity=0)
+    x = torch.randn(8, 3, 64, 64, device=cuda)
+    y = torch.randint(0, 1000, (8,), device=cuda)
+    ops.reset_launch_counts()
+    loss = nn.functional.cross_entropy(model(x), y)
+    with amp.scale_loss(loss, opt) as scaled:
+        scaled.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert torch.isfinite(loss)
+    assert counts["syncbn_fwd"] == counts["syncbn_bwd"] == \
+        (20 if syncbn else 0)
+    assert counts["fused_adam"] == counts["multi_tensor_scale"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argv", [[], ["--channels-last", "--stem",
+                                       "space_to_depth", "--fused-adam"]])
+def test_imagenet_example_on_the_card(cuda, argv, capsys):
+    """examples/imagenet/main_amp_torch.py with its default device."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "imagenet"))
+    import main_amp_torch
+    ips = main_amp_torch.main(["--arch", "resnet18", "-b", "8",
+                               "--image-size", "64", "--iters", "3",
+                               "--print-freq", "1"] + argv)
+    out = capsys.readouterr().out
+    assert ips > 0 and "=> 1 rank(s) on cuda" in out, out
