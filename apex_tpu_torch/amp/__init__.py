@@ -7,6 +7,12 @@
     optimizer.step()
     optimizer.zero_grad()
 
+or the JAX package's functional step, which a CUDA graph can capture
+(``parallel.DistributedDataParallel.make_step``)::
+
+    loss, grads = amp.scaled_grad(loss_fn, optimizer, x, y)
+    info = optimizer.step(grads)
+
 and its checkpoint::
 
     torch.save({"model": model.state_dict(),
@@ -27,7 +33,8 @@ from ._process_optimizer import AmpOptimizer, FlatMasters
 from .frontend import (Properties, amp_stats, compute_dtype,
                        current_loss_scale, initialize, opt_levels,
                        scaler_state, steps_skipped)
-from .handle import disable_casts, scale_loss
+from .handle import (disable_casts, scale_loss, scaled_grad,
+                     scaled_grad_accum)
 from .lists import (register_float_function, register_half_function,
                     register_promote_function)
 from .policy import (CastPolicy, NoPolicy, current_policy, float_function,
@@ -35,7 +42,8 @@ from .policy import (CastPolicy, NoPolicy, current_policy, float_function,
                      use_policy)
 from .scaler import LossScaler, ScalerState
 
-__all__ = ["initialize", "scale_loss", "master_params", "AmpOptimizer",
+__all__ = ["initialize", "scale_loss", "scaled_grad", "scaled_grad_accum",
+           "master_params", "AmpOptimizer",
            "FlatMasters", "LossScaler", "ScalerState", "Properties",
            "opt_levels", "compute_dtype", "scaler_state",
            "current_loss_scale", "steps_skipped", "amp_stats",

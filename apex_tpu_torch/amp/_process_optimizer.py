@@ -20,6 +20,17 @@ A step is free of host syncs: unscale and overflow check in one kernel,
 the scaler's transition on device tensors, and a skipped step is the
 optimizer kernels' no-op flag (the JAX package's ``lax.cond``).
 
+Two call shapes.  ``step()`` after ``amp.scale_loss`` takes the grads
+stashed by the backward passes (the torch shape).  ``step(scaled_grads)``
+is the JAX package's functional step (``AmpOptimizer.step(params,
+opt_state, grads)``): it packs the scaled grads that ``amp.scaled_grad``
+gave into the flat fp32 stash, unscales them with the fused overflow
+check, updates the loss scaler, steps the inner optimizer with the
+overflow flag as its no-op, and returns ``info``.  Every piece of state
+either form touches is written in place (the scalers, the moments, the
+masters, ``last_info``) and neither depends on a host flag, so the
+functional step can be captured in a CUDA graph and replayed.
+
 The masters are the source of truth for the parameters.  A write of
 parameter values after ``bind`` goes through :meth:`AmpOptimizer.
 write_masters`, which sets the fp32 masters and re-derives the half copy
@@ -50,7 +61,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from .. import ops
-from ..multi_tensor_apply import ChunkedFlatLayout
+from ..multi_tensor_apply import ChunkedFlatLayout, pack_flat
 from ..multi_tensor_apply.flatten import ChunkedFlat
 from ..optimizers.base import Optimizer
 from .scaler import LossScaler, ScalerState
@@ -158,9 +169,15 @@ class AmpOptimizer:
         optimizer.step()
         optimizer.zero_grad()
 
+    or in the JAX package's functional shape::
+
+        loss, grads = amp.scaled_grad(loss_fn, optimizer, x, y)
+        info = optimizer.step(grads)
+
     After each step, ``last_info`` holds ``found_inf``, ``loss_scale``,
     ``steps_skipped`` and ``grad_norm`` (the l2norm of the unscaled
-    grads) as device tensors."""
+    grads) as 0-d device tensors, allocated at ``bind`` and rewritten in
+    place by every step."""
 
     def __init__(self, inner: Optimizer, scaler: LossScaler,
                  master_weights: bool, num_losses: int = 1):
@@ -204,6 +221,13 @@ class AmpOptimizer:
                         for _ in range(self.num_losses)]
         self._params = params
         self._stash = GradStash(layout.total, device)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.last_info = {
+            "found_inf": torch.zeros((), **f32),
+            "loss_scale": torch.zeros((), **f32),
+            "steps_skipped": torch.zeros((), dtype=torch.int32,
+                                         device=device),
+            "grad_norm": torch.zeros((), **f32)}
         # without masters the update starts from the half params each step
         # (the JAX package's no-master path): the spans to refresh
         self._half_spans = [
@@ -290,10 +314,11 @@ class AmpOptimizer:
         if len(scalers) != self.num_losses:
             raise ValueError(f"{len(scalers)} loss scalers for "
                              f"{self.num_losses} losses")
-        device = self.masters.buf.device
-        self.scalers = [ScalerState(**{
-            k: torch.as_tensor(d[k]).to(device=device, dtype=dt).clone()
-            for k, dt in _SCALER_FIELDS.items()}) for d in scalers]
+        # in place: a captured step reads these tensors' addresses
+        for s, d in zip(self.scalers, scalers):
+            for k, dt in _SCALER_FIELDS.items():
+                t = getattr(s, k)
+                t.copy_(torch.as_tensor(d[k]).to(device=t.device, dtype=dt))
 
     def state_dict(self) -> Dict[str, Any]:
         """``{"scalers": [...], "inner": {...}, "masters": buf}``: the loss
@@ -323,8 +348,10 @@ class AmpOptimizer:
         self.load_scalers_state_dict(sd["scalers"])
 
     def loss_scale(self, loss_id: int = 0) -> torch.Tensor:
+        """The loss scale of ``loss_id`` now, as a 0-d device tensor: a
+        copy, since the scaler's own tensor changes in place each step."""
         self._require_bound()
-        return self.scalers[loss_id].loss_scale
+        return self.scalers[loss_id].loss_scale.clone()
 
     # -- driven by amp.scale_loss ----------------------------------------------
     def _prepare_backward(self) -> None:
@@ -335,8 +362,8 @@ class AmpOptimizer:
     def _post_backward(self, loss_id: int, delay_unscale: bool) -> None:
         self._stash.add(self._params, self.scaler, self.scalers[loss_id])
         if not delay_unscale:
-            self.scalers[loss_id] = self.scaler.update(
-                self.scalers[loss_id], self._stash.found_inf)
+            self.scaler.update_(self.scalers[loss_id],
+                                self._stash.found_inf)
 
     # -- torch-shaped methods ---------------------------------------------------
     def zero_grad(self, set_to_none: bool = True) -> None:
@@ -345,12 +372,75 @@ class AmpOptimizer:
             p.grad = None
         self._stash.clear()
 
-    def step(self) -> None:
+    def step(self, scaled_grads=None, loss_id: int = 0,
+             found_inf_extra: Optional[torch.Tensor] = None):
+        """With no argument, the torch shape: step on the grads that
+        ``amp.scale_loss`` stashed (and return ``None``).
+
+        With ``scaled_grads``, the JAX package's functional step
+        (``_process_optimizer.py:584-815`` there): grads of ``loss *
+        loss_scale`` with respect to the bound parameters, as
+        ``amp.scaled_grad`` returns them: a list in the layout's order
+        (``masters.layout.names``) or a mapping of those names to tensors
+        (``None`` is a zero grad).  They are packed into the flat fp32
+        stash, unscaled by the scaler of ``loss_id`` with the fused
+        overflow check (OR-ed with ``found_inf_extra``, a 0-d flag of
+        other overflow sources), the scaler is updated in place, and the
+        inner optimizer steps with the overflow flag as its no-op.
+        Returns ``info`` (``last_info``): ``found_inf``, ``loss_scale``,
+        ``steps_skipped`` and ``grad_norm``."""
         self._require_bound()
+        if scaled_grads is None:
+            if found_inf_extra is not None or loss_id != 0:
+                raise TypeError("loss_id and found_inf_extra belong to the "
+                                "functional step: step(scaled_grads, ...)")
+            self._eager_step()
+            return None
+        grads = self._stash.grads
+        pack_flat(self._grad_list(scaled_grads), out=grads)
+        sstate = self.scalers[loss_id]
+        # in place: the packed scaled grads are not needed afterwards
+        _, found = self.scaler.unscale(grads, sstate, out=grads)
+        if found_inf_extra is not None:
+            found = torch.maximum(found, found_inf_extra.to(found.dtype))
+        self.scaler.update_(sstate, found)
+        self._apply(grads, found, sstate)
+        return self.last_info
+
+    def _grad_list(self, grads) -> List[torch.Tensor]:
+        """``grads`` in layout order, zeros for a missing grad."""
+        if isinstance(grads, Mapping):
+            names = self.masters.layout.names
+            unknown = sorted(set(grads) - set(names))
+            if unknown:
+                raise KeyError(f"grads of no bound parameter: {unknown[:8]}")
+            grads = [grads.get(n) for n in names]
+        grads = list(grads)
+        if len(grads) != len(self._params):
+            raise ValueError(f"{len(grads)} grads for {len(self._params)} "
+                             f"bound parameters")
+        out = []
+        for g, p in zip(grads, self._params):
+            if g is None:
+                g = torch.zeros_like(p)
+            elif g.shape != p.shape:
+                raise ValueError(f"a grad of shape {tuple(g.shape)} for a "
+                                 f"parameter of shape {tuple(p.shape)}")
+            out.append(g)
+        return out
+
+    def _eager_step(self) -> None:
         if not self._stash.has_grads:
             raise RuntimeError("step() called before backward()")
-        masters, stash = self.masters, self._stash
-        grads, found = stash.grads, stash.found_inf
+        stash = self._stash
+        self._apply(stash.grads, stash.found_inf, self.scalers[0])
+        stash.clear()
+
+    def _apply(self, grads: torch.Tensor, found: torch.Tensor,
+               sstate: ScalerState) -> None:
+        """The inner step on the unscaled flat fp32 ``grads``, skipped on
+        the device when ``found`` is set; ``last_info`` written."""
+        masters = self.masters
         # of the unscaled fp32 grads, before the no-master path rounds them
         grad_norm = ops.multi_tensor_l2norm(grads)
         if not self.master_weights:
@@ -360,9 +450,8 @@ class AmpOptimizer:
                     masters.half.dtype).float()
         self.inner.step(masters.buf, self.state, grads, half=masters.half,
                         noop=found)
-        s = self.scalers[0]
-        self.last_info = {"found_inf": found.clone(),
-                          "loss_scale": s.loss_scale,
-                          "steps_skipped": s.steps_skipped,
-                          "grad_norm": grad_norm}
-        stash.clear()
+        info = self.last_info
+        info["found_inf"].copy_(found)
+        info["loss_scale"].copy_(sstate.loss_scale)
+        info["steps_skipped"].copy_(sstate.steps_skipped)
+        info["grad_norm"].copy_(grad_norm)

@@ -97,3 +97,10 @@ class LossScaler:
         unskipped = torch.where(grow, zero, unskipped)
         return ScalerState(loss_scale=new_scale, unskipped=unskipped,
                            steps_skipped=skipped)
+
+    def update_(self, state: ScalerState, found_inf: torch.Tensor) -> None:
+        """:meth:`update`, written in place into ``state``'s tensors."""
+        new = self.update(state, found_inf)
+        state.loss_scale.copy_(new.loss_scale)
+        state.unskipped.copy_(new.unskipped)
+        state.steps_skipped.copy_(new.steps_skipped)

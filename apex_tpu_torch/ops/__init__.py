@@ -30,7 +30,7 @@ __all__ = ["fused_adam", "multi_tensor_scale", "multi_tensor_axpby",
            "syncbn_bwd",
            "batch_norm_apply_fused", "layer_norm_fwd", "layer_norm_bwd",
            "flash_fwd", "flash_dq", "flash_dkv", "WRAPPERS", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "add_launches"]
 
 # every kernel wrapper of the port, by name
 WRAPPERS = {f.__name__: f for f in (multi_tensor_scale, multi_tensor_axpby,
@@ -43,10 +43,21 @@ WRAPPERS = {f.__name__: f for f in (multi_tensor_scale, multi_tensor_axpby,
 
 
 def launch_counts() -> Dict[str, int]:
-    """How many times each wrapper has launched its kernel."""
+    """How many times each wrapper has launched its kernel.  A wrapper
+    counts on the host when it launches; a step captured in a CUDA graph
+    (``parallel.make_step``) takes its capture's launches back and adds
+    them again at each replay, so the counts are those of the kernels
+    that ran."""
     return {name: f.launches for name, f in WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
     for f in WRAPPERS.values():
         f.launches = 0
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (wrapper name -> launches) to the
+    counts: what a graph replay of recorded launches does."""
+    for name, n in counts.items():
+        WRAPPERS[name].launches += times * n

@@ -1,7 +1,9 @@
 """Data parallelism and SyncBatchNorm on ``torch.distributed``.
 
 Counterpart of the data-parallel core of ``apex_tpu/parallel``:
-``DistributedDataParallel`` (bucketed grad all-reduce), ``Reducer``,
+``DistributedDataParallel`` (bucketed grad all-reduce, on ``.grad`` at the
+end of backward or on the functional step's grads, and ``make_step``, the
+whole step captured in a CUDA graph), ``allreduce_comm_plan``, ``Reducer``,
 ``flat_dist_call``, ``SyncBatchNorm`` with ``convert_syncbn_model`` and
 ``create_syncbn_process_group``, ``LARC``, and ``init_process_group``
 with the ``python -m apex_tpu_torch.parallel.multiproc`` launcher.
@@ -17,12 +19,13 @@ import torch.distributed as dist
 from . import multiproc
 from .LARC import LARC
 from .distributed import (DistributedDataParallel, Reducer, ReduceOp,
-                          flat_dist_call, predivide_factors)
+                          allreduce_comm_plan, flat_dist_call, make_step,
+                          predivide_factors)
 from .multiproc import init_process_group
 from .sync_batchnorm import SyncBatchNorm
 
 __all__ = ["DistributedDataParallel", "Reducer", "ReduceOp",
-           "flat_dist_call", "predivide_factors", "SyncBatchNorm",
+           "allreduce_comm_plan", "make_step", "flat_dist_call", "predivide_factors", "SyncBatchNorm",
            "convert_syncbn_model", "create_syncbn_process_group",
            "init_process_group", "multiproc", "LARC"]
 

@@ -2,13 +2,15 @@
 """Smoke run of apex_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --captured
     python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
 
-The second form builds the kernels and times the LayerNorm backward of
-this checkout against the one in PARENT_CHECKOUT (another tree of this
-repository), at BERT-base's and BERT-large's shapes, by graph replay in
-the order parent, change, change, parent, with each one's device time by
-kernel and this backward at other grids; it runs nothing else.
+The second form runs phases 1, 2 and 15 alone.  The third builds the
+kernels and times the LayerNorm backward of this checkout against the one
+in PARENT_CHECKOUT (another tree of this repository), at BERT-base's and
+BERT-large's shapes, by graph replay in the order parent, change, change,
+parent, with each one's device time by kernel and this backward at other
+grids; it runs nothing else.
 
 Phases, in order; any failure raises and the exit code is non-zero:
 
@@ -80,14 +82,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
             optimizer and amp state dicts), loaded into a fresh pair:
             every tensor bitwise, then one more step on each with the
             same overflow flag and scaler and losses within 1e-6.
-12. counts  (checked last, after 13 and 14) each path launched each of
-            its kernels exactly as often as it
+12. counts  (checked last, after 13, 14 and 15) each path launched each
+            of its kernels exactly as often as it
             runs it (per step, per BatchNorm, LayerNorm or attention layer
             and pass) and no kernel of another path; phase 13's runs too
-            (zero syncbn launches on the NHWC models).
+            (zero syncbn launches on the NHWC models), and phase 15's
+            captured steps (the launches of one step recorded at capture,
+            times the steps its replays ran, plus the eager warm-up's).
 13. imagenet  the port's user entry point, examples/imagenet/
             main_amp_torch.main(argv), in process at batch 128, 3x224x224,
-            O2: (a) resnet50 + FusedAdam, NCHW, 20 iterations; (b) the same
+            O2, its step the functional one captured in a CUDA graph (two
+            warm-up steps: eager, then the capture; the --prof trace sees
+            the replayed kernels but no launching operator for them):
+            (a) resnet50 + FusedAdam, NCHW, 20 iterations; (b) the same
             channels-last with the space-to-depth stem; (c) resnet34, 101
             and 152 with SGD, 5 iterations; (d) a uint8 NHWC blob of 256
             images (38.5 MB) through the native DataLoader, channels-last,
@@ -106,6 +113,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
             digest), finite and falling; the 12 O0 configs also on the CPU
             for 10 steps, the first three losses within 1e-3 and all
             within twice the card's own move under a one-ulp input move.
+15. captured  the functional step (amp.scaled_grad or scaled_grad_accum,
+            ddp.allreduce_grads(grads), optimizer.step(grads)) through
+            make_step, captured whole in a CUDA graph, with cuDNN
+            deterministic: (a) ResNet-50 -> convert_syncbn_model -> O2 +
+            FusedAdam -> DistributedDataParallel (one-rank NCCL group) at
+            batch 128, 3x224x224, steps_per_call 1 and 4; (b) BERT-base O2 +
+            FusedAdam at 32 x 128, dropout 0.1, as two micro-batches of 16
+            (scaled_grad_accum); (c) BERT-large O2 + FusedLAMB + DDP at 8 x
+            128, dropout 0.1.  On each, from one state, the step run
+            eagerly and through the graph: losses, every state tensor
+            (masters, half copy, moments, step counter, scaler, BatchNorm
+            statistics) and the dropout generator's offset bitwise after 8
+            steps (12 for K = 4); step_ms eager against graph, the graph's
+            device time (torch.profiler, and one replay between CUDA
+            events), idle share, launches a step, peak memory above the
+            state and what the graph holds.  Then fp16 ResNet-50 O2 at
+            batch 32: an inf in the input of a replay skips the step (scale
+            halved, masters, half copy, m, v and step bitwise) and the next
+            replay scales by the halved scale.
 
 Phase 3 also times the variants the O1 paths run: Adam without the half
 copy at N = 25,557,032, the LayerNorm forward and backward in fp32 at
@@ -1754,10 +1780,11 @@ def _category(kernel: str) -> str:
 
 
 def phase_profile(step, step_ms: float, tag: str = "profile",
-                  steps: int = 3):
+                  steps: int = 3, per: int = 1):
     """Device time of a path's steps by kernel (torch.profiler), after the
     launch counts were read: where the time goes, and how much of the
-    unprofiled step the device is busy."""
+    unprofiled step the device is busy.  ``step()`` is called ``steps``
+    times and runs ``per`` steps a call (a captured graph of K steps)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1766,6 +1793,7 @@ def phase_profile(step, step_ms: float, tag: str = "profile",
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
+    steps *= per
     per_kernel = {}
     for evt in prof.key_averages():
         # the kernels themselves: the operators that launch them carry
@@ -2482,6 +2510,402 @@ def phase_l1():
     return summary
 
 
+# -- phase 15, the captured step ---------------------------------------------
+
+CAPTURE_HOLD = 8                    # steps held bitwise, graph against eager
+CAPTURE_TIMED = 10                  # steps timed after them
+
+
+def _flat_state(tree, prefix=""):
+    """(name, tensor) pairs of a nested dict or list of tensors."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = []
+    for k, v in items:
+        if v is not None:
+            out += _flat_state(v, f"{prefix}.{k}" if prefix else str(k))
+    return out
+
+
+def _snapshot(model, opt, gens):
+    """Clones of a path's whole training state: the optimizer's state dict
+    (masters, moments, step counter, scalers), the half copy, the model's
+    buffers (BatchNorm's running statistics) and the generators' states."""
+    return {"opt": {k: v.clone() for k, v in _flat_state(opt.state_dict())},
+            "half": (None if opt.masters.half is None
+                     else opt.masters.half.clone()),
+            "buffers": {k: b.clone() for k, b in model.named_buffers()},
+            "gens": [g.get_state() for g in gens],
+            "offsets": [g.get_offset() for g in gens]}
+
+
+def _restore(model, opt, gens, snap):
+    """Write ``snap`` back in place (a captured step keeps its addresses):
+    the optimizer through ``load_state_dict``, buffers and generators by
+    copy."""
+    sd, flat = opt.state_dict(), snap["opt"]
+    with torch.no_grad():
+        for name, t in _flat_state(sd):
+            t.copy_(flat[name])
+        if snap["half"] is not None:
+            opt.masters.half.copy_(snap["half"])
+        for k, b in model.named_buffers():
+            b.copy_(snap["buffers"][k])
+    for g, st in zip(gens, snap["gens"]):
+        g.set_state(st)
+
+
+def _held(tag, a, b):
+    """Two snapshots bitwise the same: every tensor and generator offset."""
+    for part in ("opt", "buffers"):
+        for k in a[part]:
+            assert same(a[part][k], b[part][k]), f"[{tag}] {part} {k} differs"
+    assert a["half"] is None or same(a["half"], b["half"]), f"[{tag}] half"
+    assert a["offsets"] == b["offsets"], \
+        f"[{tag}] generator offsets {a['offsets']} and {b['offsets']}"
+    return len(a["opt"]) + len(a["buffers"]) + (a["half"] is not None)
+
+
+def _timed(fn, n):
+    """Host time of each of ``n`` calls of ``fn``, each ended by a
+    synchronize; returns their outputs and the times (ms)."""
+    outs, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, ms
+
+
+def _replay_ms(train) -> float:
+    """Device time of one replay of ``train``'s graph, between CUDA events
+    (the graph's kernels back to back: no host gaps to wait for).  Runs
+    steps outside ``train``, so only after its counts were read."""
+    return time_ms(train.graph.replay, reps=5)
+
+
+def _captured_path(tag, model, opt, step_fn, batch, per_step, smi, items,
+                   gens=(), ks=(1,), make=None):
+    # items: (count, unit) of one step's batch
+    """A path's functional step held and timed: from one state, the step
+    run eagerly (``CAPTURE_HOLD + CAPTURE_TIMED`` steps) and through
+    ``make(step_fn, K)`` for each K of ``ks`` (a CUDA graph of K steps a
+    call): losses, the whole state and the generators' offsets bitwise
+    the eager run's after as many steps; launch counts exact (``per_step``
+    a step) over the graph's calls; step_ms eager against graph, the
+    graph's device time (profiler and CUDA events), idle share, launches
+    a step and peak memory.  Returns the launch counts of each K."""
+    from apex_tpu_torch import ops, parallel
+    if make is None:
+        def make(fn, k):
+            return parallel.make_step(fn, model, steps_per_call=k)
+    s0 = _snapshot(model, opt, gens)
+    # calls of a K-step graph held against the eager run: at least 3 (the
+    # warm-up, the capture, one more replay), CAPTURE_HOLD steps for K = 1
+    held = {k: max(CAPTURE_HOLD // k, 3) for k in ks}
+    marks = {c * k for k, c in held.items()}
+    n_eager = max(marks) + CAPTURE_TIMED
+    eager, digests, ms = [], {}, []
+    for i in range(n_eager):
+        if i == n_eager - CAPTURE_TIMED:
+            # the eager step's own memory, over the timed steps (the held
+            # snapshots already allocated below the floor)
+            eager_floor = _mem_floor()
+            torch.cuda.reset_peak_memory_stats()
+        (loss,), (t,) = _timed(lambda: step_fn(batch), 1)
+        eager.append(loss.float().reshape(()).clone())
+        ms.append(t)
+        if i + 1 in marks:
+            digests[i + 1] = _snapshot(model, opt, gens)
+    eager_ms = statistics.median(ms[-CAPTURE_TIMED:])
+    eager_peak = torch.cuda.max_memory_allocated() - eager_floor
+    vals = [float(v) for v in eager]
+    assert all(math.isfinite(v) for v in vals), f"[{tag}] losses {vals}"
+    assert vals[CAPTURE_HOLD - 1] < vals[0], f"[{tag}] loss did not fall"
+    log(f"[{tag}] {smi}: eager functional step, {n_eager} steps: losses "
+        f"{['%.4f' % v for v in vals[:CAPTURE_HOLD]]}..., step_ms median "
+        f"{eager_ms:.2f} over the last {CAPTURE_TIMED}, peak above the "
+        f"state {eager_peak} B ({eager_peak / 2**30:.2f} GiB)")
+    n, unit = items
+    out = {"eager_step_ms": eager_ms, f"eager_{unit}_per_s":
+           n / eager_ms * 1e3, "eager_peak_bytes": eager_peak,
+           "eager_losses": vals, "graphs": {}}
+    counts = {}
+    for k in ks:
+        _restore(model, opt, gens, s0)
+        floor = _mem_floor()
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        stacked = batch if k == 1 else tuple(
+            t.unsqueeze(0).expand(k, *t.shape).contiguous() for t in batch)
+        ops.reset_launch_counts()                   # the graph's calls start
+        train = make(step_fn, k)
+        calls = held[k]
+        got, call_ms = _timed(lambda: train(stacked), calls)
+        torch.cuda.synchronize()
+        got = torch.cat([g.float().reshape(-1) for g in got])
+        want = torch.stack(eager[:calls * k])
+        assert same(got, want), \
+            f"[{tag}] K={k}: losses {got.tolist()} against eager " \
+            f"{want.tolist()}"
+        n_held = _held(f"{tag} K={k}", digests[calls * k],
+                       _snapshot(model, opt, gens))
+        assert train.replays == calls - 1, train.replays
+        more, tms = _timed(lambda: train(stacked), CAPTURE_TIMED)
+        peak = torch.cuda.max_memory_allocated() - floor
+        # what the graph keeps: its private pool (reserved, not released by
+        # empty_cache while the graph lives), static batch and outputs
+        _mem_floor()                                # empty_cache
+        held_bytes = torch.cuda.memory_reserved() - reserved
+        got_counts = ops.launch_counts()            # the graph's calls end
+        steps = (calls + CAPTURE_TIMED) * k
+        counts[k] = (got_counts, {name: c * steps
+                                  for name, c in per_step.items()})
+        step_ms = statistics.median(tms) / k
+        assert all(math.isfinite(float(v)) for m in more
+                   for v in m.reshape(-1)), f"[{tag}] K={k} non-finite"
+        replay = _replay_ms(train) / k
+        log(f"[{tag}] K={k}: {calls} calls ({calls * k} steps) captured "
+            f"and replayed, losses and {n_held} state tensors bitwise the "
+            f"eager run's, generator offsets {s0['offsets']} -> "
+            f"{digests[calls * k]['offsets']} alike; {steps} steps in all; "
+            f"{unit}/s {n / step_ms * 1e3:.1f}; step_ms median "
+            f"{step_ms:.2f} over "
+            f"{CAPTURE_TIMED} calls (eager {eager_ms:.2f}); one replay "
+            f"{replay:.2f} ms a step by CUDA events; peak above the state "
+            f"{peak} B ({peak / 2**30:.2f} GiB; eager "
+            f"{eager_peak / 2**30:.2f}), held by the graph (its pool, "
+            f"static batch and outputs) {held_bytes} B "
+            f"({held_bytes / 2**30:.2f} GiB); capture in call 2 took "
+            f"{call_ms[1]:.0f} ms")
+        by_cat = phase_profile(lambda: train(stacked), step_ms,
+                               tag=f"{tag}-graph-K{k}-profile", steps=2,
+                               per=k)
+        out["graphs"][k] = {"step_ms": step_ms, "replay_ms": replay,
+                            "peak_bytes": peak, "held_bytes": held_bytes,
+                            f"{unit}_per_s": n / step_ms * 1e3,
+                            "profile_ms": by_cat,
+                            "capture_call_ms": call_ms[1]}
+        del train
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def _resnet_functional(net, opt, ddp=None):
+    """The JAX example's step (examples/imagenet/main_amp.py:240-262):
+    grads of the scaled loss, reduced over the group, the functional
+    optimizer step.  Returns the loss."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.nn.functional import cross_entropy
+
+    def step(batch):
+        x, y = batch
+        loss, grads = amp.scaled_grad(lambda: cross_entropy(net(x), y), opt)
+        if ddp is not None:
+            grads = ddp.allreduce_grads(grads)
+        opt.step(grads)
+        return loss
+    return step
+
+
+def phase_captured(smi):
+    """Phase 15: the functional step captured whole in a CUDA graph on the
+    three main paths, held bitwise against the same step run eagerly, and
+    an fp16 overflow inside a replay.  cuDNN runs deterministic here (its
+    other algorithms may sum in another order from run to run, and the
+    check is bitwise)."""
+    import torch.distributed as dist
+    from apex_tpu_torch import parallel
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    counts, results = {}, {}
+    parallel.init_process_group(
+        init_method=parallel.multiproc.local_init_method(), world_size=1,
+        rank=0)
+    try:
+        for name, path in (("a", _captured_resnet), ("b", _captured_bert),
+                           ("c", _captured_bert_large)):
+            counts[name], results[name] = path(smi)
+    finally:
+        dist.destroy_process_group()
+    results["overflow"] = _captured_overflow()
+    torch.backends.cudnn.deterministic = det
+    log("captured " + json.dumps(results))
+    return counts, results
+
+
+def _captured_resnet(smi):
+    """(a) ResNet-50 -> SyncBN -> O2 + FusedAdam -> DDP, batch 128, K = 1
+    and 4 (the JAX bench headline's steps_per_call)."""
+    import torch.distributed as dist
+    from apex_tpu_torch import amp, models, optimizers, parallel
+    model = parallel.convert_syncbn_model(models.resnet50(
+        device=DEVICE, generator=torch.Generator().manual_seed(SEED)))
+    model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
+                                opt_level="O2", verbosity=0)
+    ddp = parallel.DistributedDataParallel(model)
+    batch = _batch(np.random.RandomState(SEED), BATCH, IMAGE, 1000, DEVICE)
+    log(f"[captured-a] resnet50 -> convert_syncbn_model -> O2 FusedAdam -> "
+        f"DistributedDataParallel ({dist.get_backend()} group of "
+        f"{dist.get_world_size()}), batch {BATCH}: scaled_grad, "
+        f"allreduce_grads(grads), step(grads) through ddp.make_step")
+    per = {"multi_tensor_scale": 1, "multi_tensor_l2norm": 1,
+           "fused_adam": 1, "syncbn_fwd": BN_LAYERS,
+           "syncbn_bwd": BN_LAYERS}
+    out = _captured_path(
+        "captured-a", model, opt, _resnet_functional(ddp, opt, ddp), batch,
+        per, smi, (BATCH, "images"), ks=(1, 4),
+        make=lambda fn, k: ddp.make_step(fn, steps_per_call=k))
+    del model, opt, ddp, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bert_model(cfg, opt):
+    from apex_tpu_torch import amp, models
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    model = models.BertForPretraining(
+        cfg, device=DEVICE, generator=torch.Generator().manual_seed(SEED),
+        dropout_generator=gen)
+    model, opt = amp.initialize(model, opt, opt_level="O2", verbosity=0)
+    model.train()
+    return model, opt, gen
+
+
+def _captured_bert(smi):
+    """(b) BERT-base O2 + FusedAdam, dropout 0.1, 32 x 128 as two
+    micro-batches of 16 through scaled_grad_accum, K = 1."""
+    from apex_tpu_torch import amp, models, optimizers
+    cfg = models.bert_base()
+    model, opt, gen = _bert_model(cfg, optimizers.FusedAdam(lr=1e-4))
+    ids, labels, nsp = _bert_batch(cfg.vocab_size,
+                                   np.random.RandomState(SEED), BERT_BATCH,
+                                   BERT_SEQ, DEVICE)
+    batch = tuple(t.reshape(2, BERT_BATCH // 2, *t.shape[1:])
+                  for t in (ids, labels, nsp))
+
+    def step(b):
+        loss, grads = amp.scaled_grad_accum(
+            lambda mb: model.loss(*mb), opt, b)
+        opt.step(grads)
+        return loss
+    log(f"[captured-b] BertForPretraining(bert_base) O2 FusedAdam, dropout "
+        f"{cfg.hidden_dropout_prob}, {BERT_BATCH} x {BERT_SEQ} as 2 "
+        f"micro-batches of {BERT_BATCH // 2}: scaled_grad_accum, step(grads)")
+    per = {"multi_tensor_scale": 1, "multi_tensor_l2norm": 1,
+           "fused_adam": 1, "layer_norm_fwd": 2 * LN_PER_PASS,
+           "layer_norm_bwd": 2 * LN_PER_PASS,
+           "flash_fwd": 2 * FLASH_PER_PASS, "flash_dq": 2 * FLASH_PER_PASS,
+           "flash_dkv": 2 * FLASH_PER_PASS}
+    out = _captured_path("captured-b", model, opt, step, batch, per, smi,
+                         (BERT_BATCH, "sequences"), gens=[gen])
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _captured_bert_large(smi):
+    """(c) BERT-large O2 + FusedLAMB -> DDP, dropout 0.1, 8 x 128, K = 1."""
+    from apex_tpu_torch import amp, models, optimizers, parallel
+    cfg = models.bert_large()
+    model, opt, gen = _bert_model(cfg, optimizers.FusedLAMB(lr=1e-3))
+    ddp = parallel.DistributedDataParallel(model)
+    batch = _bert_batch(cfg.vocab_size, np.random.RandomState(SEED),
+                        BERT_LARGE_BATCH, BERT_SEQ, DEVICE)
+
+    def step(b):
+        loss, grads = amp.scaled_grad(lambda: model.loss(*b), opt)
+        opt.step(ddp.allreduce_grads(grads))
+        return loss
+    log(f"[captured-c] BertForPretraining(bert_large) O2 FusedLAMB -> "
+        f"DistributedDataParallel, dropout {cfg.hidden_dropout_prob}, "
+        f"{BERT_LARGE_BATCH} x {BERT_SEQ}: scaled_grad, "
+        f"allreduce_grads(grads), step(grads)")
+    per = {"multi_tensor_scale": 1, "multi_tensor_l2norm": 1,
+           "lamb_stage1": 1, "lamb_stage2": 1,
+           "multi_tensor_l2norm_per_tensor": 3,
+           "layer_norm_fwd": LARGE_LN_PER_PASS,
+           "layer_norm_bwd": LARGE_LN_PER_PASS,
+           "flash_fwd": LARGE_FLASH_PER_PASS,
+           "flash_dq": LARGE_FLASH_PER_PASS,
+           "flash_dkv": LARGE_FLASH_PER_PASS}
+    out = _captured_path("captured-c", model, opt, step, batch, per, smi,
+                         (BERT_LARGE_BATCH, "sequences"), gens=[gen],
+                         make=lambda fn, k: ddp.make_step(fn, k))
+    del model, opt, ddp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _captured_overflow():
+    """ResNet-50 O2 in fp16 (dynamic scale) through make_step: an inf in
+    the input of a replayed step skips it (loss scale halved; masters,
+    half copy, m, v and step counter bitwise), and the next replay scales
+    its loss by the halved scale."""
+    from apex_tpu_torch import amp, models, optimizers, parallel
+    from apex_tpu_torch.nn.functional import cross_entropy
+    model = models.resnet50(device=DEVICE,
+                            generator=torch.Generator().manual_seed(SEED + 1))
+    model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
+                                opt_level="O2", half_dtype="float16",
+                                verbosity=0)
+    assert opt.scaler.dynamic, "fp16 O2 must scale dynamically"
+    x, y = _batch(np.random.RandomState(SEED + 2), OVERFLOW_BATCH, IMAGE,
+                  1000, DEVICE)
+    bad = x.clone()
+    bad[0, 0, 0, 0] = float("inf")
+
+    def step(b):
+        used = opt.scalers[0].loss_scale.clone()
+        loss, grads = amp.scaled_grad(lambda: cross_entropy(model(b[0]),
+                                                            b[1]), opt)
+        info = opt.step(grads)
+        return loss, used, info["found_inf"]
+    train = parallel.make_step(step, model)
+    for _ in range(8):       # until a replay applied a step
+        train((x, y))
+        if train.replays and int(opt.state.step) > 0:
+            break
+    m, v = _moments(opt)
+    before = {"masters": opt.masters.buf.clone(), "half": opt.masters.half
+              .clone(), "m": m.clone(), "v": v.clone(),
+              "step": opt.state.step.clone()}
+    scale0 = float(opt.loss_scale())
+    replays = train.replays
+    loss, used, found = train((bad, y))
+    assert train.replays == replays + 1, "the overflow step was not a replay"
+    assert not math.isfinite(float(loss)) and float(found) == 1.0
+    assert float(used) == scale0, (float(used), scale0)
+    scale1 = float(opt.loss_scale())
+    assert scale1 == scale0 / 2, f"loss scale {scale0} -> {scale1}"
+    m, v = _moments(opt)
+    after = {"masters": opt.masters.buf, "half": opt.masters.half,
+             "m": m, "v": v, "step": opt.state.step}
+    for k in before:
+        assert same(before[k], after[k]), f"{k} changed on a skip"
+    loss2, used2, found2 = train((x, y))
+    assert float(used2) == scale1, \
+        f"the next replay scaled by {float(used2)}, not {scale1}"
+    log(f"[captured-overflow] fp16 ResNet-50 O2 through make_step, batch "
+        f"{OVERFLOW_BATCH}: an inf in replay {replays + 1} skipped the step "
+        f"(loss {float(loss)}, found_inf 1), loss scale {scale0} -> "
+        f"{scale1}, masters/half/m/v/step bitwise; the next replay scaled "
+        f"by {float(used2)} (loss {float(loss2):.4f}, found_inf "
+        f"{float(found2)})")
+    del model, opt, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"scale": [scale0, scale1, float(used2)],
+            "overflow_replay": replays + 1}
+
+
 def _check_counts(tag: str, counts, expect) -> None:
     """Each wrapper launched exactly as often as the path needs it, and the
     wrappers of other paths not at all."""
@@ -2489,6 +2913,14 @@ def _check_counts(tag: str, counts, expect) -> None:
     for k, c in counts.items():
         assert c == expect.get(k, 0), \
             f"{tag}: {k} launched {c} times, expected {expect.get(k, 0)}"
+
+
+def _check_captured_counts(counts) -> None:
+    """Phase 15's graphs: each path's launches over its captured calls,
+    the launches of one step times the steps replayed and run."""
+    for path, by_k in counts.items():
+        for k, (got, expect) in by_k.items():
+            _check_counts(f"captured-{path}-K{k}", got, expect)
 
 
 # 12 whole steps and two steps of two micro-batches: 14 optimizer steps,
@@ -2518,7 +2950,8 @@ BERT_LARGE_COUNTS = dict(
     flash_dkv=LARGE_FLASH_PER_PASS * PASSES)
 
 
-# phase 13: a run of the example takes one warm-up step and then its
+# phase 13: a run of the example on the card takes two warm-up steps (the
+# first eager, the second captures its CUDA graph) and then its
 # iterations, each one backward pass; AmpOptimizer.step runs the l2norm (the
 # grad norm) every step, the scale kernel unscales every pass, FusedAdam's
 # kernel runs a step and SGD none; the syncbn kernels run at every NCHW
@@ -2532,15 +2965,20 @@ def _example_counts(steps, bn_layers=0, adam=False):
     return out
 
 
+EXAMPLE_WARMUP = 2
 EXAMPLE_COUNTS = {
-    "a": _example_counts(1 + IMAGENET_ITERS, BN_OF["resnet50"], adam=True),
-    "b": _example_counts(1 + IMAGENET_ITERS, adam=True),
-    "resnet34": _example_counts(1 + DEPTH_ITERS, BN_OF["resnet34"]),
-    "resnet101": _example_counts(1 + DEPTH_ITERS, BN_OF["resnet101"]),
-    "resnet152": _example_counts(1 + DEPTH_ITERS, BN_OF["resnet152"]),
-    "d": _example_counts(1 + 10),
-    "e-save": _example_counts(1 + 2 * 3, BN_OF["resnet18"]),
-    "e-resume": _example_counts(1 + 3, BN_OF["resnet18"]),
+    "a": _example_counts(EXAMPLE_WARMUP + IMAGENET_ITERS, BN_OF["resnet50"],
+                         adam=True),
+    "b": _example_counts(EXAMPLE_WARMUP + IMAGENET_ITERS, adam=True),
+    "resnet34": _example_counts(EXAMPLE_WARMUP + DEPTH_ITERS,
+                                BN_OF["resnet34"]),
+    "resnet101": _example_counts(EXAMPLE_WARMUP + DEPTH_ITERS,
+                                 BN_OF["resnet101"]),
+    "resnet152": _example_counts(EXAMPLE_WARMUP + DEPTH_ITERS,
+                                 BN_OF["resnet152"]),
+    "d": _example_counts(EXAMPLE_WARMUP + 10),
+    "e-save": _example_counts(EXAMPLE_WARMUP + 2 * 3, BN_OF["resnet18"]),
+    "e-resume": _example_counts(EXAMPLE_WARMUP + 3, BN_OF["resnet18"]),
 }
 
 
@@ -2555,6 +2993,7 @@ O1_ROWS = {"fused_adam:no_half": "resnet_o1", "layer_norm_fwd:fp32":
 
 
 def main():
+    t0 = time.time()
     name, smi = phase_device()
     import apex_tpu_torch  # noqa: F401  (fails outside the repository)
     uncapped, logs = phase_build()
@@ -2564,6 +3003,7 @@ def main():
                                                           ""))))
     rows.update(phase_flash(uncapped))
     rows.update(phase_lamb())
+    log(f"[time] phases 1-3 done at {time.time() - t0:.1f} s")
     counts_train, _, train = phase_train(smi)
     phase_reference()
     counts_ddp, _, ddp = phase_ddp(smi)
@@ -2580,8 +3020,13 @@ def main():
     resume = phase_resume(model, opt)
     del model, opt
     torch.cuda.empty_cache()
+    log(f"[time] phases 1-11 done at {time.time() - t0:.1f} s")
     counts_imagenet, imagenet = phase_imagenet(smi)
+    log(f"[time] phase 13 done at {time.time() - t0:.1f} s")
     l1 = phase_l1()
+    log(f"[time] phase 14 done at {time.time() - t0:.1f} s")
+    counts_captured, captured = phase_captured(smi)
+    log(f"[time] phase 15 done at {time.time() - t0:.1f} s")
 
     _check_counts("train", counts_train, RESNET_COUNTS)
     _check_counts("ddp", counts_ddp, RESNET_COUNTS)
@@ -2591,6 +3036,7 @@ def main():
     _check_counts("resnet-o1", counts_resnet_o1, RESNET_O1_COUNTS)
     for run, expect in EXAMPLE_COUNTS.items():
         _check_counts(f"imagenet-{run}", counts_imagenet[run], expect)
+    _check_captured_counts(counts_captured)
     variants = {k: rows.pop(k) for k in list(rows) if ":" in k}
     o1_counts = {"bert_o1": counts_bert_o1, "resnet_o1": counts_resnet_o1}
     for k, row in variants.items():
@@ -2609,7 +3055,8 @@ def main():
     log(json.dumps({"train": train, "ddp": ddp, "bert": bert,
                     "bert_large": large, "bert_o1": bert_o1,
                     "resnet_o1": resnet_o1, "resume": resume,
-                    "imagenet": imagenet, "l1": l1, "card": smi}))
+                    "imagenet": imagenet, "l1": l1, "captured": captured,
+                    "card": smi}))
     log("kernels_o1 " + json.dumps({"kernels": list(variants.values())}))
     log(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     log(smi)
@@ -2620,7 +3067,12 @@ def main():
 
 if __name__ == "__main__":
     import sys
-    if sys.argv[1:2] == ["--layer-norm-ab"]:
+    if sys.argv[1:2] == ["--captured"]:
+        # python3 chip_smoke.py --captured: phases 1, 2 and 15 alone
+        _, smi = phase_device()
+        phase_build()
+        _check_captured_counts(phase_captured(smi)[0])
+    elif sys.argv[1:2] == ["--layer-norm-ab"]:
         # python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
         phase_device()
         phase_build()

@@ -1,11 +1,16 @@
 """ImageNet training example for apex_tpu_torch, the PyTorch / NVIDIA GPU
 port: examples/imagenet/main_amp.py (the JAX package's) with the same
-command line, in PyTorch's idiom.  amp.initialize on the model and the
-optimizer, ``with amp.scale_loss(loss, optimizer) as s: s.backward()``,
-``optimizer.step()``; under the port's launcher (WORLD_SIZE > 1) a
+command line and the same step: amp.initialize on the model and the
+optimizer, then the functional step of main_amp.py:240-262 --
+``amp.scaled_grad`` (loss, logits and the scaled grads),
+``ddp.allreduce_grads(grads)`` across ranks, ``optimizer.step(grads)``,
+loss and Prec@1 averaged over the ranks -- turned by ``make_step`` into
+one CUDA graph on the GPU (the JAX example jits it), so a training step
+is one graph replay.  Under the port's launcher (WORLD_SIZE > 1) a
 torch.distributed group (NCCL on the GPU, gloo on the CPU) and
-parallel.DistributedDataParallel, as the reference Apex example.
-Synthetic ImageNet-shaped data unless --data names an .npz.
+parallel.DistributedDataParallel.  Synthetic ImageNet-shaped data unless
+--data names an .npz.  On the GPU the warm-up takes two steps: the first
+runs eagerly (it builds the kernels), the second captures the graph.
 
 Run on the GPU:
   python examples/imagenet/main_amp_torch.py --arch resnet50 -b 128
@@ -313,19 +318,27 @@ def _train(args, rank, world):
                     f"--epochs {args.epochs}")
                 return 0.0
 
-    def step(x, y):
-        out = net(x)
-        loss = cross_entropy(out, y)
-        with amp.scale_loss(loss, optimizer) as scaled:
-            scaled.backward()
-        optimizer.step()
+    def step(batch):
+        x, y = batch
+        loss, out, grads = amp.scaled_grad(
+            lambda: (lambda o: (cross_entropy(o, y), o))(net(x)), optimizer,
+            has_aux=True)
+        if world > 1:
+            grads = net.allreduce_grads(grads)
+        optimizer.step(grads)
         acc = (out.argmax(-1) == y).float().mean() * 100.0
-        # the step's one host sync: loss and Prec@1, averaged over ranks
-        vals = torch.stack([loss.detach().float(), acc])
+        vals = torch.stack([loss, acc])
         if world > 1:
             dist.all_reduce(vals)
             vals = vals / world
-        return vals.cpu().tolist()
+        return vals
+
+    # one CUDA graph on the GPU, the step itself on the CPU
+    train = parallel.make_step(step, model)
+
+    def train_step(batch):
+        # the step's one host sync: loss and Prec@1, averaged over ranks
+        return train(batch).cpu().tolist()
 
     def validate():
         if val_x is None:
@@ -347,10 +360,13 @@ def _train(args, rank, world):
     n_val_eval = (0 if val_x is None
                   else len(val_x) // global_batch * global_batch)
 
-    say("=> warm-up step...")
+    warm = 2 if device.type == "cuda" else 1
+    say("=> warm-up steps (the second captures the CUDA graph)..."
+        if warm > 1 else "=> warm-up step...")
     t0 = time.time()
-    step(*to_device(*host_batch(0)))
-    say(f"=> warm-up step in {time.time() - t0:.1f}s")
+    for _ in range(warm):
+        train_step(to_device(*host_batch(0)))
+    say(f"=> warm-up in {time.time() - t0:.1f}s")
 
     batch_time = AverageMeter()
     losses = AverageMeter()
@@ -361,7 +377,7 @@ def _train(args, rank, world):
         for i in range(args.iters):
             if args.prof and epoch == start_epoch and i == 10:
                 say(f"=> profiling into {profiler.start_profile()}")
-            loss, prec1 = step(*to_device(*host_batch(i)))
+            loss, prec1 = train_step(to_device(*host_batch(i)))
             if args.prof and epoch == start_epoch and i == 19:
                 say(f"=> trace written to {profiler.stop_profile()}")
             batch_time.update(time.time() - end)

@@ -776,3 +776,181 @@ def test_imagenet_example_on_the_card(cuda, argv, capsys):
                                "--print-freq", "1"] + argv)
     out = capsys.readouterr().out
     assert ips > 0 and "=> 1 rank(s) on cuda" in out, out
+
+
+# -- the functional step captured in a CUDA graph --------------------------------
+
+@pytest.fixture
+def deterministic():
+    """cuDNN restricted to its deterministic algorithms while a test holds
+    two runs bitwise."""
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = flag
+
+
+def _small_resnet(cuda, seed=0, **kw):
+    from apex_tpu_torch import amp, models, optimizers
+    model = models.ResNet(models.Bottleneck, [1, 1, 1, 1], num_classes=10,
+                          device=cuda,
+                          generator=torch.Generator().manual_seed(seed))
+    return amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
+                          opt_level="O2", verbosity=0, **kw)
+
+
+def _functional(model, opt):
+    """The functional step; returns the loss and the loss scale it used."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.nn.functional import cross_entropy
+
+    def step(batch):
+        x, y = batch
+        used = opt.scalers[0].loss_scale.clone()
+        loss, grads = amp.scaled_grad(lambda: cross_entropy(model(x), y),
+                                      opt)
+        info = opt.step(grads)
+        return {"loss": loss, "scale": used,
+                "found": info["found_inf"].clone()}
+    return step
+
+
+def _images(cuda, seed=9, n=8):
+    rs = np.random.RandomState(seed)
+    return (_t(rs.randn(n, 3, 32, 32).astype(np.float32)).to(cuda),
+            _t(rs.randint(0, 10, n)).to(cuda))
+
+
+@pytest.mark.cuda
+def test_captured_step_equals_eager_bitwise(cuda, deterministic):
+    """make_step's calls (eager warm-up, capture, replays) against the
+    same functional step run eagerly on a twin model: losses, masters,
+    half copy, moments, step counter, scaler and BatchNorm statistics
+    bitwise after 6 steps."""
+    from apex_tpu_torch import parallel
+    (ma, oa), (mb, ob) = _small_resnet(cuda), _small_resnet(cuda)
+    batch = _images(cuda)
+    eager = [_functional(ma, oa)(batch)["loss"] for _ in range(6)]
+    train = parallel.make_step(_functional(mb, ob), mb)
+    graph = [train(batch)["loss"] for _ in range(6)]
+    assert train.replays == 5
+    assert torch.equal(torch.stack(eager), torch.stack(graph))
+    for a, b in ((oa.masters.buf, ob.masters.buf),
+                 (oa.masters.half, ob.masters.half),
+                 (oa.state.m, ob.state.m), (oa.state.v, ob.state.v),
+                 (oa.state.step, ob.state.step)):
+        assert torch.equal(a, b)
+    assert amp_stats_equal(oa, ob)
+    for (k, a), (_, b) in zip(ma.named_buffers(), mb.named_buffers()):
+        assert torch.equal(a, b), k
+
+
+def amp_stats_equal(a, b) -> bool:
+    from apex_tpu_torch import amp
+    return amp.amp_stats(a) == amp.amp_stats(b)
+
+
+@pytest.mark.cuda
+def test_captured_scale_grows_and_halves_across_replays(cuda):
+    """fp16's dynamic scale with a window of 2: each replay scales by the
+    scale the one before it left (doubling after two clean steps), and a
+    replay with an inf in its input halves it."""
+    from apex_tpu_torch import parallel
+    model, opt = _small_resnet(cuda, half_dtype="float16")
+    opt.scaler.scale_window = 2
+    opt.load_scalers_state_dict([{"loss_scale": 2.0 ** 8, "unskipped": 0,
+                                  "steps_skipped": 0}])
+    x, y = _images(cuda)
+    bad = x.clone()
+    bad[0, 0, 0, 0] = float("inf")
+    train = parallel.make_step(_functional(model, opt), model)
+    used, found = [], []
+    for xb in (x, x, x, x, bad, x, x):
+        out = train((xb, y))
+        used.append(float(out["scale"]))
+        found.append(float(out["found"]))
+    assert found == [0, 0, 0, 0, 1, 0, 0]
+    assert used == [2.0 ** 8, 2.0 ** 8, 2.0 ** 9, 2.0 ** 9, 2.0 ** 10,
+                    2.0 ** 9, 2.0 ** 9]
+    assert float(opt.loss_scale()) == 2.0 ** 10
+    assert int(opt.state.step) == 6 and train.replays == 6
+
+
+@pytest.mark.cuda
+def test_captured_overflow_replay_skips(cuda):
+    """An inf in a replay's input: found_inf set, the loss scale halved,
+    masters, half copy, moments and step counter bitwise unchanged."""
+    from apex_tpu_torch import parallel
+    model, opt = _small_resnet(cuda, half_dtype="float16")
+    opt.load_scalers_state_dict([{"loss_scale": 2.0 ** 8, "unskipped": 0,
+                                  "steps_skipped": 0}])
+    x, y = _images(cuda)
+    train = parallel.make_step(_functional(model, opt), model)
+    for _ in range(3):
+        train((x, y))
+    before = [t.clone() for t in (opt.masters.buf, opt.masters.half,
+                                  opt.state.m, opt.state.v, opt.state.step)]
+    scale = float(opt.loss_scale())
+    bad = x.clone()
+    bad[1, 2, 3, 4] = float("inf")
+    out = train((bad, y))
+    assert train.replays == 3 and float(out["found"]) == 1.0
+    assert float(opt.loss_scale()) == scale / 2
+    for a, b in zip(before, (opt.masters.buf, opt.masters.half,
+                             opt.state.m, opt.state.v, opt.state.step)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_captured_replays_draw_new_dropout_seeds(cuda):
+    """A step that draws the flash kernels' seed words from a CUDA
+    generator of its own (BERT's dropout generator), captured: each replay
+    draws new words, the words an eager run draws from the same generator
+    state, and the generator's offset advances as it does eagerly."""
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.transformer.attention import _draw_seed
+    model, opt = _small_resnet(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    model.dropout_generator = gen          # found by make_step
+    batch = _images(cuda)
+    fn = _functional(model, opt)
+
+    def step(b):
+        out = fn(b)
+        out["seed"] = _draw_seed(gen, cuda)
+        return out
+
+    start = gen.get_state()
+    eager = [_draw_seed(gen, cuda) for _ in range(4)]
+    offset = gen.get_offset()
+    gen.set_state(start)
+    train = parallel.make_step(step, model)
+    seeds = [train(batch)["seed"] for _ in range(4)]
+    assert gen.get_offset() == offset
+    for a, b in zip(eager, seeds):
+        assert torch.equal(a, b)
+    assert len({tuple(s.tolist()) for s in seeds}) == 4
+
+
+@pytest.mark.cuda
+def test_captured_launch_counts_are_exact(cuda):
+    """launch_counts() over a captured step: the warm-up counts its
+    launches, the capture none, each replay those of one step (the 17
+    BatchNorms' syncbn kernels, scale, l2norm, Adam)."""
+    from apex_tpu_torch import parallel
+    model, opt = _small_resnet(cuda)
+    train = parallel.make_step(_functional(model, opt), model,
+                               steps_per_call=2)
+    x, y = _images(cuda)
+    batch = (torch.stack([x, x]), torch.stack([y, y]))
+    ops.reset_launch_counts()
+    for _ in range(4):
+        train(batch)
+    torch.cuda.synchronize()
+    steps = 4 * 2
+    want = {"multi_tensor_scale": steps, "multi_tensor_l2norm": steps,
+            "fused_adam": steps, "syncbn_fwd": 17 * steps,
+            "syncbn_bwd": 17 * steps}
+    got = ops.launch_counts()
+    assert {k: v for k, v in got.items() if v} == want
+    assert train.launches == {k: v // 4 for k, v in want.items()}

@@ -1,17 +1,17 @@
 """Rank worker for the port's multi-process CPU tests (gloo).
 
-Run by ``tests/test_torch_syncbn.py`` and ``tests/test_torch_ddp.py``
-through the port's launcher::
+Run by ``tests/test_torch_syncbn.py``, ``tests/test_torch_ddp.py`` and
+``tests/test_torch_make_step_ddp.py`` through the port's launcher::
 
     python -m apex_tpu_torch.parallel.multiproc --nprocs 2 \\
         --init-method file:///tmp/.../store \\
         tests/torch_dist_worker.py SUITE INPUTS.pkl OUT_DIR
 
 Each rank reads the numpy inputs the test made, runs every scenario of
-SUITE (``syncbn`` or ``ddp``) on its half of the batch, and writes its
-results as numpy arrays to ``OUT_DIR/SUITE-<rank>.pkl``.  It imports
-torch and apex_tpu_torch only: the tests hold the results against the
-JAX package.
+SUITE (``syncbn``, ``ddp`` or ``make_step``) on its half of the batch,
+and writes its results as numpy arrays to ``OUT_DIR/SUITE-<rank>.pkl``.
+It imports torch and apex_tpu_torch only: the tests hold the results
+against the JAX package.
 """
 
 import os
@@ -215,7 +215,76 @@ def _ddp(inp, rank, world):
     return out
 
 
-SUITES = {"syncbn": _syncbn, "ddp": _ddp}
+# -- suite "make_step" ----------------------------------------------------------
+
+class _CountingAllReduce:
+    """``torch.distributed.all_reduce`` that counts its calls."""
+
+    def __init__(self):
+        self.calls = 0
+        self.inner = torch.distributed.all_reduce
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.inner(*args, **kwargs)
+
+
+def _make_step(inp, rank, world):
+    """ResNet [1,1,1,1] -> convert_syncbn_model -> O2 + FusedAdam -> DDP,
+    trained through ``ddp.make_step`` on the functional step
+    (``amp.scaled_grad``, ``ddp.allreduce_grads(grads)``,
+    ``optimizer.step(grads)``) on this rank's half of the batch; with the
+    collectives of each step counted and the end-of-backward hook
+    watched."""
+    model = models.ResNet(models.Bottleneck, [1, 1, 1, 1], num_classes=10,
+                          device="cpu")
+    model.load_state_dict(params_from_jax(inp["params"], inp["state"]))
+    model = parallel.convert_syncbn_model(model)
+    model, opt = amp.initialize(model, optimizers.FusedAdam(lr=inp["lr"]),
+                                opt_level="O2", verbosity=0)
+    ddp = parallel.DistributedDataParallel(model)
+    hooked = []
+    ddp._after_backward = lambda: hooked.append(1)
+    counter = _CountingAllReduce()
+    torch.distributed.all_reduce = counter
+
+    def step(batch):
+        x, y = batch
+        loss, grads = amp.scaled_grad(lambda: cross_entropy(ddp(x), y), opt)
+        grads = ddp.allreduce_grads(grads)
+        info = opt.step(grads)
+        mean = loss.clone()
+        torch.distributed.all_reduce(mean)
+        return {"loss": mean / world, "scale": info["loss_scale"].clone()}
+
+    train = ddp.make_step(step)
+    x = torch.from_numpy(_half(inp["x"], rank, world))
+    y = torch.from_numpy(_half(inp["y"], rank, world))
+    losses, calls = [], []
+    try:
+        for _ in range(inp["steps"]):
+            before = counter.calls
+            out = train((x, y))
+            calls.append(counter.calls - before)
+            losses.append(float(out["loss"]))
+    finally:
+        torch.distributed.all_reduce = counter.inner
+    n_sync = sum(isinstance(m, parallel.SyncBatchNorm)
+                 for m in model.modules())
+    return {"losses": losses, "masters": _np(opt.masters.buf),
+            "half": _np(opt.masters.half), "m": _np(opt.state.m),
+            "v": _np(opt.state.v), "steps": int(opt.state.step),
+            "buffers": {k: b.numpy().copy()
+                        for k, b in model.named_buffers()},
+            "grads_none": all(p.grad is None for p in model.parameters()),
+            "hooked": len(hooked), "queued": ddp._queued,
+            "all_reduce_calls": calls, "n_sync": n_sync,
+            "plan": parallel.allreduce_comm_plan(
+                dict(model.named_parameters())),
+            "stats": ddp.last_comm_stats}
+
+
+SUITES = {"syncbn": _syncbn, "ddp": _ddp, "make_step": _make_step}
 WORLD = 2
 
 
