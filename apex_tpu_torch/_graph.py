@@ -16,6 +16,9 @@ keeps call ``i`` exactly step ``i``:
   into one graph in a private memory pool, and replays it once;
 - every later call copies its batch into the static buffers and replays.
 
+Every call returns copies of the step's outputs, which the next call
+leaves alone.
+
 A capture that fails raises; nothing falls back to the eager step.  The
 step may only touch state in place (the amp optimizer, its scalers and
 ``last_info``, the moments, BatchNorm's running statistics all are):
@@ -158,8 +161,13 @@ class CapturedStep:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            out = self._run(batch)
+            # copies, as a replay returns: the step's own tensors (the
+            # optimizer's last_info, say) are rewritten by the next call
+            out = tree_map(torch.clone, self._run(batch))
         cur.wait_stream(side)
+        for t in leaves(out):
+            if t.is_cuda:
+                t.record_stream(cur)  # made on the side stream, used on cur
         return out
 
     def _feed(self, batch: Any) -> None:

@@ -387,8 +387,10 @@ class AmpOptimizer:
         overflow check (OR-ed with ``found_inf_extra``, a 0-d flag of
         other overflow sources), the scaler is updated in place, and the
         inner optimizer steps with the overflow flag as its no-op.
-        Returns ``info`` (``last_info``): ``found_inf``, ``loss_scale``,
-        ``steps_skipped`` and ``grad_norm``."""
+        Returns ``info``, a new dict of copies of ``last_info``'s tensors
+        (``found_inf``, ``loss_scale``, ``steps_skipped`` and
+        ``grad_norm``), as the JAX step returns new arrays: the next step
+        rewrites ``last_info`` in place, not the caller's ``info``."""
         self._require_bound()
         if scaled_grads is None:
             if found_inf_extra is not None or loss_id != 0:
@@ -405,7 +407,7 @@ class AmpOptimizer:
             found = torch.maximum(found, found_inf_extra.to(found.dtype))
         self.scaler.update_(sstate, found)
         self._apply(grads, found, sstate)
-        return self.last_info
+        return {k: t.clone() for k, t in self.last_info.items()}
 
     def _grad_list(self, grads) -> List[torch.Tensor]:
         """``grads`` in layout order, zeros for a missing grad."""

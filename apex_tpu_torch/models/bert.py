@@ -65,7 +65,7 @@ class BertConfig:
         if tp_axis is not None or sp_axis is not None:
             raise NotImplementedError(
                 "tensor- and sequence-parallel BERT (tp_axis, sp_axis) are "
-                "not ported yet: ROADMAP.md queue 1, item 12")
+                "not ported yet: ROADMAP.md queue 1, item 6")
 
 
 def bert_base():

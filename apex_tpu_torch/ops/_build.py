@@ -67,7 +67,8 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
                         _P),
     },
     "layer_norm": {
-        "apex_ln_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+        "apex_ln_fwd": (_P,) * 6 + (_I, _I, _F) + (_I,) * 5 + (_P,),
+        "apex_ln_fwd_kernel_info": (_I,) * 4 + (_P,),
         "apex_ln_bwd": (_P,) * 9 + (_I,) * 7 + (_P,),
         "apex_ln_bwd_kernel_info": (_I,) * 4 + (_P,),
     },

@@ -22,11 +22,28 @@
 // flops an element against the ~295 an H100 needs per byte.
 //
 // Design.  The TPU kernels hold a block of rows padded to 128 lanes in VMEM
-// and mask the columns past n2.  Here one warp owns a row; for n2 <= 1024
-// (BERT-base 768, BERT-large 1024) the forward keeps the row in registers,
-// V values a lane with column lane + 32k, so x is read from device memory
-// once and the two passes over the row cost no second read.  Wider rows
-// stream from device memory, one pass per sum.
+// and mask the columns past n2.  Here a row is cut into 16-byte chunks (8
+// bf16/fp16 or 4 fp32 columns) and each thread owns whole chunks of it.
+//
+// The forward holds each row in registers up to n2 = 8192, so x is read
+// from device memory once and both sums run over the copy in hand.  Up to
+// n2 = 1024 (BERT-base 768, BERT-large 1024) a warp owns a row, lane l the
+// chunks l + 32k (3 chunks a lane at 768 bf16, 4 at 1024, 6 at 768 fp32);
+// from 1025 to 8192 the block's 8 warps share a row, thread t the chunks
+// t + 256k, and add their sums through shared memory in warp order.  Where
+// a row is whole chunks and x, w, b and y are 16-byte aligned, x and y move
+// as one 16-byte load or store a chunk and w and b as float4s.  Each warp
+// (or block) owns rows_per_group consecutive rows: it loads its columns of
+// w and b into registers once and keeps them over its rows, and issues the
+// next row's loads before it sums and stores the row in hand (a register
+// double buffer).  The element path (a row not whole chunks, or an operand
+// off 16 bytes) gives each thread the same columns through loads of one
+// element and runs the same sums in the same order, so an aligned tensor
+// and a misaligned view of the same values give the same bits.  Rows wider
+// than 8192 stream from device memory, one pass per sum, a warp a row.
+// The host sizes the grid from (n1, n2) alone; a row's bits do not depend
+// on the grid.  The forward launches with programmatic dependent launch
+// and waits before its first read of x, w or b.
 //
 // The backward at n2 <= 1024 reads each row in 16-byte chunks where the row
 // is whole chunks and every operand is 16-byte aligned (8 bf16/fp16 or 4
@@ -36,7 +53,7 @@
 // registers between the two passes over a row.  Other shapes take the
 // element-load kernel, chosen by the host.  The host sizes the grid from
 // (n1, n2) alone: rows_per_warp consecutive rows a warp, blocks of 8
-// warps, at most 128 blocks.
+// warps, at most 128 blocks.  Wider rows stream from device memory.
 //
 // dw and db.  The TPU accumulates them across its sequential grid.  Blocks
 // run in no order here, and float atomics would give other bits on every
@@ -56,6 +73,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -64,7 +82,10 @@ using namespace apex_tpu_torch;
 namespace {
 
 constexpr int kWarps = kThreads / 32;   // rows in flight per block
-constexpr int kMaxRegCols = 1024;       // 32 lanes x 32 values
+constexpr int kMaxRegCols = 1024;       // widest row a warp holds
+constexpr int kMaxWideCols = 8192;      // widest row the forward holds
+constexpr int kFwdMaxWarps = 8;         // warps a block of the forward
+constexpr int kWideThreads = 256;       // threads that share a wide row
 
 __device__ __forceinline__ float warp_sum(float v) {
   // xor butterfly: every lane ends with the same total, in a fixed order
@@ -72,85 +93,6 @@ __device__ __forceinline__ float warp_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
-
-// -- forward -----------------------------------------------------------------
-
-template <typename T, int V>
-__global__ void ln_fwd_kernel(const T* __restrict__ x,
-                              const float* __restrict__ w,
-                              const float* __restrict__ b, T* __restrict__ y,
-                              float* __restrict__ mean,
-                              float* __restrict__ inv, int n1, int n2,
-                              float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n1) return;
-  const T* xr = x + (long long)row * n2;
-  T* yr = y + (long long)row * n2;
-  const float fn = (float)n2;
-  float xv[V];
-  float s = 0.0f;
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    const int c = lane + 32 * k;
-    xv[k] = c < n2 ? to_f32(xr[c]) : 0.0f;
-    s += xv[k];
-  }
-  const float mu = warp_sum(s) / fn;
-  float q = 0.0f;
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    const float d = (lane + 32 * k) < n2 ? xv[k] - mu : 0.0f;
-    q += d * d;
-  }
-  const float iv = rsqrtf(warp_sum(q) / fn + eps);
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    const int c = lane + 32 * k;
-    if (c < n2) yr[c] = from_f32<T>(((xv[k] - mu) * iv) * w[c] + b[c]);
-  }
-  if (lane == 0) {
-    mean[row] = mu;
-    inv[row] = iv;
-  }
-}
-
-// rows wider than kMaxRegCols: one pass over device memory per sum
-template <typename T>
-__global__ void ln_fwd_stream_kernel(const T* __restrict__ x,
-                                     const float* __restrict__ w,
-                                     const float* __restrict__ b,
-                                     T* __restrict__ y,
-                                     float* __restrict__ mean,
-                                     float* __restrict__ inv, int n1, int n2,
-                                     float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n1) return;
-  const T* xr = x + (long long)row * n2;
-  T* yr = y + (long long)row * n2;
-  const float fn = (float)n2;
-  float s = 0.0f;
-  for (int c = lane; c < n2; c += 32) s += to_f32(xr[c]);
-  const float mu = warp_sum(s) / fn;
-  float q = 0.0f;
-  for (int c = lane; c < n2; c += 32) {
-    const float d = to_f32(xr[c]) - mu;
-    q += d * d;
-  }
-  const float iv = rsqrtf(warp_sum(q) / fn + eps);
-  for (int c = lane; c < n2; c += 32)
-    yr[c] = from_f32<T>(((to_f32(xr[c]) - mu) * iv) * w[c] + b[c]);
-  if (lane == 0) {
-    mean[row] = mu;
-    inv[row] = iv;
-  }
-}
-
-// -- backward ----------------------------------------------------------------
-
-constexpr int kBwdMaxWarps = 8;      // warps a block of the register paths
-constexpr int kSumAcc = 8;           // independent sums a ln_colsum_kernel lane
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -169,12 +111,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Programmatic dependent launch: a row kernel is scheduled while the kernel
-// before it on the stream finishes and waits here, before its first read,
-// until that kernel's writes are visible; it lets ln_colsum_kernel be
-// scheduled once each of its blocks is past its rows, and ln_colsum_kernel
-// waits in turn (each wait returns at once when the kernel was launched
-// without the dependency)
+// Programmatic dependent launch: a kernel of this file is scheduled while
+// the kernel before it on the stream finishes and waits here, before its
+// first read, until that kernel's writes are visible.  The forward lets
+// the kernel after it be scheduled at once (that kernel waits in turn);
+// the backward's row kernel lets ln_colsum_kernel be scheduled once each
+// of its blocks is past its rows.  Each wait returns at once when the
+// kernel was launched without the dependency.
 __device__ __forceinline__ void launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
@@ -240,6 +183,247 @@ struct Pack16<float> {
                       __float_as_uint(f[2]), __float_as_uint(f[3]));
   }
 };
+
+// -- forward -----------------------------------------------------------------
+
+// the unsigned integer of T's size: an element's bits
+template <typename T>
+using Bits = std::conditional_t<sizeof(T) == 4, uint32_t, uint16_t>;
+
+// Chunk j of a row (columns E*j .. E*j + E-1) as the 16 bytes of T it
+// holds: one 16-byte load on the vector path; on the element path E loads
+// of one element, zero bits (+0.0) past n2.
+template <typename T, bool VEC>
+__device__ __forceinline__ uint4 load_chunk(const T* row, int j, int n2) {
+  if constexpr (VEC) {
+    return __ldg(reinterpret_cast<const uint4*>(row) + j);
+  } else {
+    const Bits<T>* r = reinterpret_cast<const Bits<T>*>(row);
+    uint32_t v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        const int c = 4 * j + i;
+        v[i] = c < n2 ? __ldg(r + c) : 0u;
+      } else {
+        const int c = 8 * j + 2 * i;
+        const uint32_t lo = c < n2 ? __ldg(r + c) : 0u;
+        const uint32_t hi = c + 1 < n2 ? __ldg(r + c + 1) : 0u;
+        v[i] = lo | hi << 16;
+      }
+    }
+    return make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// the 16 bytes of chunk j into a row, the columns past n2 left alone
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_chunk(T* row, int j, int n2,
+                                            const uint4& u) {
+  if constexpr (VEC) {
+    reinterpret_cast<uint4*>(row)[j] = u;
+  } else {
+    Bits<T>* r = reinterpret_cast<Bits<T>*>(row);
+    const uint32_t v[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        const int c = 4 * j + i;
+        if (c < n2) r[c] = v[i];
+      } else {
+        const int c = 8 * j + 2 * i;
+        if (c < n2) r[c] = (uint16_t)(v[i] & 0xffffu);
+        if (c + 1 < n2) r[c + 1] = (uint16_t)(v[i] >> 16);
+      }
+    }
+  }
+}
+
+// the E fp32 values of chunk j's columns of w or b (0 past n2)
+template <int E, bool VEC>
+__device__ __forceinline__ void load_cols(const float* p, int j, int n2,
+                                          float* f) {
+  if constexpr (VEC) {
+#pragma unroll
+    for (int i = 0; i < E / 4; ++i) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p) +
+                             j * (E / 4) + i);
+      f[4 * i] = v.x;
+      f[4 * i + 1] = v.y;
+      f[4 * i + 2] = v.z;
+      f[4 * i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int c = E * j + e;
+      f[e] = c < n2 ? __ldg(p + c) : 0.0f;
+    }
+  }
+}
+
+// a thread's values summed in a fixed order: E running sums over its
+// chunks, then a pairwise tree over the E
+template <int VC, int E>
+__device__ __forceinline__ float thread_sum(const float (&v)[VC][E]) {
+  float acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = v[0][e];
+#pragma unroll
+  for (int k = 1; k < VC; ++k)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] += v[k][e];
+#pragma unroll
+  for (int h = E / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int e = 0; e < h; ++e) acc[e] += acc[e + h];
+  return acc[0];
+}
+
+// Rows of n2 <= 8192, held in registers (see the header).  WIDE false: a
+// warp a row, lane l the chunks l + 32k; WIDE true (n2 > 1024): the
+// block's kWideThreads threads a row, thread t the chunks t +
+// kWideThreads*k, the warps' sums added through shared memory in warp
+// order.  VC chunks a thread; VEC: 16-byte loads and stores.  Group g (a
+// warp, or the block) takes the rows g * rows_per_group onwards; chunks a
+// thread does not own hold zeros and add nothing.
+template <typename T, int VC, bool VEC, bool WIDE>
+__global__ void __launch_bounds__(kFwdMaxWarps * 32)
+    ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ b, T* __restrict__ y,
+                  float* __restrict__ mean, float* __restrict__ inv, int n1,
+                  int n2, int rows_per_group, float eps) {
+  using P = Pack16<T>;
+  constexpr int E = P::E;
+  constexpr int G = WIDE ? kWideThreads : 32;   // threads that share a row
+  __shared__ float red[2][kWideThreads / 32];
+  const int t = WIDE ? threadIdx.x : (threadIdx.x & 31);
+  const int group = WIDE ? blockIdx.x
+                         : blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int r0 = group * rows_per_group;
+  const int r1 = min(r0 + rows_per_group, n1);
+  const int nc = (n2 + E - 1) / E;
+  const float fn = (float)n2;
+  wait_on_primary();
+  launch_dependents();
+  if (r0 >= r1) return;   // WIDE: the whole block
+
+  // v summed over the threads that share the row; slot s of `red` (the
+  // two sums of a row alternate, so one barrier a sum suffices)
+  auto total = [&](float v, int s) {
+    v = warp_sum(v);
+    if constexpr (WIDE) {
+      if ((threadIdx.x & 31) == 0) red[s][threadIdx.x >> 5] = v;
+      __syncthreads();
+      v = red[s][0];
+#pragma unroll
+      for (int i = 1; i < kWideThreads / 32; ++i) v += red[s][i];
+    }
+    return v;
+  };
+  auto fetch = [&](int r, uint4 (&dst)[VC]) {
+    const T* xr = x + (long long)r * n2;
+#pragma unroll
+    for (int k = 0; k < VC; ++k) {
+      const int j = t + G * k;
+      dst[k] = j < nc ? load_chunk<T, VEC>(xr, j, n2) : make_uint4(0, 0, 0, 0);
+    }
+  };
+
+  uint4 cur[VC], nxt[VC];
+  fetch(r0, cur);
+  // this thread's columns of w and b, kept over the group's rows
+  float wv[VC][E], bv[VC][E];
+#pragma unroll
+  for (int k = 0; k < VC; ++k) {
+    const int j = t + G * k;
+    if (j < nc) {
+      load_cols<E, VEC>(w, j, n2, wv[k]);
+      load_cols<E, VEC>(b, j, n2, bv[k]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) wv[k][e] = bv[k][e] = 0.0f;
+    }
+  }
+  for (int r = r0; r < r1; ++r) {
+    if (r + 1 < r1) fetch(r + 1, nxt);   // in flight while row r is summed
+    float v[VC][E];
+#pragma unroll
+    for (int k = 0; k < VC; ++k) P::load(cur[k], v[k]);
+    const float mu = total(thread_sum(v), 0) / fn;
+    float sq[VC][E];
+#pragma unroll
+    for (int k = 0; k < VC; ++k)
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        v[k][e] = E * (t + G * k) + e < n2 ? v[k][e] - mu : 0.0f;
+        sq[k][e] = v[k][e] * v[k][e];
+      }
+    const float iv = rsqrtf(total(thread_sum(sq), 1) / fn + eps);
+    T* yr = y + (long long)r * n2;
+#pragma unroll
+    for (int k = 0; k < VC; ++k) {
+      const int j = t + G * k;
+      if (j < nc) {
+        float o[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) o[e] = (v[k][e] * iv) * wv[k][e] + bv[k][e];
+        store_chunk<T, VEC>(yr, j, n2, P::store(o));
+      }
+    }
+    if (t == 0) {
+      mean[r] = mu;
+      inv[r] = iv;
+    }
+    if (r + 1 < r1) {
+#pragma unroll
+      for (int k = 0; k < VC; ++k) cur[k] = nxt[k];
+    }
+  }
+}
+
+// rows wider than kMaxWideCols: a warp a row, one pass over device memory
+// per sum; warp g takes the rows g * rows_per_group onwards
+template <typename T>
+__global__ void ln_fwd_stream_kernel(const T* __restrict__ x,
+                                     const float* __restrict__ w,
+                                     const float* __restrict__ b,
+                                     T* __restrict__ y,
+                                     float* __restrict__ mean,
+                                     float* __restrict__ inv, int n1, int n2,
+                                     int rows_per_group, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) *
+                 rows_per_group;
+  const int r1 = min(r0 + rows_per_group, n1);
+  const float fn = (float)n2;
+  wait_on_primary();
+  launch_dependents();
+  for (int row = r0; row < r1; ++row) {
+    const T* xr = x + (long long)row * n2;
+    T* yr = y + (long long)row * n2;
+    float s = 0.0f;
+    for (int c = lane; c < n2; c += 32) s += to_f32(xr[c]);
+    const float mu = warp_sum(s) / fn;
+    float q = 0.0f;
+    for (int c = lane; c < n2; c += 32) {
+      const float d = to_f32(xr[c]) - mu;
+      q += d * d;
+    }
+    const float iv = rsqrtf(warp_sum(q) / fn + eps);
+    for (int c = lane; c < n2; c += 32)
+      yr[c] = from_f32<T>(((to_f32(xr[c]) - mu) * iv) * w[c] + b[c]);
+    if (lane == 0) {
+      mean[row] = mu;
+      inv[row] = iv;
+    }
+  }
+}
+
+// -- backward ----------------------------------------------------------------
+
+constexpr int kBwdMaxWarps = 8;      // warps a block of the register paths
+constexpr int kSumAcc = 8;           // independent sums a ln_colsum_kernel lane
 
 // Rows of n2 <= 1024 where a row is whole 16-byte chunks and every operand
 // is 16-byte aligned.  Warp v of block b takes rows_per_warp consecutive
@@ -573,30 +757,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int row_blocks(int n1) { return (n1 + kWarps - 1) / kWarps; }
-
-template <typename T>
-void fwd(const void* x, const float* w, const float* b, void* y, float* mean,
-         float* inv, int n1, int n2, float eps, cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-  const dim3 grid(row_blocks(n1)), block(kThreads);
-#define APEX_LN_FWD(V)                                                     \
-  ln_fwd_kernel<T, V><<<grid, block, 0, st>>>(xt, w, b, yt, mean, inv, n1, \
-                                              n2, eps)
-  if (n2 <= 32) APEX_LN_FWD(1);
-  else if (n2 <= 64) APEX_LN_FWD(2);
-  else if (n2 <= 128) APEX_LN_FWD(4);
-  else if (n2 <= 256) APEX_LN_FWD(8);
-  else if (n2 <= 512) APEX_LN_FWD(16);
-  else if (n2 <= 768) APEX_LN_FWD(24);
-  else if (n2 <= kMaxRegCols) APEX_LN_FWD(32);
-  else
-    ln_fwd_stream_kernel<T><<<grid, block, 0, st>>>(xt, w, b, yt, mean, inv,
-                                                   n1, n2, eps);
-#undef APEX_LN_FWD
-}
-
 // Above 48 KB of shared memory a kernel must opt in, once on each device:
 // `done` holds a bit per device already set (one per instantiation).
 template <typename K>
@@ -657,6 +817,74 @@ cudaError_t kernel_info(K kernel, int threads, size_t bytes, int* out) {
   out[4] = (int)attr.localSizeBytes;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads,
                                                        bytes);
+}
+
+// The operands and launch shape of the forward: `blocks` blocks of
+// `warps` warps, each warp (or, for 1024 < n2 <= 8192, each block) over
+// `rows_per_group` consecutive rows.  The launcher launches the kernel for
+// the shape or, given `info`, fills it with that kernel's resources.
+struct Fwd {
+  const void* x;
+  const float* w;
+  const float* b;
+  void* y;
+  float* mean;
+  float* inv;
+  int n1, n2, warps, rows_per_group, blocks;
+  float eps;
+  cudaStream_t st;
+};
+
+template <typename T, typename K>
+cudaError_t launch_fwd(K kern, const Fwd& a, int* info) {
+  if (info) return kernel_info(kern, a.warps * 32, 0, info);
+  const Early early(dim3(a.blocks), dim3(a.warps * 32), 0, a.st);
+  return cudaLaunchKernelEx(&early.cfg, kern, static_cast<const T*>(a.x),
+                            a.w, a.b, static_cast<T*>(a.y), a.mean, a.inv,
+                            a.n1, a.n2, a.rows_per_group, a.eps);
+}
+
+// the register kernel with vc chunks a thread (rounded up to one built)
+template <typename T, bool VEC, bool WIDE>
+cudaError_t fwd_rows(int vc, const Fwd& a, int* info) {
+  auto go = [&](auto c) {
+    return launch_fwd<T>(ln_fwd_kernel<T, decltype(c)::value, VEC, WIDE>, a,
+                         info);
+  };
+  if (vc <= 1) return go(std::integral_constant<int, 1>());
+  if (vc <= 2) return go(std::integral_constant<int, 2>());
+  if (vc <= 3) return go(std::integral_constant<int, 3>());
+  if (vc <= 4) return go(std::integral_constant<int, 4>());
+  if constexpr (sizeof(T) == 4) {
+    if (vc <= 6) return go(std::integral_constant<int, 6>());
+    if (vc <= 8) return go(std::integral_constant<int, 8>());
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t fwd(const Fwd& a, int vector, int* info) {
+  if (a.n2 > kMaxWideCols)
+    return launch_fwd<T>(ln_fwd_stream_kernel<T>, a, info);
+  constexpr int E = 16 / (int)sizeof(T);
+  const int nc = (a.n2 + E - 1) / E;
+  if (a.n2 > kMaxRegCols) {
+    const int vc = (nc + kWideThreads - 1) / kWideThreads;
+    return vector ? fwd_rows<T, true, true>(vc, a, info)
+                  : fwd_rows<T, false, true>(vc, a, info);
+  }
+  const int vc = (nc + 31) / 32;
+  return vector ? fwd_rows<T, true, false>(vc, a, info)
+                : fwd_rows<T, false, false>(vc, a, info);
+}
+
+cudaError_t fwd_any(const Fwd& a, int vector, int dtype, int* info) {
+  switch (dtype) {
+    case 0: return fwd<float>(a, vector, info);
+    case 1: return fwd<__nv_bfloat16>(a, vector, info);
+    case 2: return fwd<__half>(a, vector, info);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, typename K>
@@ -742,17 +970,42 @@ bool aligned16(const void* p) {
 extern "C" {
 
 // x, y: (n1, n2) contiguous; w, b: (n2,) fp32; mean, inv: (n1,) fp32.
+// `blocks` blocks of `warps` warps; each warp (n2 <= 1024, or above 8192)
+// or each block (1024 < n2 <= 8192, where warps must be 8) takes
+// `rows_per_group` consecutive rows, and the groups must cover the n1
+// rows.  `vector` picks the 16-byte loads and stores, which need n2 <=
+// 8192, n2 * sizeof(T) % 16 == 0 and x, w, b and y 16-byte aligned.
 int apex_ln_fwd(const void* x, const float* w, const float* b, void* y,
-                float* mean, float* inv, int n1, int n2, float eps, int dtype,
-                cudaStream_t stream) {
-  switch (dtype) {
-    case 0: fwd<float>(x, w, b, y, mean, inv, n1, n2, eps, stream); break;
-    case 1: fwd<__nv_bfloat16>(x, w, b, y, mean, inv, n1, n2, eps, stream);
-      break;
-    case 2: fwd<__half>(x, w, b, y, mean, inv, n1, n2, eps, stream); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+                float* mean, float* inv, int n1, int n2, float eps,
+                int vector, int warps, int rows_per_group, int blocks,
+                int dtype, cudaStream_t stream) {
+  const int isz = dtype == 0 ? 4 : 2;
+  const bool wide = n2 > kMaxRegCols && n2 <= kMaxWideCols;
+  const long long groups = wide ? blocks : (long long)blocks * warps;
+  if (dtype < 0 || dtype > 2 || warps < 1 || warps > kFwdMaxWarps ||
+      rows_per_group < 1 || blocks < 1 ||
+      (wide && warps * 32 != kWideThreads) ||
+      groups * rows_per_group < n1)
+    return (int)cudaErrorInvalidValue;
+  if (vector && (n2 > kMaxWideCols || (long long)n2 * isz % 16 ||
+                 !aligned16(x) || !aligned16(w) || !aligned16(b) ||
+                 !aligned16(y)))
+    return (int)cudaErrorInvalidValue;
+  const Fwd a{x,  w,  b,     y,        mean,           inv,    n1,
+              n2, warps, rows_per_group, blocks, eps, stream};
+  const cudaError_t e = fwd_any(a, vector, dtype, nullptr);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// out = {resident blocks per SM, threads, dynamic shared bytes, registers a
+// thread, local (spill) bytes a thread} of the kernel apex_ln_fwd launches
+// for (dtype, n2, vector, warps)
+int apex_ln_fwd_kernel_info(int dtype, int n2, int vector, int warps,
+                            int* out) {
+  const Fwd a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0,
+              n2,      warps,   1,       1,       0.0f,    nullptr};
+  return (int)fwd_any(a, vector, dtype, out);
 }
 
 // part: 2 * parts * n2 fp32, the partial rows of dw then of db: parts =

@@ -31,7 +31,12 @@ __all__ = ["layer_norm_fwd", "layer_norm_bwd"]
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _WARPS = 8             # warps a block of the streamed backward (kWarps)
-_REG_COLS = 1024       # widest row the backward keeps per lane (kMaxRegCols)
+_REG_COLS = 1024       # widest row a warp holds (kMaxRegCols)
+_WIDE_COLS = 8192      # widest row the forward holds (kMaxWideCols)
+_WIDE_WARPS = 8        # warps that share a row above 1024 (kWideThreads/32)
+_FWD_WARPS = 8         # warps a block of the forward, most (kFwdMaxWarps)
+_FWD_GROUPS = 2048     # warps (rows in flight) the forward aims for
+_FWD_BLOCKS = 264      # blocks the forward aims for: two on each of 132 SMs
 _STREAM_BLOCKS = 256   # blocks of the streamed backward (n2 > 1024), most
 _BWD_WARPS = 8         # warps a block of the backward at n2 <= 1024, most
 _BWD_BLOCKS = 128      # the backward's blocks, hence partial rows, at most
@@ -72,6 +77,44 @@ def _fwd_plain(x2, w, b, eps):
     return y.to(x2.dtype), mean[:, 0], inv[:, 0]
 
 
+class FwdPlan(NamedTuple):
+    """How the forward covers an (n1, n2) problem.  ``path``: "vector"
+    (16-byte loads and stores), "element" (the same columns a thread, one
+    element a load) or "stream" (n2 > 8192); ``blocks`` of ``warps``
+    warps; ``row_warps`` warps share a row (1, or the block's 8 for 1024 <
+    n2 <= 8192), and each group of them takes ``rows_per_group``
+    consecutive rows."""
+    path: str
+    warps: int
+    row_warps: int
+    rows_per_group: int
+    blocks: int
+
+
+def _fwd_plan(n1: int, n2: int, itemsize: int, aligned: bool) -> FwdPlan:
+    """The forward's path and grid.  The vector path needs rows of whole
+    16-byte chunks (n2 * itemsize % 16 == 0), n2 <= 8192 and ``aligned``
+    operands (x, w, b and y on 16-byte addresses); the element path sums
+    in the same order, so the path changes no bit.  The grid depends on
+    (n1, n2) alone: about ``_FWD_GROUPS`` warps with a row each, more rows
+    a warp above that (the next one in flight), in blocks of up to 8
+    warps, fewer where that leaves fewer than ``_FWD_BLOCKS`` blocks."""
+    if n2 > _WIDE_COLS:
+        return FwdPlan("stream", _WARPS, 1, 1, -(-n1 // _WARPS))
+    path = ("vector" if aligned and n2 * itemsize % 16 == 0
+            else "element")
+    if n2 > _REG_COLS:
+        # a block a row: as many blocks as two an SM hold
+        rows = max(1, -(-n1 // _FWD_BLOCKS))
+        return FwdPlan(path, _WIDE_WARPS, _WIDE_WARPS, rows, -(-n1 // rows))
+    rows = max(1, -(-n1 // _FWD_GROUPS))
+    groups = -(-n1 // rows)
+    warps = _FWD_WARPS
+    while warps > 1 and -(-groups // warps) < _FWD_BLOCKS:
+        warps //= 2
+    return FwdPlan(path, warps, 1, rows, -(-groups // warps))
+
+
 def layer_norm_fwd(x2: torch.Tensor, w: Optional[torch.Tensor],
                    b: Optional[torch.Tensor], eps: float
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -86,16 +129,32 @@ def layer_norm_fwd(x2: torch.Tensor, w: Optional[torch.Tensor],
     mean = torch.empty(n1, dtype=torch.float32, device=x2.device)
     inv = torch.empty(n1, dtype=torch.float32, device=x2.device)
     if n1 and n2:
-        lib = _build.library("layer_norm")
-        _build.check(lib.apex_ln_fwd(
-            x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), inv.data_ptr(), n1, n2, float(eps),
-            _KIND[x2.dtype], _build.stream_ptr(x2)), "apex_ln_fwd")
+        plan = _fwd_plan(n1, n2, x2.element_size(), _aligned(x2, w, b, y))
+        _launch_fwd(x2, w, b, eps, y, mean, inv, plan)
         layer_norm_fwd.launches += 1
     return y, mean, inv
 
 
 layer_norm_fwd.launches = 0
+
+
+def _launch_fwd(x2, w, b, eps, y, mean, inv, plan: FwdPlan) -> None:
+    """The forward's kernel for ``plan``, into y, mean and inv."""
+    n1, n2 = x2.shape
+    lib = _build.library("layer_norm")
+    _build.check(lib.apex_ln_fwd(
+        x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+        mean.data_ptr(), inv.data_ptr(), n1, n2, float(eps),
+        int(plan.path == "vector"), plan.warps, plan.rows_per_group,
+        plan.blocks, _KIND[x2.dtype], _build.stream_ptr(x2)), "apex_ln_fwd")
+
+
+def fwd_kernel_info(dtype: torch.dtype, n2: int, plan: FwdPlan) -> dict:
+    """Resources of the kernel that ``plan`` launches for ``dtype`` and
+    ``n2`` (see :func:`bwd_kernel_info`).  Builds the library; needs a
+    GPU."""
+    return _kernel_info("apex_ln_fwd_kernel_info", dtype, n2,
+                        plan.path == "vector", plan.warps)
 
 
 # -- backward ----------------------------------------------------------------
@@ -201,10 +260,15 @@ def bwd_kernel_info(dtype: torch.dtype, n2: int, plan: BwdPlan) -> dict:
     ``n2``, from the CUDA runtime: resident blocks per SM, threads a block,
     dynamic shared bytes, registers and local (spill) bytes a thread.
     Builds the library; needs a GPU."""
+    return _kernel_info("apex_ln_bwd_kernel_info", dtype, n2,
+                        plan.path == "vector", plan.warps)
+
+
+def _kernel_info(entry: str, dtype: torch.dtype, n2: int, vector: bool,
+                 warps: int) -> dict:
     lib = _build.library("layer_norm")
     out = (ctypes.c_int * 5)()
-    _build.check(lib.apex_ln_bwd_kernel_info(
-        _KIND[dtype], n2, int(plan.path == "vector"), plan.warps, out),
-        "apex_ln_bwd_kernel_info")
+    _build.check(getattr(lib, entry)(_KIND[dtype], n2, int(vector), warps,
+                                     out), entry)
     return dict(zip(("blocks_per_sm", "threads", "smem_bytes", "registers",
                      "local_bytes"), out))

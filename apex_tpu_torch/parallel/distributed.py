@@ -57,7 +57,7 @@ __all__ = ["DistributedDataParallel", "Reducer", "predivide_factors",
            "flat_dist_call", "ReduceOp", "allreduce_comm_plan",
            "make_step"]
 
-_UNPORTED = ("is not ported yet (ROADMAP queue 1 item 12, the wider "
+_UNPORTED = ("is not ported yet (ROADMAP queue 1 item 6, the wider "
              "parallel stack)")
 
 
@@ -282,7 +282,8 @@ def make_step(step_fn: Callable, module: torch.nn.Module,
                          "is always donated")
     device = next(module.parameters()).device
     if device.type != "cuda":
-        return lambda batch: _graph.run_steps(step_fn, batch, K)
+        return lambda batch: _graph.tree_map(
+            torch.clone, _graph.run_steps(step_fn, batch, K))
     return _graph.CapturedStep(step_fn, K, device,
                                _graph.cuda_generators(module))
 

@@ -341,13 +341,19 @@ _TYPE = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
 
 
 def kernel_short(mangled: str) -> str:
-    """``ln_bwd_vec_kernel<bf16,4>`` from the mangled name of a LayerNorm
-    kernel in its anonymous namespace (``_ZN12_GLOBAL__N_1...``)."""
+    """``ln_bwd_vec_kernel<bf16,4>`` (and ``ln_fwd_kernel<bf16,3,vec>``,
+    ``...,elem,wide>`` for the forward's two flags) from the mangled name
+    of a LayerNorm kernel in its anonymous namespace
+    (``_ZN12_GLOBAL__N_1...``)."""
     m = re.search(r"\d+(ln_\w*?kernel)(?:I(f|13__nv_bfloat16|6__half)"
-                  r"(?:Li(\d+)E)?E)?", mangled)
+                  r"(?:Li(\d+)E)?((?:Lb[01]E)*)E)?", mangled)
     if not m:
         return mangled
     args = [a for a in (_TYPE.get(m.group(2) or ""), m.group(3)) if a]
+    flags = re.findall(r"Lb([01])E", m.group(4) or "")
+    if len(flags) == 2:
+        args += ["vec" if flags[0] == "1" else "elem"]
+        args += ["wide"] if flags[1] == "1" else []
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
@@ -716,11 +722,15 @@ LN_PER_PASS = 26                    # LayerNorms in one BERT-base pass
 # the rows of the kernels' JSON line: BERT-base first (its launches), then
 # BERT-large at 8 x 128 tokens
 LN_SHAPES = ((LN_ROWS, LN_WIDTH), (8 * 128, 1024))
-# odd shapes, and the main paths' with a tail block (4097), in fp32, bf16
-# and fp16; the misaligned views take the backward's element path
+# odd shapes, the main paths' with a tail block (4097) and rows the
+# forward holds a block a row (1500, 4096, 8192), in fp32, bf16 and fp16;
+# the misaligned views take the element paths
 LN_ODD = ((7, 1), (33, 100), (300, 1024), (9, 1500), (LN_ROWS, LN_WIDTH),
-          (8 * 128, 1024), (4097, 768))
-LN_MISALIGNED = ((33, 104), (LN_ROWS, LN_WIDTH))
+          (8 * 128, 1024), (4097, 768), (2048, 4096), (3, 8192))
+LN_MISALIGNED = ((33, 104), (LN_ROWS, LN_WIDTH), (300, 1024), (3, 8192))
+# a wide row (a NeoX-style hidden size): the forward's row "7 W", timed in
+# phase 3 and in the A/B; no path of the port runs it yet
+LN_WIDE = (2048, 4096)
 FLASH_BASE = (32, 12, 128, 64)      # B, H, T, D of BERT-base at 32 x 128
 FLASH_LONG = (8, 12, 512, 64)
 FLASH_ODD = ((2, 3, 200, 64), (2, 3, 77, 128), (3, 2, 64, 24))
@@ -805,11 +815,12 @@ def _ln_check(n1, n2, dtype, seed, eps=1e-12, misaligned=False):
     evaluation: mean within (f(n2)+1)*2^-24*mean|x|, inv within
     (f(n2)+8)*2^-24 relative, y and dx within one rounding to their type
     plus (f(n2)+8)*2^-24 of the magnitudes of their terms, dw and db within
-    (f(n1)+4)*2^-24*sum|term|; the backward the same bits on a second
-    launch and on three replays of a CUDA graph.  ``misaligned``: every
-    input a view off 16 bytes (the backward's element path).  Returns the
-    inputs, the max abs errors against the plain versions and the worst
-    ratios to the bounds."""
+    (f(n1)+4)*2^-24*sum|term|; forward and backward the same bits on a
+    second launch and on three replays of a CUDA graph.  ``misaligned``:
+    every input a view off 16 bytes (the element paths), the forward the
+    same bits as on fresh (aligned) copies of the same values.  Returns
+    the inputs, the max abs errors against the plain versions and the
+    worst ratios to the bounds."""
     from apex_tpu_torch import ops
     from apex_tpu_torch.ops import layer_norm as lnm
     x, dy, w, b = _ln_case(n1, n2, dtype, seed, misaligned)
@@ -864,16 +875,29 @@ def _ln_check(n1, n2, dtype, seed, eps=1e-12, misaligned=False):
     # the same bits on a second run and on graph replays: no atomics, no
     # state carried between launches
     again = [ops.layer_norm_bwd(dy, x, w, mean, inv)]
+    fwd_again = [ops.layer_norm_fwd(x, w, b, eps)]
+    if misaligned:
+        # the same values in fresh allocations: the forward's vector path
+        # where the rows are whole 16-byte chunks
+        fwd_again.append(ops.layer_norm_fwd(x.clone(), w.clone(), b.clone(),
+                                            eps))
     if x.is_cuda:
         again += graph_replays(lambda: ops.layer_norm_bwd(dy, x, w, mean,
                                                           inv))
+        fwd_again += graph_replays(lambda: ops.layer_norm_fwd(x, w, b, eps))
         if misaligned:
             plan = lnm._bwd_plan(n1, n2, x.element_size(),
                                  lnm._aligned(dy, x, w))
             assert plan.path != "vector", plan
+            plan = lnm._fwd_plan(n1, n2, x.element_size(),
+                                 lnm._aligned(x, w, b))
+            assert plan.path != "vector", plan
     for outs in again:
         assert all(torch.equal(a, b_) for a, b_ in zip(outs, bwd["kernel"])), \
             f"layer_norm_bwd ({n1}, {n2}) {dtype} differs between runs"
+    for outs in fwd_again:
+        assert all(torch.equal(a, b_) for a, b_ in zip(outs, fwd["kernel"])), \
+            f"layer_norm_fwd ({n1}, {n2}) {dtype} differs between runs"
     return (x, dy, w, b, mean, inv), errs, ratios
 
 
@@ -903,9 +927,10 @@ def phase_layer_norm(resources=None):
     """LayerNorm forward and backward at BERT-base's (4096, 768) and
     BERT-large's (1024, 1024) shapes (bf16, eps 1e-12, as O2 runs them) and
     at odd shapes, each held against fp64; timed per call at both main
-    shapes, with the backward's device time split by kernel; logs the
-    backward kernels' registers, spills and shared bytes (``resources``,
-    from ``ptxas_resources``) and the runtime's for the planned grid."""
+    shapes, with the backward's device time split by kernel, and the
+    forward at the wide row ``LN_WIDE``; logs the kernels' registers,
+    spills and shared bytes (``resources``, from ``ptxas_resources``) and
+    the runtime's for the planned grids."""
     from apex_tpu_torch import ops
     from apex_tpu_torch.ops import layer_norm as lnm
     err = {"layer_norm_fwd": 0.0, "layer_norm_bwd": 0.0}
@@ -936,18 +961,25 @@ def phase_layer_norm(resources=None):
     log(f"[kernels] layer_norm at {LN_ODD} (fp32/bf16/fp16), misaligned at "
         f"{LN_MISALIGNED} (fp32/bf16/fp16), {LN_SHAPES} bf16 and "
         f"{(LN_ROWS, LN_WIDTH)} fp32: within the "
-        f"fp64 bounds, the backward the same bits on a second launch and "
-        f"three graph replays; worst ratio kernel {worst['kernel']:.3e}, "
-        f"plain {worst['plain']:.3e}; max abs err against the plain "
-        f"version {err}")
+        f"fp64 bounds, forward and backward the same bits on a second "
+        f"launch and three graph replays, the forward of a misaligned view "
+        f"the same bits as of aligned copies; worst ratio kernel "
+        f"{worst['kernel']:.3e}, plain {worst['plain']:.3e}; max abs err "
+        f"against the plain version {err}")
     for name, r in sorted((resources or {}).items()):
         short = kernel_short(name)
-        if short.startswith(("ln_bwd", "ln_colsum")) and "fp" not in short:
-            log(f"[kernels] layer_norm_bwd ptxas {short}: {r}")
+        if (short.startswith(("ln_bwd", "ln_colsum")) and "fp" not in short
+                or short.startswith("ln_fwd") and ",vec" in short):
+            log(f"[kernels] layer_norm ptxas {short}: {r}")
     for n1, n2 in LN_SHAPES:
         plan = lnm._bwd_plan(n1, n2, 2, True)
         log(f"[kernels] layer_norm_bwd bf16 ({n1}, {n2}): {plan}, row "
             f"kernel {lnm.bwd_kernel_info(torch.bfloat16, n2, plan)}")
+    for n1, n2, dtype in LN_FWD_CASES:
+        plan = lnm._fwd_plan(n1, n2, torch.tensor([], dtype=dtype)
+                             .element_size(), True)
+        log(f"[kernels] layer_norm_fwd {dtype} ({n1}, {n2}): {plan}, "
+            f"kernel {lnm.fwd_kernel_info(dtype, n2, plan)}")
     rows = {}
     for n1, n2, dtype, ((x, dy, w, b, mean, inv), _, _) in main:
         isz, eps = x.element_size(), 1e-12
@@ -956,13 +988,7 @@ def phase_layer_norm(resources=None):
         _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [n2], wl, bl,
                                                            eps)
         timing = {
-            # reads x, w, b; writes y, mean, inv
-            "layer_norm_fwd" + tag: (
-                2 * n1 * n2 * isz + 2 * n2 * 4 + 2 * n1 * 4, 8 * n1 * n2,
-                lambda: ops.layer_norm_fwd(x, w, b, eps),
-                lambda: lnm._fwd_plain(x, w, b, eps),
-                lambda: torch.nn.functional.layer_norm(x, (n2,), wl, bl,
-                                                       eps)),
+            "layer_norm_fwd" + tag: _ln_fwd_entry(x, w, b, eps),
             # reads dy, x, w, mean, inv; writes dx, dw, db
             "layer_norm_bwd" + tag: (
                 3 * n1 * n2 * isz + 3 * n2 * 4 + 2 * n1 * 4, 11 * n1 * n2,
@@ -981,6 +1007,15 @@ def phase_layer_norm(resources=None):
             f"kernel, ms a call (torch.profiler, 10 eager calls): "
             f"{json.dumps(split)}")
         at["layer_norm_bwd" + tag]["split"] = split
+        if dtype == torch.bfloat16 and n2 == LN_WIDTH:
+            # row 7 W, logged only
+            wx, _, ww, wb = _ln_case(*LN_WIDE, torch.bfloat16, SEED + 47)
+            err["layer_norm_fwd"] = max(err["layer_norm_fwd"], max(
+                max_abs(a, p_) for a, p_ in zip(
+                    ops.layer_norm_fwd(wx, ww, wb, eps),
+                    lnm._fwd_plain(wx, ww, wb, eps))))
+            _time_rows({"layer_norm_fwd": _ln_fwd_entry(wx, ww, wb, eps)},
+                       err, f"{LN_WIDE} bf16, one call; no path runs it")
         for key, row in at.items():
             if key not in rows:
                 rows[key] = dict(row, shapes=[])
@@ -1010,17 +1045,93 @@ def load_ops(root):
 # (warps a block, rows a warp) of the backward's vector path, timed beside
 # the plan's own grid
 LN_GRIDS = ((4, 1), (4, 2), (4, 4), (8, 1), (8, 2), (8, 4), (8, 8))
+# the forward's A/B cases: the main paths' (BERT-base bf16, BERT-large
+# bf16, BERT-base fp32 under O1), BERT-base's micro-batch of 16 in phase
+# 15 (b), and the wide row
+LN_FWD_CASES = ((LN_ROWS, LN_WIDTH, torch.bfloat16),
+                (8 * 128, 1024, torch.bfloat16),
+                (LN_ROWS, LN_WIDTH, torch.float32),
+                (LN_ROWS // 2, LN_WIDTH, torch.bfloat16),
+                LN_WIDE + (torch.bfloat16,))
+# grids of the forward timed beside the plan's: (warps a block, rows a
+# warp) where a warp holds a row, rows a block where a block does
+LN_FWD_GRIDS = ((8, 1), (4, 1), (2, 1), (1, 1), (8, 2), (4, 2), (2, 2),
+                (4, 4))
+LN_WIDE_GRIDS = (1, 2, 4, 8, 16)
+
+
+def _ln_fwd_entry(x, w, b, eps):
+    """``_time_rows``' entry for the forward on these inputs: bytes (x
+    read, y written, w, b, mean and inv), flops (8 an element), the
+    kernel, its plain version and ``F.layer_norm``."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import layer_norm as lnm
+    n1, n2 = x.shape
+    wl, bl = w.to(x.dtype), b.to(x.dtype)
+    return (2 * n1 * n2 * x.element_size() + 2 * n2 * 4 + 2 * n1 * 4,
+            8 * n1 * n2, lambda: ops.layer_norm_fwd(x, w, b, eps),
+            lambda: lnm._fwd_plain(x, w, b, eps),
+            lambda: torch.nn.functional.layer_norm(x, (n2,), wl, bl, eps))
+
+
+def _ln_fwd_ab(parent, n1, n2, dtype, seed):
+    """The forward against ``parent``'s at (n1, n2): graph-replay ms in the
+    order parent, change, change, parent, the bound, the change's forward
+    at other grids (the same bits at each) and the max abs difference."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import layer_norm as lnm
+    x, _, w, b = _ln_case(n1, n2, dtype, seed)
+    eps = 1e-12
+    calls = {"parent": lambda: parent.layer_norm_fwd(x, w, b, eps),
+             "change": lambda: ops.layer_norm_fwd(x, w, b, eps)}
+    want = calls["change"]()
+    diff = max(max_abs(a, p) for a, p in zip(want, calls["parent"]()))
+    ms = [(who, graph_ms(calls[who]))
+          for who in ("parent", "change", "change", "parent")]
+    plan = lnm._fwd_plan(n1, n2, x.element_size(), True)
+    if plan.row_warps == 1:
+        grids = []
+        for wp, r in LN_FWD_GRIDS:
+            groups = -(-n1 // r)
+            grids.append((f"{wp}x{r}", lnm.FwdPlan(plan.path, wp, 1, r,
+                                                   -(-groups // wp))))
+    else:
+        grids = [(f"block x{r}", plan._replace(rows_per_group=r,
+                                                blocks=-(-n1 // r)))
+                 for r in LN_WIDE_GRIDS]
+    at = {}
+    for key, g in grids:
+        y, mean, inv = (torch.empty_like(t) for t in want)
+        lnm._launch_fwd(x, w, b, eps, y, mean, inv, g)
+        assert all(torch.equal(a, c) for a, c in zip((y, mean, inv), want)), \
+            f"layer_norm_fwd differs at grid {g}"
+        at[key] = graph_ms(lambda: lnm._launch_fwd(x, w, b, eps, y, mean, inv,
+                                                   g))
+    bound = _ln_fwd_entry(x, w, b, eps)[0] / MEM_BYTES_PER_S * 1e3
+    dname = str(dtype).replace("torch.", "")
+    log(f"[ab] layer_norm_fwd ({n1}, {n2}) {dname}, graph replay, ms: "
+        + ", ".join(f"{who} {t:.4f}" for who, t in ms)
+        + f"; bound {bound:.4f}; change's grids {json.dumps(at)}; the plan "
+        f"{plan}, kernel {lnm.fwd_kernel_info(dtype, n2, plan)}; max abs "
+        f"diff {diff}")
+    return {"ms": ms, "bound_ms": bound, "grids": at, "plan": plan._asdict(),
+            "max_abs_diff": diff}
 
 
 def phase_layer_norm_ab(parent):
-    """The LayerNorm backward against ``parent``'s (an ops package from
-    ``load_ops``) at both main shapes in bf16: device time by graph replay
-    in the order parent, change, change, parent, each one's split by
-    kernel, and this backward at the grids of ``LN_GRIDS`` (dx the same
-    bits at every grid)."""
+    """The LayerNorm forward and backward against ``parent``'s (an ops
+    package from ``load_ops``): device time by graph replay in the order
+    parent, change, change, parent; the forward at ``LN_FWD_CASES`` and at
+    the grids of ``LN_FWD_GRIDS`` / ``LN_WIDE_GRIDS``, the backward at both
+    main shapes in bf16, each one's split by kernel, and at the grids of
+    ``LN_GRIDS`` (the outputs the same bits at every grid)."""
     from apex_tpu_torch import ops
     from apex_tpu_torch.ops import layer_norm as lnm
-    out = {}
+    out = {"fwd": {}}
+    for i, (n1, n2, dtype) in enumerate(LN_FWD_CASES):
+        dname = str(dtype).replace("torch.", "")
+        out["fwd"][f"({n1}, {n2}) {dname}"] = _ln_fwd_ab(parent, n1, n2,
+                                                         dtype, SEED + 70 + i)
     for i, (n1, n2) in enumerate(LN_SHAPES):
         x, dy, w, b = _ln_case(n1, n2, torch.bfloat16, SEED + 60 + i)
         _, mean, inv = lnm._fwd_plain(x, w, b, 1e-12)

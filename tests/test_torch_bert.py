@@ -292,7 +292,7 @@ def test_training_slice_lamb_matches_jax(jax_lamb_runs, weights, opt_level,
 
 def test_tp_and_sp_raise_naming_the_roadmap():
     for kw in (dict(tp_axis="model"), dict(sp_axis="sp")):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="item 6"):
             models.BertConfig(**kw)
 
 

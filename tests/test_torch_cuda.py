@@ -328,6 +328,91 @@ def test_layer_norm_bwd_graph_replays_give_the_same_bits(cuda, n1, n2):
         assert all(torch.equal(a, b_) for a, b_ in zip(outs, want))
 
 
+# -- the LayerNorm forward: 16-byte rows, a block a wide row -------------------
+
+# odd widths (the element path; 1500 a block a row) and the wide rows a
+# block holds (4096, 8192), forward and backward within chip_smoke's fp64
+# bounds, each the same bits on a second launch and on graph replays
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1,n2", [(7, 1), (33, 100), (9, 1500),
+                                   (2048, 4096), (3, 8192)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_layer_norm_fwd_odd_and_wide_rows_within_the_fp64_bounds(cuda, n1, n2,
+                                                                 dtype):
+    import chip_smoke
+    _, errs, ratios = chip_smoke._ln_check(n1, n2, dtype, 80 + n1)
+    assert max(ratios.values()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1,n2", [(4096, 768), (300, 1024)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_layer_norm_fwd_misaligned_view_gives_the_aligned_bits(cuda, n1, n2,
+                                                               dtype):
+    """x, w and b as contiguous views off 16 bytes take the forward's
+    element path, the same values aligned its vector path; y, mean and inv
+    the same bits, within one unit of the type's last place of the plain
+    version."""
+    rs = np.random.RandomState(n1)
+    x = (_t(rs.randn(n1, n2).astype(np.float32)) * 3 + 1).to(dtype).to(cuda)
+    w = _t(rs.randn(n2).astype(np.float32)).to(cuda)
+    b = _t(rs.randn(n2).astype(np.float32)).to(cuda)
+    odd = [_off16(t) for t in (x, w, b)]
+    isz = x.element_size()
+    assert lnm._fwd_plan(n1, n2, isz, lnm._aligned(x, w, b)).path == "vector"
+    assert lnm._fwd_plan(n1, n2, isz, lnm._aligned(*odd)).path == "element"
+    want = ops.layer_norm_fwd(x, w, b, 1e-5)
+    got = ops.layer_norm_fwd(*odd, 1e-5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+    for g, p in zip(got, lnm._fwd_plain(x, w, b, 1e-5)):
+        torch.testing.assert_close(g.float(), p.float(), rtol=tol[dtype],
+                                   atol=tol[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1,n2", [(4096, 768), (1024, 1024), (4097, 768),
+                                   (9, 1500), (2048, 4096), (3, 9000)])
+def test_layer_norm_fwd_is_bitwise_across_launches_and_replays(cuda, n1, n2):
+    """y, mean and inv the same bits on a second launch and on three
+    replays of a CUDA graph that captured the forward (every path: a warp
+    a row, a block a row, streamed above 8192)."""
+    rs = np.random.RandomState(n2)
+    x = (_t(rs.randn(n1, n2).astype(np.float32)) * 3 + 1).bfloat16().to(cuda)
+    w = _t(rs.randn(n2).astype(np.float32)).to(cuda)
+    b = _t(rs.randn(n2).astype(np.float32)).to(cuda)
+    want = ops.layer_norm_fwd(x, w, b, 1e-12)
+    again = ops.layer_norm_fwd(x, w, b, 1e-12)
+    assert all(torch.equal(a, c) for a, c in zip(again, want))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.layer_norm_fwd(x, w, b, 1e-12)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = ops.layer_norm_fwd(x, w, b, 1e-12)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(outs, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_fwd_of_no_rows_launches_nothing(cuda, dtype):
+    x = torch.empty(0, 768, dtype=dtype, device=cuda)
+    before = lnm.layer_norm_fwd.launches
+    y, mean, inv = ops.layer_norm_fwd(x, None, None, 1e-5)
+    torch.cuda.synchronize()
+    assert y.shape == (0, 768) and y.dtype == dtype
+    assert mean.shape == inv.shape == (0,)
+    assert lnm.layer_norm_fwd.launches == before
+
+
 # -- flash attention ----------------------------------------------------------
 
 def _flash_case(cuda, B, H, T, D, dtype, seed=0):
@@ -954,3 +1039,34 @@ def test_captured_launch_counts_are_exact(cuda):
     got = ops.launch_counts()
     assert {k: v for k, v in got.items() if v} == want
     assert train.launches == {k: v // 4 for k, v in want.items()}
+
+
+@pytest.mark.cuda
+def test_captured_step_returns_copies(cuda):
+    """make_step's calls return copies: what call 1 (the eager warm-up)
+    and call 2 (capture and replay) returned is unchanged by the calls
+    after them, though the step returns the optimizer's info as it is
+    (each call a fresh batch, so that the grad norms differ)."""
+    from apex_tpu_torch import amp, parallel
+    from apex_tpu_torch.nn.functional import cross_entropy
+    model, opt = _small_resnet(cuda)
+
+    def step(batch):
+        x, y = batch
+        loss, grads = amp.scaled_grad(lambda: cross_entropy(model(x), y),
+                                      opt)
+        return dict(opt.step(grads), loss=loss)
+
+    train = parallel.make_step(step, model)
+    outs, firsts = [], []
+    for seed in (9, 10, 11):
+        outs.append(train(_images(cuda, seed=seed)))
+        firsts.append({k: t.clone() for k, t in outs[-1].items()})
+    assert train.replays == 2
+    for out, first in zip(outs, firsts):
+        for k in out:
+            assert torch.equal(out[k], first[k]), k
+        for k in opt.last_info:
+            assert out[k].data_ptr() != opt.last_info[k].data_ptr(), k
+    assert len({float(o["grad_norm"]) for o in outs}) == 3
+    assert torch.equal(outs[-1]["grad_norm"], opt.last_info["grad_norm"])

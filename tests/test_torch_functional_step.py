@@ -351,7 +351,13 @@ def test_functional_step_matches_jax(resnet_weights, opt_level, loss_rtol,
     jl, jp, js, jost, jinfo = _jax_functional(jm, jopt, jp, js, jost,
                                               jnp.asarray(x), jnp.asarray(y))
     tl, tinfo = _port_functional(tm, topt, _t(x), _t(y).long())
-    assert tinfo is topt.last_info
+    # the caller's own copy of the last step's info, which the optimizer's
+    # buffer matches until the next step rewrites it
+    assert tinfo is not topt.last_info
+    assert tinfo.keys() == topt.last_info.keys()
+    for k, t in tinfo.items():
+        assert t is not topt.last_info[k] and torch.equal(
+            t, topt.last_info[k]), k
     assert np.all(np.isfinite(tl)) and tl[-1] < tl[0]
     np.testing.assert_allclose(tl, jl, rtol=loss_rtol)
     for k in ("found_inf", "loss_scale", "steps_skipped"):
@@ -374,6 +380,50 @@ def test_functional_step_matches_jax(resnet_weights, opt_level, loss_rtol,
                 for path, leaves in js.items()
                 for k in ("running_mean", "running_var"))
     assert worst <= stats_rtol, worst
+
+
+# two steps' infos: each its own, equal to the JAX step's info of that
+# step (found_inf, loss_scale and steps_skipped exactly, grad_norm at the
+# rtol of test_functional_step_matches_jax) and bitwise to last_info as it
+# stood right after that step; each step a fresh batch, so that the grad
+# norms of the two steps differ
+@pytest.mark.parametrize("opt_level,norm_rtol", [("O0", 1e-2), ("O2", 0.5)])
+def test_functional_step_infos_are_the_callers_own(resnet_weights,
+                                                    opt_level, norm_rtol):
+    (jm, jopt, jp, js, jost), (tm, topt) = _resnet_pair(resnet_weights,
+                                                        opt_level)
+    batches = [_resnet_batch(seed=11 + i, n=4) for i in range(2)]
+
+    @jax.jit
+    def jstep(params, state, ost, x, y):
+        def loss_fn(p):
+            out, new_state = jm.apply(p, x, state=state, train=True)
+            return JF.cross_entropy(out, y), new_state
+        _, new_state, grads = jamp.scaled_grad(loss_fn, params, ost,
+                                               has_aux=True)
+        params, ost, info = jopt.step(params, ost, grads)
+        return params, new_state, ost, info
+
+    jinfos, tinfos, snaps = [], [], []
+    for x, y in batches:
+        jp, js, jost, info = jstep(jp, js, jost, jnp.asarray(x),
+                                   jnp.asarray(y))
+        jinfos.append(info)
+        _, grads = amp.scaled_grad(
+            lambda: cross_entropy(tm(_t(x)), _t(y).long()), topt)
+        tinfos.append(topt.step(grads))
+        snaps.append({k: t.clone() for k, t in topt.last_info.items()})
+    assert tinfos[0] is not tinfos[1]
+    assert tinfos[0]["grad_norm"] is not tinfos[1]["grad_norm"]
+    assert float(tinfos[0]["grad_norm"]) != float(tinfos[1]["grad_norm"])
+    for tinfo, snap, jinfo in zip(tinfos, snaps, jinfos):
+        assert tinfo.keys() == snap.keys() == set(jinfo)
+        for k in tinfo:
+            assert torch.equal(tinfo[k], snap[k]), k
+        for k in ("found_inf", "loss_scale", "steps_skipped"):
+            assert float(tinfo[k]) == float(jinfo[k]), k
+        np.testing.assert_allclose(float(tinfo["grad_norm"]),
+                                   float(jinfo["grad_norm"]), rtol=norm_rtol)
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -532,3 +582,42 @@ def test_make_step_steps_per_call_matches_sequential(resnet_weights):
         parallel.make_step(stepper(ta, oa), ta, donate_state=False)
     with pytest.raises(ValueError, match="steps_per_call"):
         parallel.make_step(stepper(ta, oa), ta, steps_per_call=0)
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_make_step_returns_copies_on_the_cpu(resnet_weights, K):
+    """The step returns the optimizer's info as it is; ``make_step``'s
+    calls return copies: call 1's tensors are unchanged by call 2, and
+    with K = 2 each row of a call is its own step's info (each step a
+    fresh batch), bitwise the optimizer's last_info right after it."""
+    tm, topt = _resnet_pair(resnet_weights, "O2")[1]
+    snaps = []
+
+    def step(batch):
+        x, y = batch
+        loss, grads = amp.scaled_grad(lambda: cross_entropy(tm(x), y), topt)
+        info = topt.step(grads)
+        snaps.append({k: t.clone() for k, t in topt.last_info.items()})
+        return dict(info, loss=loss)
+
+    train = parallel.make_step(step, tm, steps_per_call=K)
+    rs = np.random.RandomState(21)
+
+    def batch():
+        shape = (K, 4) if K > 1 else (4,)
+        return (_t(rs.randn(*shape, 3, 32, 32).astype(np.float32)),
+                _t(rs.randint(0, 10, shape).astype(np.int64)))
+
+    outs = [train(batch()) for _ in range(2)]
+    firsts = {k: t.clone() for k, t in outs[0].items()}
+    for k in topt.last_info:
+        assert outs[0][k] is not topt.last_info[k], k
+        assert torch.equal(outs[0][k], firsts[k]), k
+    for call, out in enumerate(outs):
+        mine = snaps[call * K:(call + 1) * K]
+        for k in topt.last_info:
+            want = (mine[0][k] if K == 1
+                    else torch.stack([m[k] for m in mine]))
+            assert torch.equal(out[k], want), (call, k)
+    norms = [float(m["grad_norm"]) for m in snaps]
+    assert len(set(norms)) == len(norms) == 2 * K

@@ -51,7 +51,7 @@ def _close(got, want, dtype, rtol32=1e-5, atol32=1e-5):
                                rtol=tol[0], atol=tol[1])
 
 
-@pytest.mark.parametrize("n2", [768, 100, 1])
+@pytest.mark.parametrize("n2", [768, 100, 1, 4096])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("eps", [1e-12, 1e-5])
 @pytest.mark.parametrize("affine", [True, False])
@@ -190,3 +190,30 @@ def test_bwd_plan_depends_on_the_shape_alone(n1, n2):
         assert plan.blocks * rows >= n1 > (plan.blocks - 1) * rows
     assert plan.parts <= 256 * plan.warps
     assert plan.scratch == 2 * plan.parts * n2
+
+
+@pytest.mark.parametrize("n1", [1, 7, 1024, 4096, 4097, 100_000])
+@pytest.mark.parametrize("n2", [1, 100, 104, 768, 1024, 1500, 4096, 8192,
+                                9000])
+def test_fwd_plan_depends_on_the_shape_alone(n1, n2):
+    """The forward's grid on the card (the host's choice, run here as the
+    pure function it is): the 16-byte path only for rows of whole 16-byte
+    chunks up to 8192 with aligned operands; the grid set by (n1, n2)
+    alone; a warp a row up to 1024, a block of 8 warps a row up to 8192;
+    every row covered and no block without rows."""
+    plans = {(isz, aligned): lnm._fwd_plan(n1, n2, isz, aligned)
+             for isz in (2, 4) for aligned in (True, False)}
+    for (isz, aligned), plan in plans.items():
+        if n2 > 8192:
+            assert plan.path == "stream"
+        else:
+            whole = n2 * isz % 16 == 0
+            assert plan.path == ("vector" if whole and aligned
+                                 else "element")
+    assert len({plan._replace(path="") for plan in plans.values()}) == 1
+    plan = plans[(2, True)]
+    assert 1 <= plan.warps <= 8 and plan.rows_per_group >= 1
+    assert plan.row_warps == (8 if 1024 < n2 <= 8192 else 1)
+    assert plan.warps % plan.row_warps == 0
+    rows = plan.warps // plan.row_warps * plan.rows_per_group
+    assert plan.blocks * rows >= n1 > (plan.blocks - 1) * rows
