@@ -19,9 +19,9 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("amp", "data", "models", "multi_tensor_apply", "nn",
+_SUBPACKAGES = ("amp", "data", "lora", "models", "multi_tensor_apply", "nn",
                 "normalization", "ops", "optimizers", "parallel",
-                "transformer", "utils")
+                "quantization", "transformer", "utils")
 
 __all__ = list(_SUBPACKAGES) + ["resolve_device"]
 

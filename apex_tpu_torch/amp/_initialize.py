@@ -53,6 +53,9 @@ def _patch_forward(model: torch.nn.Module, in_dtype, out_dtype) -> None:
                 else _policy._cast_tree(out, out_dtype))
 
     model.forward = amp_forward
+    # what a copy of the model patches again
+    # (``quantization.quantize_for_decode``)
+    model._amp_forward_dtypes = (in_dtype, out_dtype)
 
 
 def _wrap_optimizer(opt, props: Properties, disabled: bool) -> AmpOptimizer:

@@ -25,7 +25,9 @@ def quantize_kv(val: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     head dim, fp32 scales.  Returns (int8 values, fp32 scales)."""
     f = val.float()
     amax = f.abs().amax(dim=-1, keepdim=True)
-    scale = amax.clamp_min(1e-12) / 127.0
+    # a tensor divisor, as quantization.quantize divides (the card's
+    # division by a Python scalar multiplies by its reciprocal)
+    scale = torch.div(amax.clamp_min(1e-12), torch.full_like(amax, 127.0))
     return torch.round(f / scale).clamp(-127, 127).to(torch.int8), scale
 
 

@@ -32,6 +32,7 @@ from .._device import resolve_device
 from ..nn import functional as F
 from ..normalization import FusedLayerNorm
 from ..transformer.attention import dot_product_attention
+from .gpt import head_table_t, nll_table
 
 __all__ = ["BertConfig", "BertModel", "BertForPretraining", "bert_base",
            "bert_large"]
@@ -198,7 +199,7 @@ class BertForPretraining(torch.nn.Module):
                                      attention_mask)
         # the decoder is the word-embedding table
         table = self.bert.word_embeddings.weight
-        mlm_logits = F.matmul(h, table.t().to(h.dtype))
+        mlm_logits = F.matmul(h, head_table_t(table, h.dtype))
         return mlm_logits, self.nsp(pooled)
 
     def _mlm_hidden(self, input_ids, token_type_ids=None,
@@ -216,7 +217,7 @@ class BertForPretraining(torch.nn.Module):
         nsp_logits = self.nsp(pooled)
         valid = mlm_labels != ignore_index
         labels = torch.where(valid, mlm_labels, 0)
-        table = self.bert.word_embeddings.weight
+        table = nll_table(self.bert.word_embeddings.weight, h.dtype)
         if self.cfg.head_chunk:
             from ..nn.fused_xent import linear_cross_entropy
             B, T, H = h.shape
@@ -224,7 +225,7 @@ class BertForPretraining(torch.nn.Module):
                                        labels.reshape(-1),
                                        int(self.cfg.head_chunk)).reshape(B, T)
         else:
-            logits = F.matmul(h, table.t().to(h.dtype))
+            logits = F.matmul(h, head_table_t(table, h.dtype))
             logp = F.log_softmax(logits.float(), axis=-1)
             nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
         mlm_loss = (nll * valid).sum() / valid.sum().clamp_min(1)

@@ -23,8 +23,9 @@ re-runs the whole fixed (B, block_size) buffer a token;
 (bf16 or the int8 cache of ``models._cache``), seeds them with one
 full-buffer forward (``prefill_mode="chunked"``) or walks the prompt
 (``"step"``), and reads the loop's bounds from the host once, before the
-loop.  Tensor and sequence parallelism (``tp_axis``, ``sp_axis``) are not
-ported yet.
+loop.  The weights may be weight-only int8 (``quantization.
+quantize_for_decode``): the head dequantizes its table.  Tensor and
+sequence parallelism (``tp_axis``, ``sp_axis``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from .. import nn
 from .._device import resolve_device
 from ..nn import functional as F
 from ..normalization import FusedLayerNorm
+from ..quantization import QTensor
 from ..transformer.attention import dot_product_attention
 from . import _cache, sampling
 from ._remat import _MODES, wrap_block
@@ -48,15 +50,19 @@ _UNPORTED_PARALLEL = ("tensor- and sequence-parallel decoders (tp_axis, "
                       "item 6")
 
 
-def _check_table(table) -> torch.Tensor:
-    """The LM head's table: a tensor.  The JAX package also takes a
-    weight-only int8 ``quantization.QTensor`` here, which is not ported."""
-    if not isinstance(table, torch.Tensor):
-        raise NotImplementedError(
-            f"a {type(table).__name__} LM-head table (the JAX package's "
-            f"weight-only int8 QTensor) is not ported yet: ROADMAP.md "
-            f"queue 1, item 4 (quantization.py)")
-    return table
+def head_table_t(table, dtype) -> torch.Tensor:
+    """``table.T`` in ``dtype`` for an LM head (``x @ table.T``): a
+    weight-only int8 ``quantization.QTensor`` dequantizes in its logical
+    dtype first, as the JAX package's ``table.T.astype(x.dtype)``."""
+    if isinstance(table, QTensor):
+        table = table.dequant()
+    return table.t().to(dtype)
+
+
+def nll_table(table, dtype) -> torch.Tensor:
+    """The head table of a loss: a ``QTensor`` dequantized to ``dtype``
+    (the fused chunked head slices it), as the JAX package does."""
+    return table.dequant(dtype) if isinstance(table, QTensor) else table
 
 
 class GPTConfig:
@@ -279,8 +285,7 @@ class GPT(torch.nn.Module):
         return self.ln_f(x)
 
     def _head(self, x):
-        table = _check_table(self.wte.weight)
-        return F.matmul(x, table.t().to(x.dtype))
+        return F.matmul(x, head_table_t(self.wte.weight, x.dtype))
 
     def forward(self, input_ids, attention_mask=None, last_pos=None):
         """Logits (B, T, V); with ``last_pos`` (B,) only those rows, (B, 1,
@@ -295,14 +300,15 @@ class GPT(torch.nn.Module):
         """Per-position nll (B, T') through the tied head: the fused
         chunked path, or the dense logits + fp32 log_softmax with
         ``head_chunk=None``."""
-        table = _check_table(self.wte.weight)
+        table = nll_table(self.wte.weight, x.dtype)
         B, T, D = x.shape
         if self.cfg.head_chunk:
             from ..nn.fused_xent import linear_cross_entropy
             return linear_cross_entropy(
                 x.reshape(B * T, D), table, safe_labels.reshape(-1),
                 int(self.cfg.head_chunk)).reshape(B, T)
-        logp = F.log_softmax(self._head(x).float(), axis=-1)
+        logits = F.matmul(x, head_table_t(table, x.dtype))
+        logp = F.log_softmax(logits.float(), axis=-1)
         return -torch.gather(logp, -1, safe_labels.long()[..., None])[..., 0]
 
     def loss(self, input_ids, attention_mask=None, ignore_index: int = -100):

@@ -41,8 +41,8 @@ from ..normalization import FusedLayerNorm
 from ..transformer.attention import dot_product_attention
 from . import _cache
 from ._remat import _MODES, wrap_block
-from .gpt import (_UNPORTED_PARALLEL, _as_query_axis, _check_table,
-                  _generate_cached, _init_cache, cached_attention,
+from .gpt import (_UNPORTED_PARALLEL, _as_query_axis, _generate_cached,
+                  _init_cache, cached_attention, head_table_t, nll_table,
                   query_positions)
 
 __all__ = ["LlamaConfig", "Llama", "RMSNorm", "apply_rope"]
@@ -365,9 +365,8 @@ class Llama(torch.nn.Module):
                                      bias=False, **kw)
 
     def _table(self):
-        return _check_table(self.embed_tokens.weight
-                            if self.cfg.tie_word_embeddings
-                            else self.lm_head.weight)
+        return (self.embed_tokens.weight if self.cfg.tie_word_embeddings
+                else self.lm_head.weight)
 
     def _embed(self, tokens):
         x = self.embed_tokens(tokens)
@@ -379,7 +378,7 @@ class Llama(torch.nn.Module):
         return x
 
     def _head(self, x):
-        return F.matmul(x, self._table().t().to(x.dtype))
+        return F.matmul(x, head_table_t(self._table(), x.dtype))
 
     # -- training ------------------------------------------------------------
     def _backbone(self, input_ids, attention_mask=None):
@@ -402,14 +401,15 @@ class Llama(torch.nn.Module):
     def _nll(self, x, safe_labels):
         """Per-position nll (B, T') through the head: fused chunked by
         default, dense with ``head_chunk=None``."""
-        table = self._table()
+        table = nll_table(self._table(), x.dtype)
         B, T, D = x.shape
         if self.cfg.head_chunk:
             from ..nn.fused_xent import linear_cross_entropy
             return linear_cross_entropy(
                 x.reshape(B * T, D), table, safe_labels.reshape(-1),
                 int(self.cfg.head_chunk)).reshape(B, T)
-        logp = F.log_softmax(self._head(x).float(), axis=-1)
+        logits = F.matmul(x, head_table_t(table, x.dtype))
+        logp = F.log_softmax(logits.float(), axis=-1)
         return -torch.gather(logp, -1, safe_labels.long()[..., None])[..., 0]
 
     def loss(self, input_ids, attention_mask=None, ignore_index: int = -100):

@@ -37,6 +37,7 @@ import torch.nn.functional as _F
 
 from .. import _replay, ops
 from ..amp import policy as _policy
+from ..quantization import QTensor
 
 __all__ = [
     "linear", "matmul", "conv2d", "conv_transpose2d", "relu", "leaky_relu",
@@ -109,7 +110,15 @@ def _conv_pads(padding):
 @op("linear")
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x @ weight.T + bias``, weight (out, in)."""
+    """``x @ weight.T + bias``, weight (out, in).  A weight-only int8
+    ``quantization.QTensor`` dequantizes to its logical dtype first, and
+    the product and the bias add promote as the JAX package's
+    ``jnp.matmul(x, weight.T) + bias`` does."""
+    if isinstance(weight, QTensor):
+        w = weight.dequant()
+        dt = torch.promote_types(x.dtype, w.dtype)
+        y = torch.matmul(x.to(dt), w.to(dt).t())
+        return y if bias is None else y + bias
     return _F.linear(x, weight, bias)
 
 
@@ -308,7 +317,10 @@ def adaptive_avg_pool2d(x: torch.Tensor, output_size=1,
 
 
 def embedding(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Rows ``table[ids]``."""
+    """Rows ``table[ids]``; of a ``QTensor`` only the gathered rows
+    dequantize."""
+    if isinstance(table, QTensor):
+        return table.take(ids)
     return _F.embedding(ids.long(), table)
 
 

@@ -22,12 +22,22 @@ load_state_dict`` takes, and back.  The JAX side is read by attribute
 (``opt_state.scalers``, ``.inner``, ``.masters``) and ``np.asarray``, so
 nothing here imports it.
 
-The decoders' weights need nothing more: ``models.GPT`` and
-``models.Llama`` name their parameters by the JAX trees' paths (the
-tied head is the one table).  A KV cache goes across with
+The decoders' and T5's weights need nothing more: ``models.GPT``,
+``models.Llama`` and ``models.T5`` name their parameters by the JAX
+trees' paths (a tied head is the one table).  A KV cache goes across with
 :func:`kv_cache_from_jax` and :func:`kv_cache_to_jax`: ``{layer: {"k",
 "v"}}``, plus ``"k_scale"``/``"v_scale"`` for an int8 cache, the same
-layout (B, n_kv_head, S, D) and dtypes on both sides.
+layout (B, n_kv_head, S, D) and dtypes on both sides; T5's serving state
+(``init_seq2seq_state``'s ``{"cross", "dec", "src_mask"}``) goes the
+same way.
+
+Weight-only int8 weights: a JAX ``quantization.QTensor`` leaf goes into
+the state dict as ``<path>.data`` and ``<path>.scale`` (the port's
+``QTensor`` buffers), so a quantized port model loads a quantized JAX
+tree; :func:`qtensor_from_jax` and :func:`qtensor_to_jax` carry one
+QTensor (data, scale, axis and logical dtype).  LoRA adapters, a flat
+dict ``{path: {"a", "b"}}`` keyed alike in both packages, go across with
+:func:`adapters_from_jax` and :func:`adapters_to_jax`.
 """
 
 from __future__ import annotations
@@ -42,7 +52,9 @@ from ..optimizers.fused_lamb import LambState
 
 __all__ = ["params_from_jax", "params_to_jax", "lamb_state_from_jax",
            "lamb_state_to_jax", "amp_state_from_jax", "amp_state_to_jax",
-           "kv_cache_from_jax", "kv_cache_to_jax", "STATE_KEYS"]
+           "kv_cache_from_jax", "kv_cache_to_jax", "qtensor_from_jax",
+           "qtensor_to_jax",
+           "adapters_from_jax", "adapters_to_jax", "STATE_KEYS"]
 
 _SCALER_KEYS = ("loss_scale", "unskipped", "steps_skipped")
 
@@ -65,11 +77,22 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _is_qtensor(leaf) -> bool:
+    """A JAX ``quantization.QTensor``, by its attributes (``dequant``
+    first: a numpy array's ``data`` is its buffer, which a bfloat16 array
+    refuses to give)."""
+    return all(hasattr(leaf, a) for a in ("dequant", "axis", "scale",
+                                          "data"))
+
+
 def _flatten(tree: Dict[str, Any], prefix: str, out: Dict[str, Any]) -> None:
     for k, v in tree.items():
         name = f"{prefix}.{k}" if prefix else str(k)
         if isinstance(v, dict):
             _flatten(v, name, out)
+        elif _is_qtensor(v):
+            out[f"{name}.data"] = v.data
+            out[f"{name}.scale"] = v.scale
         else:
             out[name] = v
 
@@ -219,18 +242,55 @@ def amp_state_to_jax(optimizer, chunk: int = 1024) -> Dict[str, Any]:
     return {"scalers": scalers, "inner": inner, "masters": masters}
 
 
-def kv_cache_from_jax(cache: Dict[str, Dict[str, Any]], device="cpu"
-                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+def kv_cache_from_jax(cache: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """A JAX decoder's KV cache (``init_cache``/``prefill_cache``'s
-    ``{layer: {"k", "v"[, "k_scale", "v_scale"]}}``) as the port's, on
-    ``device``, dtypes kept (int8 values, fp32 scales)."""
-    return {li: {k: _to_torch(np.asarray(a)).to(device)
-                 for k, a in layer.items()}
-            for li, layer in cache.items()}
+    ``{layer: {"k", "v"[, "k_scale", "v_scale"]}}``), or T5's serving
+    state (``init_seq2seq_state``'s ``{"cross", "dec", "src_mask"}``), as
+    the port's, on ``device``, dtypes kept (int8 values, fp32 scales)."""
+    if isinstance(cache, dict):
+        return {k: kv_cache_from_jax(v, device) for k, v in cache.items()}
+    return _to_torch(np.asarray(cache)).to(device)
 
 
-def kv_cache_to_jax(cache: Dict[str, Dict[str, torch.Tensor]]
-                    ) -> Dict[str, Dict[str, np.ndarray]]:
+def kv_cache_to_jax(cache: Dict[str, Any]) -> Dict[str, Any]:
     """Inverse of :func:`kv_cache_from_jax`: the port's cache as numpy."""
-    return {li: {k: _to_numpy(t) for k, t in layer.items()}
-            for li, layer in cache.items()}
+    if isinstance(cache, dict):
+        return {k: kv_cache_to_jax(v) for k, v in cache.items()}
+    return _to_numpy(cache)
+
+
+def qtensor_from_jax(q, device="cpu"):
+    """A JAX ``QTensor`` as the port's (int8 data, fp32 scale, its axis and
+    logical dtype), on ``device``."""
+    from ..quantization import QTensor
+    dtype = getattr(torch, np.dtype(q.dtype).name)
+    return QTensor(_to_torch(np.asarray(q.data)).to(device),
+                   _to_torch(np.asarray(q.scale)).to(device), int(q.axis),
+                   dtype)
+
+
+def qtensor_to_jax(q) -> Dict[str, Any]:
+    """A port ``QTensor`` as ``{"data", "scale", "axis", "dtype"}`` (numpy
+    arrays, the axis, the logical dtype's name): the JAX ``QTensor``'s
+    constructor arguments."""
+    return {"data": _to_numpy(q.data), "scale": _to_numpy(q.scale),
+            "axis": q.axis, "dtype": str(q.dtype).replace("torch.", "")}
+
+
+def adapters_from_jax(adapters: Dict[str, Dict[str, Any]], device="cpu"):
+    """JAX LoRA adapters ``{path: {"a", "b"}}`` as the port's (a
+    ``ModuleDict`` of the same paths, ``lora.init``'s form), on
+    ``device``."""
+    from ..lora import _Adapter
+    out = torch.nn.ModuleDict()
+    for path, ad in adapters.items():
+        out[path] = _Adapter(_to_torch(np.asarray(ad["a"])).to(device),
+                             _to_torch(np.asarray(ad["b"])).to(device))
+    return out
+
+
+def adapters_to_jax(adapters) -> Dict[str, Dict[str, np.ndarray]]:
+    """Inverse of :func:`adapters_from_jax`: ``{path: {"a", "b"}}`` as
+    numpy."""
+    return {path: {"a": _to_numpy(ad["a"]), "b": _to_numpy(ad["b"])}
+            for path, ad in adapters.items()}

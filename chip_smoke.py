@@ -4,10 +4,12 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --captured
     python3 chip_smoke.py --decoder
+    python3 chip_smoke.py --decoder-tail
     python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
 
 The second form runs phases 1, 2 and 15 alone, the third phases 1, 2 and
-16 (with 16's launch-count checks).  The fourth builds the
+16 (with 16's launch-count checks), the fourth phases 1, 2 and 17.  The
+fifth builds the
 kernels and times the LayerNorm backward of this checkout against the one
 in PARENT_CHECKOUT (another tree of this repository), at BERT-base's and
 BERT-large's shapes, by graph replay in the order parent, change, change,
@@ -84,7 +86,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
             optimizer and amp state dicts), loaded into a fresh pair:
             every tensor bitwise, then one more step on each with the
             same overflow flag and scaler and losses within 1e-6.
-12. counts  (checked last, after 13 to 16) each path launched each
+12. counts  (checked last, after 13 to 17) each path launched each
             of its kernels exactly as often as it
             runs it (per step, per BatchNorm, LayerNorm or attention layer
             and pass) and no kernel of another path; phase 13's runs too
@@ -163,6 +165,40 @@ Phases, in order; any failure raises and the exit code is non-zero:
             --config large --optimizer lamb -b 8, each with exact launch
             counts.  The phase's kernel rows print as the
             "kernels_decoder" line.
+17. decoder-tail  the rest of the decoder families, random weights from
+            seed 0.  T5 at google-t5/t5-base's published widths (12 + 12
+            layers, 768 wide, vocab 32128, relu, tied) under O2 +
+            FusedAdam(lr 1e-4) at 16 x (512 -> 128) tokens through
+            make_step, held as phase 15 holds its paths (its attention
+            never reaching the dispatch), then greedy generation of 32
+            tokens from four sources of valid lengths 512 to 97: fp32
+            exactly an uncached argmax loop over forward, bf16's agreement
+            reported.  The optimizer kernels at T5-base's flat length, the
+            flash forward causal with a key-padding mask at beam search's
+            (16, 12, 96, 64) in bf16 and fp32 and the LayerNorm forward at
+            a decode step's (4, 768), each against fp64 and the plain
+            version, timed.  LoRA on the Llama at TinyLlama-1.1B's widths
+            (phase 16's): a frozen bf16 base, rank-8 alpha-16 adapters on
+            q_proj and v_proj under O2 + FusedAdam(lr 1e-3) at 4 x 2048,
+            the loss on merged weights through functional_call, through
+            make_step and held likewise, the base bitwise unchanged; the
+            base through llama_to_hf and llama_from_hf (a duck-typed
+            stand-in for the HF model), bitwise.  Decoding at GPT-2
+            small's widths with distilgpt2's (6 layers) as the draft, four
+            prompts of 16 to 57 tokens, 32 new tokens: beam search (4
+            beams; 1 beam exactly greedy generate in fp32, 4 beams' score
+            at least greedy's, no host read), speculative decoding (gamma
+            4, cached and full verify, exactly the target's greedy tokens
+            in fp32, also with draft = target; sampling at temperature
+            0.8), acceptance rate and host reads an iteration (torch's
+            sync debug mode), quantize_for_decode on the card bitwise the
+            CPU's, int8 weights with the int8 cache against bf16 greedy,
+            tok/s of each; examples/serving/demo_torch.py --batch 4
+            --prompt 16 --new 32 in process.  Every one of flash_fwd,
+            flash_dq, flash_dkv, layer_norm_fwd, fused_adam,
+            multi_tensor_scale and multi_tensor_l2norm launched on the
+            phase's paths; the kernel rows print as the
+            "kernels_decoder_tail" line.
 
 Phase 3 also times the variants the O1 paths run: Adam without the half
 copy at N = 25,557,032, the LayerNorm forward and backward in fp32 at
@@ -773,7 +809,8 @@ FLASH_VARIANTS = {
     "none": {}, "causal": {"causal": True}, "kv_mask": {"kv_mask": True},
     "segments": {"segments": True}, "dropout": {"rate": 0.1},
     "all": {"causal": True, "kv_mask": True, "segments": True, "rate": 0.1},
-    "causal_dropout": {"causal": True, "rate": 0.1}}
+    "causal_dropout": {"causal": True, "rate": 0.1},
+    "causal_kv_mask": {"causal": True, "kv_mask": True}}
 EPS32 = 2.0 ** -24
 # a unit in the last place, relative: twice the largest error of one
 # rounding to the type
@@ -1279,14 +1316,16 @@ def _flash_ref64(q, k, v, do, o, H, scale, causal, kvm, seg, words, rate):
                    colsum(do64))}
 
 
-def _flash_check(shape, dtype, variant, seed):
+def _flash_check(shape, dtype, variant, seed, lengths=None):
     """The three flash kernels and their plain versions, each against
     fp64: an output within one rounding to its type of the fp64 value plus
     (u + 256*2^-24) of the fp64 sum of its terms' magnitudes (u: the
     rounding of P and dS to the type; 256*2^-24: the fp32 sums, exp and the
     scores' rounding), plus the rounding of P and dS values too small for
     the type's normal range (fp16).  A fully masked row must be exactly
-    0."""
+    0.  ``lengths`` (B,): the key-padding mask keeps each sequence's
+    first ``lengths[b]`` keys (default: a random mask, the first sequence
+    all masked)."""
     from apex_tpu_torch import ops
     from apex_tpu_torch.ops import flash_attention as fa
     B, H, T, D = shape
@@ -1294,6 +1333,8 @@ def _flash_check(shape, dtype, variant, seed):
     spec = FLASH_VARIANTS[variant]
     causal = spec.get("causal", False)
     kvm = kvm if spec.get("kv_mask") else None
+    if lengths is not None:
+        kvm = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
     seg = seg if spec.get("segments") else None
     rate = spec.get("rate", 0.0)
     scale = D ** -0.5
@@ -1321,7 +1362,7 @@ def _flash_check(shape, dtype, variant, seed):
             assert r <= 1.0, (f"flash {who} {name} {shape} {dtype} "
                               f"{variant}: {r} of the fp64 bound")
             ratios[who] = max(ratios[who], r)
-    if kvm is not None:
+    if kvm is not None and not bool(kvm[0].any()):
         assert float(got["o"][:H].float().abs().max()) == 0.0, \
             "a sequence with no valid key must give zeros"
     # the same bits on a second launch: each block writes only its rows
@@ -3454,6 +3495,647 @@ def phase_decoder(smi):
     return rows, counts, counts_ex, results
 
 
+# -- phase 17, the rest of the decoder families ------------------------------
+
+T5_BATCH, T5_SRC, T5_TGT = 16, 512, 128     # 16 x (512 -> 128) tokens
+T5_GEN = 32                         # greedy tokens from four sources
+T5_VALID = (512, 371, 230, 97)      # their valid source lengths
+T5_LR = 1e-4
+LORA_RANK, LORA_ALPHA = 8, 16.0     # lora.py's example: q_proj and v_proj
+LORA_TARGETS = ("q_proj", "v_proj")
+LORA_LR = 1e-3
+TAIL_NEW = 32                       # new tokens of each decode mode
+TAIL_BUF = 96                       # GEN_PROMPTS' longest + 32, rounded up
+TAIL_GAMMA = 4
+TAIL_BEAMS = 4
+TAIL_TEMP = 0.8
+DEMO_ARGV = ["--batch", "4", "--prompt", "16", "--new", "32"]
+# the seven wrappers this phase's paths must launch
+TAIL_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "layer_norm_fwd",
+                "fused_adam", "multi_tensor_scale", "multi_tensor_l2norm")
+
+
+def t5_base():
+    """google-t5/t5-base's published config.json: d_model 768, d_ff 3072,
+    d_kv 64, 12 heads, 12 encoder and 12 decoder layers, vocab 32128,
+    relu, 32 buckets out to distance 128, eps 1e-6, tied embeddings
+    (dropout 0.1 is stored and not applied, as in the JAX package)."""
+    from apex_tpu_torch import models
+    return models.T5Config(
+        vocab_size=32128, d_model=768, d_kv=64, d_ff=3072, num_layers=12,
+        num_decoder_layers=12, num_heads=12,
+        relative_attention_num_buckets=32,
+        relative_attention_max_distance=128, layer_norm_epsilon=1e-6,
+        dropout_rate=0.1, feed_forward_proj="relu", tie_word_embeddings=True)
+
+
+def distilgpt2():
+    """distilgpt2's published widths: GPT-2 small's (768 wide, 12 heads,
+    vocab 50257, 1024 positions) at 6 layers."""
+    from apex_tpu_torch import models
+    return models.GPTConfig(n_layer=6)
+
+
+def _tail_opt_rows(n, tag):
+    """The optimizer kernels at a path's flat length ``n``: scale (clean,
+    then an inf and a nan: the flag), the l2norm (rel 1e-6, the same bits
+    twice) and Adam with the bf16 copy, each against its plain version
+    (scale and Adam bitwise), then timed (inputs drawn on the card)."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import adam as adam_mod
+    from apex_tpu_torch.ops import multi_tensor as mt
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 97)
+    x = torch.randn(n, generator=gen, device=dev)
+    g = torch.randn(n, generator=gen, device=dev) * 1024.0
+    m0 = torch.randn(n, generator=gen, device=dev).abs() * 0.1
+    v0 = torch.randn(n, generator=gen, device=dev).abs() * 0.01
+    err = {}
+    s = torch.full((), 1.0 / 65536.0, device=dev)
+    for inject in (False, True):
+        xi = x.clone()
+        if inject:
+            xi[n // 3] = float("inf")
+            xi[n - 1] = float("nan")
+        ok, fk = ops.multi_tensor_scale(xi, s)
+        op, fp = mt._scale_plain(xi, s, torch.empty_like(xi))
+        assert same(ok, op), f"[{tag}] scale: kernel != plain"
+        assert float(fk) == float(fp) == float(inject), (tag, float(fk))
+        err["multi_tensor_scale"] = max_abs(ok, op)
+        del xi, ok, op
+    nk, np_ = ops.multi_tensor_l2norm(x), mt._l2norm_plain(x)
+    assert abs(float(nk) - float(np_)) <= 1e-6 * float(np_), (tag, nk, np_)
+    assert float(ops.multi_tensor_l2norm(x)) == float(nk)
+    err["multi_tensor_l2norm"] = abs(float(nk) - float(np_))
+    ss = torch.full((), 1e-3, device=dev)
+    inv = torch.full((), 1.0 / 1024.0, device=dev)
+    zero = torch.zeros((), device=dev)
+    bk = [t.clone() for t in (x, m0, v0)]
+    bp = [t.clone() for t in (x, m0, v0)]
+    hk = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    hp = torch.empty_like(hk)
+    args = (0.9, 0.999, 1e-8, False, 0.0)
+    ops.fused_adam(*bk, g, ss, inv, *args, half=hk, noop=zero)
+    adam_mod._adam_plain(*bp, g, ss, inv, *args, hp, zero)
+    for a, b in zip(bk + [hk], bp + [hp]):
+        assert same(a, b), f"[{tag}] adam: kernel != plain"
+    err["fused_adam"] = max(max_abs(a, b) for a, b in zip(bk, bp))
+    log(f"[decoder-tail] {tag}: scale, l2norm and Adam at n = {n} agree "
+        f"with the plain versions; max abs err {err}")
+    out = torch.empty_like(x)
+    pl = x.clone()
+    pl.grad = g.clone()
+    lib_adam = torch.optim.Adam([pl], lr=1e-3, fused=True, capturable=True)
+    timing = {
+        f"multi_tensor_scale:{tag}": (
+            8 * n, 0, lambda: ops.multi_tensor_scale(x, s, out=out),
+            lambda: mt._scale_plain(x, s, out), lambda: torch.mul(x, s)),
+        f"multi_tensor_l2norm:{tag}": (
+            4 * n, 0, lambda: ops.multi_tensor_l2norm(x),
+            lambda: mt._l2norm_plain(x),
+            lambda: torch.linalg.vector_norm(x)),
+        f"fused_adam:{tag}": (
+            30 * n, 0,
+            lambda: ops.fused_adam(*bk, g, ss, inv, *args, half=hk,
+                                   noop=zero),
+            lambda: adam_mod._adam_plain(*bp, g, ss, inv, *args, hp, zero),
+            lib_adam.step)}
+    rows = _time_rows(timing, err, f"n = {n} fp32 (bf16 copy), one call a "
+                      f"step")
+    del timing, lib_adam, pl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _tail_flash_rows(lens, tag):
+    """The flash forward as beam search and the full verify run it: causal
+    with the key-padding mask of per-row lengths, at GPT-2 small's heads
+    and a 4-beam batch of ``lens``' prompts (bf16 and fp32), within phase
+    3's fp64 bound (the backward too), each kernel twice bitwise; the
+    bf16 forward timed against its plain version and SDPA with the same
+    boolean mask."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import flash_attention as fa
+    B, H, T, D = len(lens), 12, TAIL_BUF, 64
+    lens = torch.tensor(lens, device=DEVICE)
+    err = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        errs, rat = _flash_check((B, H, T, D), dtype, "causal_kv_mask",
+                                 SEED + 98 + i, lengths=lens)
+        for k_, e in errs.items():
+            err[k_] = max(err[k_], e)
+        log(f"[decoder-tail] flash at {(B, H, T, D)} {dtype} causal with "
+            f"the key-padding mask of lengths {lens.tolist()}: within the "
+            f"fp64 bounds (ratio kernel {rat['kernel']:.3e}, plain "
+            f"{rat['plain']:.3e}); max abs err {errs}")
+    q, k, v, _, _, _, words = _flash_case(B, H, T, D, torch.bfloat16,
+                                          SEED + 98)
+    kvm = torch.arange(T, device=DEVICE)[None, :] < lens[:, None]
+    args = (H, D ** -0.5, True, kvm, None, words, 0.0)
+    causal = torch.ones((T, T), dtype=torch.bool, device=DEVICE).tril()
+    amask = (causal[None, None] & kvm[:, None, None, :])
+    q4, k4, v4 = (t.view(B, H, T, D) for t in (q, k, v))
+    n, stats = B * H * T * D, B * H * T * 4
+    # the (query, key) pairs of this mask: query i sees keys j <= i, j <
+    # its row's length
+    pairs = sum(min(i + 1, n_) for n_ in lens.tolist() for i in range(T))
+    timing = {f"flash_fwd:{tag}": (
+        4 * n * q.element_size() + stats, 4 * H * pairs * D,
+        lambda: ops.flash_fwd(q, k, v, *args),
+        lambda: fa._fwd_plain(q, k, v, *args),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=amask))}
+    return _time_rows(timing, err, f"{(B, H, T, D)} (B, H, T, D) bf16, "
+                      f"causal, key padding, one call; 12 calls a pass")
+
+
+def _tail_ln_rows(rows_n, tag):
+    """The LayerNorm forward at a decode shape of GPT-2 small ((rows,
+    768) bf16, eps 1e-5): within phase 3's fp64 bounds, timed."""
+    (x, _, w, b, _, _), errs, rat = _ln_check(rows_n, 768, torch.bfloat16,
+                                              SEED + 99 + rows_n, eps=1e-5)
+    log(f"[decoder-tail] layer_norm at ({rows_n}, 768) bf16: within the "
+        f"fp64 bounds (ratio kernel {rat['kernel']:.3e}, plain "
+        f"{rat['plain']:.3e}), max abs err {errs}")
+    return _time_rows({f"layer_norm_fwd:{tag}": _ln_fwd_entry(x, w, b,
+                                                               1e-5)},
+                      {"layer_norm_fwd": errs[0]},
+                      f"({rows_n}, 768) bf16, eps 1e-5, one call; 25 "
+                      f"calls a decode step")
+
+
+def _counted(fn):
+    """``fn()``'s result and the launch counts of that call alone: set to
+    0 just before, read just after."""
+    from apex_tpu_torch import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def _host_reads(fn):
+    """``fn()``'s result, its wall time (ms) and how many times it made
+    the host wait on the card (torch's CUDA sync debug mode warns at each
+    synchronizing call: a read of a device value, a blocking copy)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    reads = sum("synchroniz" in str(w.message).lower() for w in caught)
+    return out, ms, reads
+
+
+def _tail_t5(smi, totals):
+    """T5 at t5-base's widths under O2 + FusedAdam through make_step,
+    captured and held bitwise against the eager step; then greedy
+    generation against an uncached argmax loop over ``forward``."""
+    from apex_tpu_torch import amp, models, optimizers
+    dev = torch.device(DEVICE)
+    floor = _mem_floor()
+    model = models.T5(t5_base(), device=dev,
+                      generator=torch.Generator().manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    rs = np.random.RandomState(SEED + 17)
+    src = torch.from_numpy(rs.randint(2, 32128, (T5_BATCH, T5_SRC))).to(dev)
+    labels = torch.from_numpy(rs.randint(2, 32128,
+                                         (T5_BATCH, T5_TGT))).to(dev)
+    model, opt = amp.initialize(model, optimizers.FusedAdam(lr=T5_LR),
+                                opt_level="O2", verbosity=0)
+
+    def step(b):
+        loss, grads = amp.scaled_grad(lambda: model.loss(b[0], b[1]), opt)
+        opt.step(grads)
+        return loss
+
+    log(f"[decoder-tail-t5] {n_params} parameters, O2 + FusedAdam(lr="
+        f"{T5_LR}), {T5_BATCH} x ({T5_SRC} -> {T5_TGT}) tokens, floor "
+        f"{floor} B: scaled_grad, step(grads) through make_step")
+    per = {"multi_tensor_scale": 1, "multi_tensor_l2norm": 1,
+           "fused_adam": 1}
+    paths = []
+    from apex_tpu_torch import transformer
+    transformer.set_path_hook(paths.append)
+    try:
+        counts, out = _captured_path(
+            "decoder-tail-t5", model, opt, step, (src, labels), per, smi,
+            (T5_BATCH * (T5_SRC + T5_TGT), "tokens"))
+    finally:
+        transformer.set_path_hook(None)
+    assert not paths, f"T5 reached the attention dispatch: {set(paths)}"
+    _add(totals, counts[1][0])
+    out["flat_length"] = opt.masters.layout.total
+    del opt
+    gc.collect()
+    out["parameters"] = n_params
+    out["generation"] = _t5_generation(model, src[:4])
+    del model
+    _mem_floor()
+    return counts, out
+
+
+def _t5_generation(model, src):
+    """Greedy generation of T5_GEN tokens from four sources of valid
+    lengths T5_VALID: in bf16 (the trained weights) its agreement with an
+    uncached argmax loop over ``forward``; in fp32 (the weights widened)
+    equal to it token for token."""
+    B = src.shape[0]
+    mask = (torch.arange(T5_SRC, device=src.device)[None, :]
+            < torch.tensor(T5_VALID, device=src.device)[:, None]).long()
+    model.eval()
+
+    def uncached():
+        dec = torch.full((B, 1), model.cfg.decoder_start_token_id,
+                         dtype=torch.int64, device=src.device)
+        with torch.no_grad():
+            for _ in range(T5_GEN):
+                nxt = model(src, dec, mask)[:, -1].argmax(-1)
+                dec = torch.cat([dec, nxt[:, None]], dim=1)
+        return dec[:, 1:]
+
+    out = {}
+    for precision in ("bf16", "fp32"):
+        if precision == "fp32":
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.data = p.data.float()
+        (ref,), (ums,) = _timed(uncached, 1)
+        got, gms, reads = _host_reads(lambda: model.generate(src, T5_GEN,
+                                                             mask))
+        agree = float((got == ref).float().mean())
+        n_tok = B * T5_GEN
+        log(f"[decoder-tail-t5] {precision}: generate {n_tok} tokens in "
+            f"{gms:.1f} ms ({n_tok / gms * 1e3:.1f} tok/s, {reads} host "
+            f"reads), uncached loop {ums:.1f} ms; tokens equal to the "
+            f"uncached loop's: {agree:.4f}")
+        out[precision] = {"agreement": agree, "generate_ms": gms,
+                          "tokens_per_s": n_tok / gms * 1e3,
+                          "uncached_ms": ums, "host_reads": reads}
+    assert out["fp32"]["agreement"] == 1.0, \
+        "fp32 T5 generate differs from the uncached loop"
+    return out
+
+
+class _LossOf(torch.nn.Module):
+    """``model.loss`` as a module's forward, for ``functional_call``."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, ids):
+        return self.model.loss(ids)
+
+
+def _tail_lora(smi, totals):
+    """LoRA on the Llama at TinyLlama-1.1B's widths: a frozen bf16 base,
+    rank-8 alpha-16 adapters on q_proj and v_proj under O2 + FusedAdam
+    through make_step, the loss on merged weights through functional_call;
+    captured and held bitwise against the eager step, the base bitwise
+    unchanged.  Then the base through llama_to_hf and back."""
+    from apex_tpu_torch import amp, lora, models, optimizers
+    dev = torch.device(DEVICE)
+    floor = _mem_floor()
+    t0 = time.time()
+    base = models.Llama(tinyllama(), device=dev,
+                        generator=torch.Generator().manual_seed(SEED))
+    base = base.to(torch.bfloat16).requires_grad_(False)
+    log(f"[decoder-tail-lora] base built in {time.time() - t0:.1f} s")
+    before = {k: v.clone() for k, v in base.state_dict().items()}
+    adapters = lora.init(base, LORA_TARGETS, rank=LORA_RANK,
+                         generator=torch.Generator().manual_seed(SEED))
+    small, full = lora.num_params(adapters)
+    adapters, opt = amp.initialize(adapters,
+                                   optimizers.FusedAdam(lr=LORA_LR),
+                                   opt_level="O2", verbosity=0)
+    s = lora.scale(LORA_ALPHA, LORA_RANK)
+    frozen = {f"model.{n}": p.detach() for n, p in base.named_parameters()}
+    prefixed = {f"model/{k}": v for k, v in adapters.items()}
+    wrapper = _LossOf(base)
+
+    def step(b):
+        def loss_fn():
+            merged = lora.merge(frozen, prefixed, s)
+            return torch.func.functional_call(wrapper, merged, (b[0],))
+        loss, grads = amp.scaled_grad(loss_fn, opt)
+        opt.step(grads)
+        return loss
+
+    rs = np.random.RandomState(SEED + 18)
+    ids = torch.from_numpy(rs.randint(0, DECODER_TOKENS,
+                                      (TL_BATCH, TL_SEQ))).to(dev)
+    log(f"[decoder-tail-lora] {small} adapter parameters (rank "
+        f"{LORA_RANK}, alpha {LORA_ALPHA}, {LORA_TARGETS}) over {full} "
+        f"adapted and {sum(p.numel() for p in base.parameters())} base "
+        f"parameters; O2 + FusedAdam(lr={LORA_LR}) on the adapters, "
+        f"{TL_BATCH} x {TL_SEQ} tokens, floor {floor} B")
+    per = {"multi_tensor_scale": 1, "multi_tensor_l2norm": 1,
+           "fused_adam": 1, "flash_fwd": TL_LAYERS, "flash_dq": TL_LAYERS,
+           "flash_dkv": TL_LAYERS}
+    counts, out = _captured_path("decoder-tail-lora", adapters, opt, step,
+                                 (ids,), per, smi, (TL_BATCH * TL_SEQ,
+                                                    "tokens"))
+    _add(totals, counts[1][0])
+    for k, v in base.state_dict().items():
+        assert torch.equal(v, before[k]), f"[decoder-tail-lora] base {k}"
+    assert all(p.grad is None for p in base.parameters())
+    log(f"[decoder-tail-lora] every base tensor ({len(before)}) bitwise "
+        f"as before the steps; graph step_ms "
+        f"{out['graphs'][1]['step_ms']:.2f} against the full training "
+        f"step's 258.35 (PERF.md, PR 12)")
+    out.update(adapter_parameters=small, adapted_parameters=full)
+    del before, opt, adapters, prefixed, frozen
+    gc.collect()
+    out["round_trip"] = _tail_round_trip(base)
+    del base
+    _mem_floor()
+    return counts, out
+
+
+def _tail_round_trip(base):
+    """The TinyLlama-width weights through llama_to_hf and back through
+    llama_from_hf on a duck-typed stand-in for the HF model (its config's
+    fields and the state dict): fp32 copies bitwise the weights widened."""
+    from types import SimpleNamespace
+    from apex_tpu_torch.utils import hf_interop
+    cfg = base.cfg
+    t0 = time.time()
+    sd = hf_interop.llama_to_hf(cfg, base.state_dict())
+    hc = SimpleNamespace(
+        vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+        intermediate_size=cfg.intermediate_size,
+        num_hidden_layers=cfg.num_hidden_layers,
+        num_attention_heads=cfg.num_attention_heads,
+        num_key_value_heads=cfg.num_key_value_heads,
+        max_position_embeddings=cfg.max_position_embeddings,
+        rms_norm_eps=cfg.rms_norm_eps, rope_theta=cfg.rope_theta,
+        tie_word_embeddings=cfg.tie_word_embeddings, hidden_act="silu")
+    back = hf_interop.llama_from_hf(SimpleNamespace(
+        config=hc, state_dict=lambda: sd), device=DEVICE)
+    n = 0
+    for k, v in base.state_dict().items():
+        got = back.state_dict()[k]
+        assert got.dtype == torch.float32 and torch.equal(got, v.float()), k
+        n += v.numel()
+    secs = time.time() - t0
+    log(f"[decoder-tail-roundtrip] llama_to_hf -> llama_from_hf: {len(sd)} "
+        f"tensors, {n} parameters bitwise (fp32) in {secs:.1f} s")
+    return {"tensors": len(sd), "parameters": n, "seconds": secs}
+
+
+def _acceptance(calls, gamma):
+    """Accepted draft tokens over the proposals that could be accepted
+    (a proposal needs its correction slot inside the window), and the
+    iterations, from the (cur_len, new_len, final_len) of each verify
+    round."""
+    acc = elig = 0
+    for cur, new, final in calls:
+        active = cur < final
+        n_acc = (new - cur - 1).clamp(min=0)
+        e = (final - 1 - cur).clamp(0, gamma)
+        acc += int(n_acc[active].sum())
+        elig += int(e[active].sum())
+    return acc / max(elig, 1), len(calls)
+
+
+def _tail_decode(totals):
+    """Decoding at GPT-2 small's widths (target gpt2_small, draft
+    distilgpt2's widths, random weights from seeds 0 and 1): beam search,
+    speculative decoding (both verify modes, a perfect draft, sampling)
+    and int8 weights, each against greedy decoding."""
+    from apex_tpu_torch import models
+    from apex_tpu_torch.models import (beam_search, generate_speculative,
+                                       speculative)
+    dev = torch.device(DEVICE)
+    floor = _mem_floor()
+    t32 = _gpt2_small(dev)
+    d32 = models.GPT(distilgpt2(), device=dev,
+                     generator=torch.Generator().manual_seed(SEED + 1)).eval()
+    t16 = _gpt2_small(dev).to(torch.bfloat16)
+    d16 = models.GPT(distilgpt2(), device=dev, generator=torch.Generator(
+        ).manual_seed(SEED + 1)).to(torch.bfloat16).eval()
+    rs = np.random.RandomState(SEED + 19)
+    buf = torch.zeros((len(GEN_PROMPTS), TAIL_BUF), dtype=torch.int64,
+                      device=dev)
+    for r, n in enumerate(GEN_PROMPTS):
+        buf[r, :n] = torch.from_numpy(rs.randint(0, DECODER_TOKENS, n))
+    lens = torch.tensor(GEN_PROMPTS, device=dev)
+    n_tok = len(GEN_PROMPTS) * TAIL_NEW
+    out, counts = {}, {}
+    calls = []
+    inner = speculative._rebuild
+
+    def recording(*a):
+        # each verify round of either mode: (cur_len, new_len, final_len)
+        res = inner(*a)
+        calls.append((a[2].clone(), res[1].clone(), a[3].clone()))
+        return res
+
+    def run(name, fn, tokens=n_tok):
+        fn()                            # warm-up: the timed call is the 2nd
+        calls.clear()
+        ((res, ms, reads), c) = _counted(lambda: _host_reads(fn))
+        counts[name] = c
+        _add(totals, c)
+        out[name] = {"ms": ms, "tokens_per_s": tokens / ms * 1e3,
+                     "host_reads": reads, "launches": c}
+        if calls:
+            rate, iters = _acceptance(calls, TAIL_GAMMA)
+            out[name].update(acceptance=rate, iterations=iters,
+                             host_reads_per_iteration=reads / iters)
+        log(f"[decoder-tail-decode] {name}: {json.dumps(out[name])}")
+        return res
+
+    speculative._rebuild = recording
+    try:
+        greedy16, _ = run("greedy_bf16", lambda: t16.generate_cached(
+            buf, lens, TAIL_NEW))
+        beam16, _, score16 = run("beam4_bf16", lambda: beam_search(
+            t16, buf, lens, TAIL_NEW, num_beams=TAIL_BEAMS))
+        assert out["beam4_bf16"]["host_reads"] == 0, out["beam4_bf16"]
+        spec16, _ = run("spec_cached_bf16", lambda: generate_speculative(
+            t16, d16, buf, lens, TAIL_NEW, gamma=TAIL_GAMMA))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+        samp, _ = run("spec_sample_bf16", lambda: generate_speculative(
+            t16, d16, buf, lens, TAIL_NEW, gamma=TAIL_GAMMA,
+            temperature=TAIL_TEMP, generator=gen))
+        assert bool(((samp >= 0) & (samp < 50257)).all())
+        assert torch.equal(samp[:, :GEN_PROMPTS[0]],
+                           buf[:, :GEN_PROMPTS[0]])
+        # fp32: exactness (TF32 is off)
+        ref, rlen = run("greedy_fp32_uncached", lambda: t32.generate(
+            buf, lens, TAIL_NEW))
+        assert torch.equal(rlen, lens + TAIL_NEW)
+        beam1, _, score1 = run("beam1_fp32", lambda: beam_search(
+            t32, buf, lens, TAIL_NEW, num_beams=1))
+        assert torch.equal(beam1, ref), "beam 1 differs from greedy"
+        _, _, score4 = run("beam4_fp32", lambda: beam_search(
+            t32, buf, lens, TAIL_NEW, num_beams=TAIL_BEAMS))
+        assert float(score4.sum()) >= float(score1.sum()) - 1e-3, \
+            (score4.tolist(), score1.tolist())
+        out["beam_scores"] = {"beam4": score4.tolist(),
+                              "greedy": score1.tolist()}
+        for verify in ("cached", "full"):
+            got, _ = run(f"spec_{verify}_fp32", lambda: generate_speculative(
+                t32, d32, buf, lens, TAIL_NEW, gamma=TAIL_GAMMA,
+                verify=verify))
+            assert torch.equal(got, ref), f"speculative ({verify}) != greedy"
+            got, _ = run(f"spec_{verify}_self_fp32",
+                         lambda: generate_speculative(
+                             t32, t32, buf, lens, TAIL_NEW,
+                             gamma=TAIL_GAMMA, verify=verify))
+            assert torch.equal(got, ref), \
+                f"speculative ({verify}, draft = target) != greedy"
+    finally:
+        speculative._rebuild = inner
+    # the loop's condition, once an iteration and once to end
+    for name, o in out.items():
+        if name.startswith("spec_") and "iterations" in o:
+            assert o["host_reads"] == o["iterations"] + 1, (name, o)
+    # draft = target: every eligible proposal is accepted by the full
+    # verify; the cached verify's draft lacks the K/V of the last proposal
+    # of a fully accepted round (the JAX package's spec_iteration), so
+    # it accepts fewer
+    assert out["spec_full_self_fp32"]["acceptance"] == 1.0, out
+    out["spec_bf16_agreement"] = _agree(spec16, greedy16, GEN_PROMPTS)
+    out["beam4_bf16_agreement_with_greedy"] = _agree(beam16, greedy16,
+                                                     GEN_PROMPTS)
+    del t32, d32, d16
+    gc.collect()
+    out["int8"] = _tail_int8(t16, buf, lens, greedy16, run)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - floor
+    return counts, out
+
+
+def _gpt2_small(device):
+    """GPT-2 small with random weights from SEED, in eval mode."""
+    from apex_tpu_torch import models
+    return models.GPT(models.gpt2_small(), device=device,
+                      generator=torch.Generator().manual_seed(SEED)).eval()
+
+
+def _agree(a, b, lens):
+    """The share of generated tokens of ``a`` equal to ``b``'s."""
+    eq = total = 0
+    for r, n in enumerate(lens):
+        e = a[r, n:n + TAIL_NEW] == b[r, n:n + TAIL_NEW]
+        eq += int(e.sum())
+        total += e.numel()
+    return eq / total
+
+
+def _tail_int8(t16, buf, lens, greedy16, run):
+    """quantize_for_decode on the card bitwise the CPU's for the same
+    weights; the bytes before and after; generate_cached with int8
+    weights and the int8 cache against bf16 greedy."""
+    from apex_tpu_torch import quantization
+    from apex_tpu_torch.quantization import QTensor
+    q = quantization.quantize_for_decode(t16)
+    # the same weights on the CPU: drawn from the seed there, cast there
+    qc = quantization.quantize_for_decode(
+        _gpt2_small("cpu").to(torch.bfloat16))
+    n = 0
+    cpu_mods = dict(qc.named_modules())
+    for name, m in q.named_modules():
+        if isinstance(m, QTensor):
+            c = cpu_mods[name]
+            assert torch.equal(m.data.cpu(), c.data), name
+            assert torch.equal(m.scale.cpu(), c.scale), name
+            n += 1
+
+    def nbytes(model):
+        return sum(t.numel() * t.element_size() for t in
+                   list(model.parameters()) + list(model.buffers()))
+
+    before, after = nbytes(t16), nbytes(q)
+    got, _ = run("int8_weights_int8_cache", lambda: q.generate_cached(
+        buf, lens, TAIL_NEW, cache_dtype=torch.int8))
+    agree = _agree(got, greedy16, GEN_PROMPTS)
+    log(f"[decoder-tail-int8] {n} weights quantized on the card bitwise "
+        f"the CPU's; weight bytes {before} -> {after} "
+        f"({after / before:.3f}); int8 weights + int8 cache tokens equal "
+        f"to bf16 greedy's: {agree:.4f}")
+    return {"quantized_tensors": n, "bytes_before": before,
+            "bytes_after": after, "agreement_with_bf16": agree}
+
+
+def _tail_demo(totals):
+    """examples/serving/demo_torch.py as a user runs it, in process."""
+    import contextlib
+    import sys
+    demo = _load("examples", "serving", "demo_torch.py")
+    tee = _Tee(sys.stdout)
+    log(f"[decoder-tail-demo] demo_torch.main({DEMO_ARGV})")
+    with contextlib.redirect_stdout(tee):
+        res, c = _counted(lambda: demo.main(DEMO_ARGV))
+    text = "".join(tee.parts)
+    assert set(res) == set(demo.MODES) and "done" in text, text[-2000:]
+    assert "speculative == greedy: True" in text, text[-2000:]
+    times = dict(re.findall(r"^(\w+)\s+([0-9.]+)s$", text, re.M))
+    _add(totals, c)
+    log(f"[decoder-tail-demo] launches {json.dumps(c)}, times {times}")
+    return {"seconds": {k: float(v) for k, v in times.items()},
+            "launches": c}
+
+
+def _add(totals, counts):
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def phase_decoder_tail(smi):
+    """Phase 17: the rest of the decoder families.  The kernels at this
+    phase's shapes; T5 at t5-base's widths and LoRA at TinyLlama's, each
+    trained captured through make_step; decoding at GPT-2 small's widths
+    (beam search, speculative decoding, int8 weights); the converters'
+    round trip; the serving demo."""
+    t0 = time.time()
+    rows, totals, results, counts = {}, {}, {}, {}
+    counts["t5"], results["t5"] = _tail_t5(smi, totals)
+    log(f"[time] decoder-tail t5 in {time.time() - t0:.1f} s")
+    # the kernels at this phase's shapes: the optimizer's at T5-base's
+    # flat length, the flash forward at beam search's, the LayerNorm
+    # forward at a decode step's
+    rows.update(_tail_opt_rows(results["t5"]["flat_length"], "t5"))
+    rows.update(_tail_flash_rows([n for n in GEN_PROMPTS
+                                  for _ in range(TAIL_BEAMS)], "beam"))
+    rows.update(_tail_ln_rows(len(GEN_PROMPTS), "decode"))
+    log(f"[time] decoder-tail kernel checks and rows in "
+        f"{time.time() - t0:.1f} s")
+    counts["lora"], results["lora"] = _tail_lora(smi, totals)
+    log(f"[time] decoder-tail lora in {time.time() - t0:.1f} s")
+    decode_counts, results["decode"] = _tail_decode(totals)
+    log(f"[time] decoder-tail decode in {time.time() - t0:.1f} s")
+    results["demo"] = _tail_demo(totals)
+    log(f"[time] decoder-tail demo in {time.time() - t0:.1f} s")
+    log(f"[decoder-tail] launches over the phase's paths: "
+        f"{json.dumps(totals)}")
+    for k in TAIL_KERNELS:
+        assert totals.get(k, 0) > 0, f"decoder-tail: {k} never launched"
+    # each row's launches from the path of its shape
+    for key, row in rows.items():
+        row["variant"] = key
+        if key.endswith(":t5"):
+            row["launches"] = counts["t5"][1][0][row["name"]]
+        elif key == "flash_fwd:beam":
+            row["launches"] = decode_counts["beam4_bf16"]["flash_fwd"]
+        else:
+            row["launches"] = decode_counts["greedy_bf16"]["layer_norm_fwd"]
+    results["launches"] = totals
+    log("decoder_tail " + json.dumps(results))
+    return list(rows.values()), counts
+
+
 def _check_counts(tag: str, counts, expect) -> None:
     """Each wrapper launched exactly as often as the path needs it, and the
     wrappers of other paths not at all."""
@@ -3469,6 +4151,13 @@ def _check_decoder_counts(counts, counts_examples) -> None:
     _check_captured_counts({f"decoder-{k}": v for k, v in counts.items()})
     for run, expect in _decoder_example_counts().items():
         _check_counts(f"example-{run}", counts_examples[run], expect)
+
+
+def _check_tail_counts(counts) -> None:
+    """Phase 17's graphs: T5's and LoRA's launches over their captured
+    calls."""
+    _check_captured_counts({f"decoder-tail-{k}": v
+                            for k, v in counts.items()})
 
 
 def _decoder_rows(rows, counts):
@@ -3597,6 +4286,8 @@ def main():
     log(f"[time] phase 15 done at {time.time() - t0:.1f} s")
     dec_rows, counts_dec, counts_dec_ex, decoder = phase_decoder(smi)
     log(f"[time] phase 16 done at {time.time() - t0:.1f} s")
+    tail_rows, counts_tail = phase_decoder_tail(smi)
+    log(f"[time] phase 17 done at {time.time() - t0:.1f} s")
 
     _check_counts("train", counts_train, RESNET_COUNTS)
     _check_counts("ddp", counts_ddp, RESNET_COUNTS)
@@ -3608,6 +4299,7 @@ def main():
         _check_counts(f"imagenet-{run}", counts_imagenet[run], expect)
     _check_captured_counts(counts_captured)
     _check_decoder_counts(counts_dec, counts_dec_ex)
+    _check_tail_counts(counts_tail)
     variants = {k: rows.pop(k) for k in list(rows) if ":" in k}
     o1_counts = {"bert_o1": counts_bert_o1, "resnet_o1": counts_resnet_o1}
     for k, row in variants.items():
@@ -3631,6 +4323,7 @@ def main():
     log("kernels_o1 " + json.dumps({"kernels": list(variants.values())}))
     log("kernels_decoder " + json.dumps(
         {"kernels": _decoder_rows(dec_rows, counts_dec)}))
+    log("kernels_decoder_tail " + json.dumps({"kernels": tail_rows}))
     log(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3653,6 +4346,13 @@ if __name__ == "__main__":
         _check_decoder_counts(counts_dec, counts_dec_ex)
         log("kernels_decoder " + json.dumps(
             {"kernels": _decoder_rows(dec_rows, counts_dec)}))
+    elif sys.argv[1:2] == ["--decoder-tail"]:
+        # python3 chip_smoke.py --decoder-tail: phases 1, 2 and 17 alone
+        _, smi = phase_device()
+        phase_build()
+        tail_rows, counts_tail = phase_decoder_tail(smi)
+        _check_tail_counts(counts_tail)
+        log("kernels_decoder_tail " + json.dumps({"kernels": tail_rows}))
     elif sys.argv[1:2] == ["--layer-norm-ab"]:
         # python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
         phase_device()

@@ -1254,3 +1254,210 @@ def test_generate_cached_equals_generate_on_the_card(cuda, family):
             assert bool(((got >= 0) & (got < 97)).all())
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# -- the rest of the decoder families: T5, LoRA, int8 weights, beam search,
+# speculative decoding ----------------------------------------------------
+
+def _tiny_t5(cuda):
+    from apex_tpu_torch import amp, models, optimizers
+    cfg = models.T5Config(vocab_size=128, d_model=64, d_kv=16, d_ff=128,
+                          num_layers=2, num_heads=4,
+                          relative_attention_num_buckets=8,
+                          relative_attention_max_distance=20,
+                          dropout_rate=0.0)
+    model = models.T5(cfg, device=cuda,
+                      generator=torch.Generator().manual_seed(0))
+    return amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
+                          opt_level="O2", verbosity=0)
+
+
+def _state_equal(oa, ob):
+    for a, b in ((oa.masters.buf, ob.masters.buf),
+                 (oa.masters.half, ob.masters.half),
+                 (oa.state.m, ob.state.m), (oa.state.v, ob.state.v),
+                 (oa.state.step, ob.state.step)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_tiny_t5_captured_equals_eager_bitwise(cuda):
+    """make_step over a tiny T5 (O2 + FusedAdam) against the same step run
+    eagerly on a twin: losses, masters, half copy, moments and step
+    counter bitwise after 6 steps; the loss falls."""
+    from apex_tpu_torch import amp, parallel
+    rs = np.random.RandomState(6)
+    src = _t(rs.randint(2, 128, (4, 24))).to(cuda)
+    tgt = _t(rs.randint(2, 128, (4, 8))).to(cuda)
+
+    def step_of(model, opt):
+        def step(batch):
+            loss, grads = amp.scaled_grad(lambda: model.loss(*batch), opt)
+            opt.step(grads)
+            return loss
+        return step
+
+    (ma, oa), (mb, ob) = _tiny_t5(cuda), _tiny_t5(cuda)
+    eager = [step_of(ma, oa)((src, tgt)) for _ in range(6)]
+    train = parallel.make_step(step_of(mb, ob), mb)
+    graph = [train((src, tgt)) for _ in range(6)]
+    assert train.replays == 5
+    assert torch.equal(torch.stack(eager), torch.stack(graph))
+    _state_equal(oa, ob)
+    assert float(eager[-1]) < float(eager[0])
+
+
+class _LossOf(torch.nn.Module):
+    """``model.loss`` as a module's forward, for ``functional_call``."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, ids):
+        return self.model.loss(ids)
+
+
+@pytest.mark.cuda
+def test_tiny_lora_captured_equals_eager_bitwise(cuda):
+    """Rank-4 adapters on q_proj and v_proj of a frozen bf16 Llama, O2 +
+    FusedAdam on the adapters, the loss on merged weights through
+    functional_call: make_step against the eager step on twin adapters,
+    bitwise after 6 steps; the base stays bitwise as it was."""
+    from apex_tpu_torch import amp, lora, models, optimizers, parallel
+    base = models.Llama(models.LlamaConfig(
+        vocab_size=97, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=64), device=cuda,
+        generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    base.requires_grad_(False)
+    before = {k: v.clone() for k, v in base.state_dict().items()}
+    frozen = {f"model.{n}": p.detach() for n, p in base.named_parameters()}
+    wrapper = _LossOf(base)
+    ids = _t(np.random.RandomState(7).randint(0, 97, (4, 64))).to(cuda)
+    s = lora.scale(16, 4)
+
+    def twin():
+        ad = lora.init(base, ("q_proj", "v_proj"), rank=4,
+                       generator=torch.Generator().manual_seed(1))
+        ad, opt = amp.initialize(ad, optimizers.FusedAdam(lr=1e-2),
+                                 opt_level="O2", verbosity=0)
+
+        def step(batch):
+            def loss_fn():
+                merged = lora.merge(frozen, {f"model/{k}": v
+                                             for k, v in ad.items()}, s)
+                return torch.func.functional_call(wrapper, merged, (batch,))
+            loss, grads = amp.scaled_grad(loss_fn, opt)
+            opt.step(grads)
+            return loss
+        return ad, opt, step
+
+    (ada, oa, sa), (adb, ob, sb) = twin(), twin()
+    eager = [sa(ids) for _ in range(6)]
+    train = parallel.make_step(sb, adb)
+    graph = [train(ids) for _ in range(6)]
+    assert train.replays == 5
+    assert torch.equal(torch.stack(eager), torch.stack(graph))
+    _state_equal(oa, ob)
+    assert float(eager[-1]) < float(eager[0])
+    for k, v in base.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_on_the_card_is_bitwise_the_cpu(cuda, dtype):
+    """quantize's int8 data and fp32 scales on the card equal the CPU's
+    for the same weights (ties to even, a zero row, both axes)."""
+    from apex_tpu_torch.quantization import quantize
+    rs = np.random.RandomState(8)
+    w = rs.randn(768, 2304).astype(np.float32)
+    w[0] = 0.0
+    w[1, :4] = [0.5, -1.5, 2.5, 127.0]
+    w = _t(w).to(dtype)
+    for axis in (0, 1):
+        qc, qg = quantize(w, axis), quantize(w.to(cuda), axis)
+        assert torch.equal(qg.data.cpu(), qc.data)
+        assert torch.equal(qg.scale.cpu(), qc.scale)
+
+
+@pytest.mark.cuda
+def test_int8_kv_quantization_on_the_card_is_bitwise_the_cpu(cuda):
+    """The int8 KV cache's per-position values and scales on the card equal
+    the CPU's for the same K/V."""
+    from apex_tpu_torch.models import _cache
+    rs = np.random.RandomState(10)
+    kv = _t(rs.randn(4, 4, 64, 64).astype(np.float32))
+    kv[0, 0, 0] = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        qc, sc = _cache.quantize_kv(kv.to(dtype))
+        qg, sg = _cache.quantize_kv(kv.to(dtype).to(cuda))
+        assert torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_causal_key_padding_matches_plain(cuda, dtype):
+    """Beam search's and the full verify's attention: causal with a
+    key-padding mask of per-row lengths (4 beams x 4 prompts, GPT-2's 12
+    heads), each kernel against its plain version, bitwise on a second
+    launch."""
+    B, H, T, D = 16, 12, 128, 64
+    q, k, v, do, _, _ = _flash_case(cuda, B, H, T, D, dtype, seed=9)
+    lens = torch.tensor([17, 40, 64, 128] * 4, device=cuda)
+    kvm = torch.arange(T, device=cuda)[None, :] < lens[:, None]
+    seed = torch.tensor([1, 2], dtype=torch.int32, device=cuda)
+    args = (H, D ** -0.5)
+    kw = dict(causal=True, kv_mask=kvm, segment_ids=None, seed=seed,
+              rate=0.0)
+    pargs = (True, kvm, None, seed, 0.0)
+    o, lse = ops.flash_fwd(q, k, v, *args, **kw)
+    po, plse = fa._fwd_plain(q, k, v, *args, *pargs)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), po.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    delta = (do.float() * po.float()).sum(-1)
+    dq = ops.flash_dq(q, k, v, do, plse, delta, *args, **kw)
+    dk, dv = ops.flash_dkv(q, k, v, do, plse, delta, *args, **kw)
+    pdq = fa._dq_plain(q, k, v, do, plse, delta, *args, *pargs)
+    pdk, pdv = fa._dkv_plain(q, k, v, do, plse, delta, *args, *pargs)
+    for g, p in ((dq, pdq), (dk, pdk), (dv, pdv)):
+        scale = max(float(p.float().abs().max()), 1.0)
+        torch.testing.assert_close(g.float(), p.float(), rtol=tol,
+                                   atol=tol * scale)
+    o2, _ = ops.flash_fwd(q, k, v, *args, **kw)
+    assert torch.equal(o, o2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("verify", ["cached", "full"])
+def test_speculative_greedy_equals_target_greedy_on_the_card(cuda, verify):
+    """fp32 (TF32 off) on the card: speculative decoding with a smaller
+    draft gives the target's greedy generate_cached tokens; beam search
+    with one beam does too."""
+    from apex_tpu_torch import models
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        def gpt(n_layer, n_embd, seed):
+            return models.GPT(models.GPTConfig(
+                vocab_size=97, block_size=64, n_layer=n_layer, n_head=4,
+                n_embd=n_embd, dropout=0.0), device=cuda,
+                generator=torch.Generator().manual_seed(seed))
+        target, draft = gpt(2, 64, 0), gpt(1, 32, 1)
+        lens = torch.tensor([5, 9, 13, 20], device=cuda)
+        buf = torch.zeros((4, 48), dtype=torch.int64, device=cuda)
+        rs = np.random.RandomState(3)
+        for r, n in enumerate(lens.tolist()):
+            buf[r, :n] = _t(rs.randint(0, 97, n))
+        want, final = target.generate_cached(buf, lens, 20)
+        got, gfinal = models.generate_speculative(target, draft, buf, lens,
+                                                  20, gamma=4,
+                                                  verify=verify)
+        assert torch.equal(got, want) and torch.equal(gfinal, final)
+        beam, bfinal, _ = models.beam_search(target, buf, lens, 20,
+                                             num_beams=1)
+        assert torch.equal(beam, want) and torch.equal(bfinal, final)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
