@@ -31,6 +31,13 @@ each replay advances its offset as an eager step does and draws new
 numbers.  Kernel launch counts (``ops.launch_counts``) count on the host
 at launch: the capture's launches are taken back and each replay adds
 them again, so the counts stay those of the steps that ran.
+
+:class:`CapturedFn` is the same mechanics for a function of no arguments
+over state it already holds in static tensors, which it reads and writes
+in place: a serving engine's decode window and admission.  Several of
+them may share one memory pool (``pool``): the function keeps nothing it
+allocates, so a pool holds only scratch, and graphs that share it run
+one after another on one stream.
 """
 
 from __future__ import annotations
@@ -41,8 +48,8 @@ import torch
 
 from . import ops
 
-__all__ = ["CapturedStep", "run_steps", "tree_map", "leaves",
-           "cuda_generators"]
+__all__ = ["CapturedStep", "CapturedFn", "run_steps", "tree_map",
+           "leaves", "cuda_generators"]
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -157,18 +164,10 @@ class CapturedStep:
         return t.to(self.device, non_blocking=t.is_pinned())
 
     def _warm_up(self, batch: Any) -> Any:
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            # copies, as a replay returns: the step's own tensors (the
-            # optimizer's last_info, say) are rewritten by the next call
-            out = tree_map(torch.clone, self._run(batch))
-        cur.wait_stream(side)
-        for t in leaves(out):
-            if t.is_cuda:
-                t.record_stream(cur)  # made on the side stream, used on cur
-        return out
+        # copies, as a replay returns: the step's own tensors (the
+        # optimizer's last_info, say) are rewritten by the next call
+        return _on_side_stream(
+            lambda: tree_map(torch.clone, self._run(batch)), self.device)
 
     def _feed(self, batch: Any) -> None:
         new, static = leaves(batch), leaves(self.static_batch)
@@ -185,26 +184,88 @@ class CapturedStep:
 
     def _capture(self, batch: Any) -> None:
         self.static_batch = tree_map(torch.clone, batch)
-        graph = torch.cuda.CUDAGraph()
-        if self.generators:
-            if not hasattr(graph, "register_generator_state"):
-                raise RuntimeError(
-                    f"this torch ({torch.__version__}) has no "
-                    f"CUDAGraph.register_generator_state: a captured step "
-                    f"would replay one dropout mask from its "
-                    f"{len(self.generators)} CUDA generator(s)")
-            for g in self.generators:
-                graph.register_generator_state(g)
-        before = ops.launch_counts()
-        try:
-            # a private memory pool (the default of torch.cuda.graph)
-            with torch.cuda.graph(graph):
-                self.static_out = self._run(self.static_batch)
-        finally:
-            after = ops.launch_counts()
-            self.launches = {k: after[k] - before[k] for k in after
-                             if after[k] != before[k]}
-            # a capture launches nothing: its counts come back with each
-            # replay
-            ops.add_launches(self.launches, -1)
-        self.graph = graph
+        out: List[Any] = []
+        # a private memory pool (the default of torch.cuda.graph)
+        self.graph, self.launches = _capture(
+            lambda: out.append(self._run(self.static_batch)),
+            self.generators)
+        self.static_out = out[0]
+
+
+def _on_side_stream(fn: Callable, device: torch.device) -> Any:
+    """``fn()`` on a side stream that waits for the current one and that
+    the current one then waits for: a capture's warm-up."""
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn()
+    cur.wait_stream(side)
+    for t in leaves(out) if out is not None else ():
+        if t.is_cuda:
+            t.record_stream(cur)      # made on the side stream, used on cur
+    return out
+
+
+def _capture(fn: Callable, generators: Iterable[torch.Generator] = (),
+             pool=None):
+    """``fn()`` captured into a new CUDA graph (in ``pool``, else a
+    private one), the CUDA generators registered; returns the graph and
+    the kernel launches of one replay.  The capture's own launches are
+    taken back from the counts."""
+    graph = torch.cuda.CUDAGraph()
+    generators = list(generators)
+    if generators:
+        if not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                f"this torch ({torch.__version__}) has no "
+                f"CUDAGraph.register_generator_state: a captured step "
+                f"would replay one dropout mask from its "
+                f"{len(generators)} CUDA generator(s)")
+        for g in generators:
+            graph.register_generator_state(g)
+    before = ops.launch_counts()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            fn()
+    finally:
+        after = ops.launch_counts()
+        launches = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        # a capture launches nothing: its counts come back with each
+        # replay
+        ops.add_launches(launches, -1)
+    return graph, launches
+
+
+class CapturedFn:
+    """``fn()`` over static tensors it updates in place.  On the CPU every
+    call runs it.  On a CUDA device call 1 runs it on a side stream (the
+    warm-up), call 2 captures it into a graph (in ``pool``, a
+    ``torch.cuda.graph_pool_handle()``, else a private pool) and replays,
+    later calls replay.  ``eager=True`` runs every call, as on the CPU."""
+
+    def __init__(self, fn: Callable[[], None], device: torch.device,
+                 pool=None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.pool = pool
+        self.eager = False
+        self.calls = 0
+        self.replays = 0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: Dict[str, int] = {}
+
+    def __call__(self) -> None:
+        if self.device.type != "cuda" or self.eager:
+            self.fn()
+        elif self.calls == 0:
+            _on_side_stream(self.fn, self.device)
+        else:
+            if self.graph is None:
+                self.graph, self.launches = _capture(self.fn,
+                                                     pool=self.pool)
+            self.graph.replay()
+            ops.add_launches(self.launches)
+            self.replays += 1
+        self.calls += 1

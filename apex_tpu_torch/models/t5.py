@@ -258,8 +258,12 @@ class T5DecoderBlock(torch.nn.Module):
         ck, cv = layer_cache["k"], layer_cache["v"]
         if isinstance(pos, torch.Tensor):
             rows = torch.arange(B, device=x.device)
-            ck[rows, :, pos] = k1[:, :, 0].to(ck.dtype)
-            cv[rows, :, pos] = v1[:, :, 0].to(cv.dtype)
+            # a row past the cache's end (a serving engine's finished
+            # slot) writes its last entry, as the JAX package's clamped
+            # dynamic_update_slice does
+            wpos = torch.clamp(pos, max=ck.shape[2] - 1)
+            ck[rows, :, wpos] = k1[:, :, 0].to(ck.dtype)
+            cv[rows, :, wpos] = v1[:, :, 0].to(cv.dtype)
         else:
             ck[:, :, pos] = k1[:, :, 0].to(ck.dtype)
             cv[:, :, pos] = v1[:, :, 0].to(cv.dtype)
@@ -437,8 +441,12 @@ class T5(torch.nn.Module):
             layer, dlayer = state["cross"][str(i)], state["dec"][str(i)]
             layer["k"][slot] = k[0].to(layer["k"].dtype)
             layer["v"][slot] = v[0].to(layer["v"].dtype)
-            dlayer["k"][slot] = 0
-            dlayer["v"][slot] = 0
+            for buf in (dlayer["k"], dlayer["v"]):
+                if isinstance(slot, torch.Tensor):
+                    # a device index (a captured admission): no host value
+                    buf.index_fill_(0, slot.reshape(-1), 0)
+                else:
+                    buf[slot] = 0
         return state
 
     def _row_bias(self, pos, dec_len: int):

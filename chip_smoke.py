@@ -3650,19 +3650,18 @@ def _tail_flash_rows(lens, tag):
                       f"causal, key padding, one call; 12 calls a pass")
 
 
-def _tail_ln_rows(rows_n, tag):
-    """The LayerNorm forward at a decode shape of GPT-2 small ((rows,
+def _tail_ln_rows(rows_n, tag, calls="25 calls a decode step"):
+    """The LayerNorm forward at a shape of GPT-2 small's decoding ((rows,
     768) bf16, eps 1e-5): within phase 3's fp64 bounds, timed."""
     (x, _, w, b, _, _), errs, rat = _ln_check(rows_n, 768, torch.bfloat16,
                                               SEED + 99 + rows_n, eps=1e-5)
-    log(f"[decoder-tail] layer_norm at ({rows_n}, 768) bf16: within the "
+    log(f"[{tag}] layer_norm at ({rows_n}, 768) bf16: within the "
         f"fp64 bounds (ratio kernel {rat['kernel']:.3e}, plain "
         f"{rat['plain']:.3e}), max abs err {errs}")
     return _time_rows({f"layer_norm_fwd:{tag}": _ln_fwd_entry(x, w, b,
                                                                1e-5)},
                       {"layer_norm_fwd": errs[0]},
-                      f"({rows_n}, 768) bf16, eps 1e-5, one call; 25 "
-                      f"calls a decode step")
+                      f"({rows_n}, 768) bf16, eps 1e-5, one call; {calls}")
 
 
 def _counted(fn):
@@ -4079,7 +4078,8 @@ def _tail_demo(totals):
     with contextlib.redirect_stdout(tee):
         res, c = _counted(lambda: demo.main(DEMO_ARGV))
     text = "".join(tee.parts)
-    assert set(res) == set(demo.MODES) and "done" in text, text[-2000:]
+    assert set(res) == set(demo.MODES + demo.ENGINE_MODES) \
+        and "done" in text, text[-2000:]
     assert "speculative == greedy: True" in text, text[-2000:]
     times = dict(re.findall(r"^(\w+)\s+([0-9.]+)s$", text, re.M))
     _add(totals, c)
@@ -4134,6 +4134,608 @@ def phase_decoder_tail(smi):
     results["launches"] = totals
     log("decoder_tail " + json.dumps(results))
     return list(rows.values()), counts
+
+
+# -- phase 18: the serving engines --------------------------------------------
+
+SRV_SLOTS = 16
+SRV_BUF = 2048                      # TinyLlama's positions
+SRV_WINDOW = 8
+SRV_REQUESTS = 48                   # three waves of SRV_SLOTS
+SRV_WAVE_AT = 12                    # windows between two waves
+SRV_PLEN = (32, 1024)
+SRV_NEW = (32, 256)
+SRV_SOLO = (0, 9, 17, 26, 38, 47)   # greedy requests re-run alone
+SRV_SAMPLED = 16                    # seeded sampled requests, 4 re-run
+SRV_SAMPLED_PLEN, SRV_SAMPLED_NEW = (32, 256), (32, 64)
+SRV_TEMP, SRV_TOP_K = 0.8, 40
+SRV_BLOCK = 16
+SRV_BLOCKS = SRV_SLOTS * (SRV_BUF // SRV_BLOCK) // 2   # half the worst case
+S2S_SRC, S2S_NEW = 512, 128         # Seq2SeqEngine at t5-base's widths
+S2S_PLEN = (64, S2S_SRC)
+GPT2_SRV_BUF = 1024
+GPT2_PREFIX = 256                   # the registered system prefix
+GPT2_PLEN, GPT2_NEW = (16, 256), (32, 128)
+GPT2_CHUNK = 32                     # the splice's suffix chunk
+SPEC_SLOTS, SPEC_GAMMA = 8, 4
+SRV_FP32_NEW = 64                   # (h)'s first wave, cut, in fp32
+SRV_PROFILE_AT = 6                  # the window the profile starts at
+SRV_EAGER_WINDOWS = 6               # windows held against the eager engine
+
+
+def _srv_traffic(seed, n, plen, new, vocab, low=0, seeded=False):
+    """``n`` requests (prompt, max_new, kwargs), lengths and ids from
+    ``seed``; ``seeded``: each with an explicit sampling seed."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        p = [int(t) for t in rs.randint(low, vocab,
+                                        int(rs.randint(plen[0],
+                                                       plen[1] + 1)))]
+        out.append((p, int(rs.randint(new[0], new[1] + 1)),
+                    {"seed": SEED + i} if seeded else {}))
+    return out
+
+
+def _srv_eager(eng):
+    """The engine with every graph run eagerly (the plain path)."""
+    for g in eng._graphs:
+        g.eager = True
+    return eng
+
+
+def _srv_step(eng):
+    """One ``eng.step()``: its output, wall ms and host reads (sync debug
+    mode), with where in Python each read was made."""
+    import traceback
+    import warnings
+    where = []
+
+    def record(message, category, filename, lineno, *rest):
+        if "synchroniz" in str(message).lower():
+            # where torch saw the wait, and the innermost frame of the
+            # repository's code that led there
+            root = str(Path(__file__).resolve().parent)
+            ours = [f for f in traceback.extract_stack()[:-1]
+                    if f.filename.startswith(root)]
+            at = f"{Path(filename).name}:{lineno}"
+            if ours and ours[-1].filename != filename:
+                at += f" via {Path(ours[-1].filename).name}:{ours[-1].lineno}"
+            where.append(at)
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            out = eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, where
+
+
+def _srv_run(eng, traffic, tag, profile=False, windows_max=None):
+    """``traffic`` through ``eng`` in waves of SRV_SLOTS, one every
+    SRV_WAVE_AT windows (or only its first ``windows_max`` windows): each
+    window's output, wall time and host reads, tok/s and tokens a host
+    read over the windows timed (a profiled stretch of three windows left
+    out of both), the device's idle share (its device time a profiled
+    window against the median timed window), TTFT of the requests, the
+    results in order, the windows run in all."""
+    waves = [traffic[i:i + SRV_SLOTS]
+             for i in range(0, len(traffic), SRV_SLOTS)]
+    rids, outs, step_ms, windows, nxt = [], [], [], 0, 0
+    reads, where = 0, Counter()
+    excl_s, prof, n_prof = 0.0, None, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while nxt < len(waves) or eng.live() or eng.queue_depth():
+        if windows_max is not None and len(outs) >= windows_max:
+            break
+        if nxt < len(waves) and windows >= nxt * SRV_WAVE_AT:
+            rids += [eng.submit(p, n, **kw) for p, n, kw in waves[nxt]]
+            nxt += 1
+            continue
+        if not (eng.live() or eng.queue_depth()):
+            windows += 1                # idle until the next wave
+            continue
+        if profile and windows == SRV_PROFILE_AT and step_ms:
+            tp = time.perf_counter()
+
+            def counted_step():
+                nonlocal n_prof
+                eng.step()
+                n_prof += 1
+
+            prof = phase_profile(counted_step, statistics.median(step_ms),
+                                 f"{tag}-profile", steps=3)
+            excl_s += time.perf_counter() - tp
+            windows += 3
+            continue
+        out, ms, w = _srv_step(eng)
+        # keyed by the request's place in the traffic (rids differ when
+        # an engine served its warmup's requests first)
+        index = {r: i for i, r in enumerate(rids)}
+        outs.append({index[r]: t for r, t in out.items()})
+        step_ms.append(ms)
+        reads += len(w)
+        where.update(w)
+        windows += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - excl_s
+    done = [r for r in rids if eng.is_finished(r)]
+    results = [eng.result(r) if eng.is_finished(r) else None for r in rids]
+    tokens = sum(len(eng.result(r)) for r in done)
+    ttft = [eng._finished[r].t_first - eng._finished[r].t_submit
+            for r in done if eng._finished[r].t_first is not None]
+    timed_tok = sum(len(t) for o in outs for t in o.values())
+    median = statistics.median(step_ms)
+    return {"results": results, "outs": outs, "tokens": tokens,
+            "tok_s": timed_tok / wall if wall > 0 else 0.0,
+            "tokens_per_sync": timed_tok / len(step_ms),
+            "wall_s": wall, "windows": len(step_ms),
+            "windows_run": len(step_ms) + n_prof, "step_ms": step_ms,
+            "step_ms_median": median,
+            "step_ms_p90": float(np.percentile(step_ms, 90)),
+            "host_reads_per_window": reads / len(step_ms),
+            "host_reads_at": dict(where),
+            "ttft_p50_s": float(np.percentile(ttft, 50)) if ttft else None,
+            "ttft_p99_s": float(np.percentile(ttft, 99)) if ttft else None,
+            "profile": prof,
+            "profile_idle_share": (1 - sum(prof.values()) / median
+                                   if prof else None)}
+
+
+def _srv_agreement(a, b):
+    """The share of tokens of the results ``a`` equal to ``b``'s, position
+    by position (a shorter list counts its missing tokens as unequal)."""
+    eq = total = 0
+    for x, y in zip(a, b):
+        total += max(len(x), len(y))
+        eq += sum(int(u == v) for u, v in zip(x, y))
+    return eq / max(total, 1)
+
+
+def _srv_path(tag, make, traffic, expect, eager=True, check=None):
+    """One engine path: warmup() captures exactly the census's admission
+    and decode graphs; the traffic, captured, with the launch counts set to
+    0 just before and read just after, adds no capture (a prefix-pool
+    graph captures at its second use) and launches each kernel exactly
+    ``expect(run)`` times (run: the run's numbers, ``windows_run`` the
+    windows it decoded); its first SRV_EAGER_WINDOWS
+    windows through an identical engine run eagerly emit the same tokens
+    window by window, bitwise; ``check(engine)`` holds after the captured
+    run.  Returns the captured run's numbers, its results and counts."""
+    floor = _mem_floor()
+    torch.cuda.reset_peak_memory_stats()
+    eng = make()
+    census = eng.compile_census()
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm = {k for k, st in census.items() if st in ("admission", "decode")}
+    assert set(eng.captures) == warm, (tag, eng.captures, census)
+    captured = dict(eng.captures)
+    run, counts = _counted(lambda: _srv_run(eng, traffic, tag,
+                                            profile=True))
+    want = {k: v for k, v in expect(run).items() if v}
+    _check_counts(tag, {**{k: 0 for k in want}, **counts},
+                  want)
+    assert set(eng.captures) <= set(census), (tag, eng.captures)
+    if not any(st.startswith(("register", "prefix"))
+               for st in census.values()):
+        assert eng.captures == captured, (tag, eng.captures, captured)
+    if check is not None:
+        check(eng)
+    st = eng.stats()
+    out = {k: v for k, v in run.items()
+           if k not in ("results", "outs", "profile", "step_ms",
+                        "tokens_per_sync")}
+    out.update(
+        warmup_s=warm_s, captures=dict(eng.captures), launches=counts,
+        stats_ttft_p50_s=st["ttft"]["p50"], stats_ttft_p99_s=st["ttft"]["p99"],
+        tokens_per_sync=run["tokens_per_sync"],
+        kv_cache_bytes=eng.kv_cache_bytes(),
+        peak_gib=(torch.cuda.max_memory_allocated() - floor) / 2 ** 30,
+        device_ms_per_window=(sum(run["profile"].values())
+                              if run["profile"] else None))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["graph_pool_held_gib"] = (torch.cuda.memory_reserved()
+                                  - torch.cuda.memory_allocated()) / 2 ** 30
+    log(f"[{tag}] captured: {run['tokens']} tokens, {run['tok_s']:.1f} tok/s,"
+        f" step_ms median {run['step_ms_median']:.3f} (p90 "
+        f"{run['step_ms_p90']:.3f}) over {run['windows']} windows, "
+        f"{run['host_reads_per_window']:.3f} host reads a window "
+        f"({run['host_reads_at']}), device idle share (a profiled "
+        f"window's device time against the median window) "
+        f"{run['profile_idle_share']}, TTFT p50/p99 {run['ttft_p50_s']:.4f} "
+        f"/ {run['ttft_p99_s']:.4f} s (stats(), the warmup's requests too: "
+        f"{out['stats_ttft_p50_s']:.4f} / {out['stats_ttft_p99_s']:.4f}), "
+        f"{out['tokens_per_sync']:.2f} tokens a sync, peak "
+        f"{out['peak_gib']:.2f} GiB above the model, KV "
+        f"{out['kv_cache_bytes']} B, graph pool held "
+        f"{out['graph_pool_held_gib']:.3f} GiB, launches {counts}, captures "
+        f"{eng.captures} (census {census})")
+    results, outs = run["results"], run["outs"]
+    del eng
+    if eager:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = _srv_eager(make())
+        n = SRV_EAGER_WINDOWS
+        er = _srv_run(ref, traffic, tag + "-eager", windows_max=n)
+        assert er["outs"] == outs[:n], \
+            f"[{tag}] a captured window differs from the eager window"
+        def rate(o, ms):
+            # tokens a second over the windows alone
+            return sum(len(t) for w in o for t in w.values()) / (
+                sum(ms) / 1e3)
+
+        out.update(eager_windows=n,
+                   eager_tok_s=rate(er["outs"], er["step_ms"]),
+                   captured_tok_s_same_windows=rate(outs[:n],
+                                                    run["step_ms"][:n]),
+                   eager_step_ms_median=er["step_ms_median"],
+                   captured_step_ms_median_same_windows=statistics.median(
+                       run["step_ms"][:n]),
+                   eager_host_reads_per_window=er["host_reads_per_window"])
+        log(f"[{tag}] the first {n} windows, eager against captured: "
+            f"{out['eager_tok_s']:.1f} against "
+            f"{out['captured_tok_s_same_windows']:.1f} tok/s, step_ms "
+            f"median {er['step_ms_median']:.3f} against "
+            f"{out['captured_step_ms_median_same_windows']:.3f}, "
+            f"{er['host_reads_per_window']:.3f} host reads a window; each "
+            f"window's tokens bitwise the captured window's")
+        del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, results, counts
+
+
+def _srv_alone(tag, make, traffic, which, want):
+    """Each request of ``which`` alone in an identically built engine
+    (captured): its tokens bitwise those it got with traffic."""
+    eng = make().warmup()
+    for i in which:
+        p, n, kw = traffic[i]
+        rid = eng.add_request(p, n, **kw)
+        while not eng.is_finished(rid):
+            eng.step()
+        assert eng.result(rid) == want[i], \
+            f"[{tag}] request {i} alone differs from it with traffic"
+    log(f"[{tag}] requests {list(which)} alone in an identical engine: "
+        f"bitwise their tokens with traffic")
+    del eng
+    gc.collect()
+
+
+def _srv_flash_row(shape, tag):
+    """The flash forward at an admission's full-buffer prefill shape,
+    causal, bf16: within phase 3's fp64 bound, timed against its plain
+    version and SDPA (is_causal), the bound counting the causal half."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import flash_attention as fa
+    B, H, T, D = shape
+    errs, rat = _flash_check(shape, torch.bfloat16, "causal", SEED + 101)
+    log(f"[serving] flash at {shape} bf16 causal: within the fp64 bounds "
+        f"(ratio kernel {rat['kernel']:.3e}, plain {rat['plain']:.3e}); max "
+        f"abs err {errs}")
+    q, k, v, _, _, _, words = _flash_case(B, H, T, D, torch.bfloat16,
+                                          SEED + 101)
+    args = (H, D ** -0.5, True, None, None, words, 0.0)
+    q4, k4, v4 = (t.view(B, H, T, D) for t in (q, k, v))
+    n, isz = B * H * T * D, q.element_size()
+    timing = {f"flash_fwd:{tag}": (
+        4 * n * isz + B * H * T * 4, 2 * B * H * T * T * D,
+        lambda: ops.flash_fwd(q, k, v, *args),
+        lambda: fa._fwd_plain(q, k, v, *args),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True))}
+    rows = _time_rows(timing, {"flash_fwd": errs["flash_fwd"]},
+                      f"{shape} (B, H, T, D) bf16, causal, one admission's "
+                      f"prefill layer", plain_graph=(2, 5))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _srv_fp32_pair(tag, make_a, make_b, traffic):
+    """Two engines on one traffic; the share of equal tokens."""
+    res = []
+    for make in (make_a, make_b):
+        eng = make().warmup()
+        res.append(_serve_list(eng, traffic))
+        del eng
+        gc.collect()
+    return _srv_agreement(res[0], res[1]), res
+
+
+def _srv_chunks(plen, L, C, buf):
+    """The splice's suffix chunks for a prompt of ``plen`` tokens whose
+    first ``L`` are a registered prefix (``Engine._admit``'s loop)."""
+    n, off = 0, L
+    while off < plen:
+        off = min(off, buf - C) + C
+        n += 1
+    return n
+
+
+def _serve_list(eng, traffic):
+    rids = [eng.submit(p, n, **kw) for p, n, kw in traffic]
+    while eng.live() or eng.queue_depth():
+        eng.step()
+    return [eng.result(r) for r in rids]
+
+
+def phase_serving(smi):
+    """Phase 18: the serving engines on the card, their decode windows and
+    admissions replaying CUDA graphs.  (h) Engine at TinyLlama-1.1B's
+    widths, (i) PagedEngine on (h)'s traffic, (j) Seq2SeqEngine at
+    t5-base's widths, (k) the prefix pool and (l) speculative decoding at
+    GPT-2 small's widths; the flash and LayerNorm forward kernels at the
+    serving shapes; the demo's engine modes."""
+    from apex_tpu_torch import models, serving
+    dev = torch.device(DEVICE)
+    t0 = time.time()
+    rows, counts, summary = {}, {}, {"card": smi}
+    rows.update(_srv_flash_row((1, 32, SRV_BUF, 64), "serving-tinyllama"))
+    rows.update(_srv_flash_row((1, 12, GPT2_SRV_BUF, 64), "serving-gpt2"))
+    # GPT-2's LayerNorm rows on paths (k) and (l): decode ticks, the
+    # admissions' prefill, the splice's chunks, the draft's ticks and the
+    # target's verify chunk
+    ln_shapes = {"serving": (SRV_SLOTS, "25 calls a decode tick"),
+                 "serving-prefill": (GPT2_SRV_BUF, "24 calls a prefill "
+                                     "(12 a draft's)"),
+                 "serving-chunk": (GPT2_CHUNK, "25 calls a splice chunk"),
+                 "serving-spec-draft": (SPEC_SLOTS, "13 calls a draft "
+                                        "tick"),
+                 "serving-spec-verify": (SPEC_SLOTS * (SPEC_GAMMA + 1),
+                                         "25 calls a verify")}
+    for tag, (n, calls) in ln_shapes.items():
+        rows.update(_tail_ln_rows(n, tag, calls))
+    log(f"[time] serving kernel rows in {time.time() - t0:.1f} s")
+
+    # (h) Engine at TinyLlama's widths, bf16 -----------------------------
+    llama = models.Llama(tinyllama(), device=dev, generator=torch.Generator(
+        ).manual_seed(SEED)).to(torch.bfloat16).eval()
+    traffic = _srv_traffic(SEED + 40, SRV_REQUESTS, SRV_PLEN, SRV_NEW,
+                           tinyllama().vocab_size)
+
+    def fixed():
+        return serving.Engine(llama, slots=SRV_SLOTS, buf_len=SRV_BUF,
+                              window=SRV_WINDOW)
+
+    n_tl = tinyllama().num_hidden_layers
+    summary["h"], res_h, counts["h"] = _srv_path(
+        "serving-h", fixed, traffic,
+        lambda run: {"flash_fwd": SRV_REQUESTS * n_tl})
+    _srv_alone("serving-h", fixed, traffic, SRV_SOLO, res_h)
+    sampled_tr = _srv_traffic(SEED + 41, SRV_SAMPLED, SRV_SAMPLED_PLEN,
+                              SRV_SAMPLED_NEW, tinyllama().vocab_size,
+                              seeded=True)
+    kw = dict(slots=SRV_SLOTS, buf_len=SRV_BUF, temperature=SRV_TEMP,
+              top_k=SRV_TOP_K, rng=SEED)
+    eng = serving.Engine(llama, window=SRV_WINDOW, **kw).warmup()
+    res_s = _serve_list(eng, sampled_tr)
+    del eng
+    _srv_alone("serving-h-sampled K=1", lambda: serving.Engine(
+        llama, window=1, **kw), sampled_tr, range(4), res_s)
+    summary["h"]["sampled_tokens"] = sum(len(r) for r in res_s)
+    log(f"[time] serving (h) in {time.time() - t0:.1f} s")
+
+    # (i) PagedEngine on (h)'s traffic -----------------------------------
+    def paged():
+        return serving.PagedEngine(
+            llama, slots=SRV_SLOTS, buf_len=SRV_BUF, block_size=SRV_BLOCK,
+            num_blocks=SRV_BLOCKS, window=SRV_WINDOW)
+
+    def all_blocks_back(eng):
+        assert eng.stats()["blocks_free"] == SRV_BLOCKS, eng.stats()
+
+    summary["i"], res_i, counts["i"] = _srv_path(
+        "serving-i", paged, traffic, lambda run: {}, check=all_blocks_back)
+    summary["i"]["agreement_with_h"] = _srv_agreement(res_i, res_h)
+    summary["i"]["requests_equal_to_h"] = sum(
+        a == b for a, b in zip(res_i, res_h))
+    del llama
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[serving-i] paged against (h), bf16: "
+        f"{summary['i']['agreement_with_h']:.4f} of the tokens, "
+        f"{summary['i']['requests_equal_to_h']} of "
+        f"{SRV_REQUESTS} requests equal; every block back on the free stack")
+    # (i) against (h) in fp32 (TF32 off, phase 1) at TinyLlama's widths,
+    # on (h)'s first wave with its new tokens cut to SRV_FP32_NEW
+    llama32 = models.Llama(tinyllama(), device=dev,
+                           generator=torch.Generator().manual_seed(
+                               SEED)).eval()
+    cut = [(p, min(n, SRV_FP32_NEW), kw)
+           for p, n, kw in traffic[:SRV_SLOTS]]
+    fp32 = {}
+    fp32["paged_vs_fixed_tinyllama"], _ = _srv_fp32_pair(
+        "i-fp32", lambda: serving.PagedEngine(
+            llama32, slots=SRV_SLOTS, buf_len=SRV_BUF,
+            block_size=SRV_BLOCK, num_blocks=SRV_BLOCKS,
+            window=SRV_WINDOW),
+        lambda: serving.Engine(llama32, slots=SRV_SLOTS, buf_len=SRV_BUF,
+                               window=SRV_WINDOW), cut)
+    log(f"[serving-i] paged against (h) in fp32 on {len(cut)} requests: "
+        f"{fp32['paged_vs_fixed_tinyllama']:.4f} of the tokens")
+    del llama32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] serving (i) in {time.time() - t0:.1f} s")
+
+    # (j) Seq2SeqEngine at t5-base's widths, bf16 ------------------------
+    t5 = models.T5(t5_base(), device=dev, generator=torch.Generator(
+        ).manual_seed(SEED)).to(torch.bfloat16).eval()
+    s2s_tr = _srv_traffic(SEED + 42, SRV_REQUESTS, S2S_PLEN,
+                          (S2S_NEW // 4, S2S_NEW), t5_base().vocab_size,
+                          low=2)
+
+    def s2s():
+        return serving.Seq2SeqEngine(t5, slots=SRV_SLOTS, src_len=S2S_SRC,
+                                     max_new_cap=S2S_NEW, window=SRV_WINDOW)
+
+    summary["j"], res_j, counts["j"] = _srv_path("serving-j", s2s, s2s_tr,
+                                                 lambda run: {})
+    _srv_alone("serving-j", s2s, s2s_tr, SRV_SOLO[:4], res_j)
+    del t5
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] serving (j) in {time.time() - t0:.1f} s")
+
+    # (k) prefix pool and (l) speculative at GPT-2 small's widths --------
+    t16 = _gpt2_small(dev).to(torch.bfloat16)
+    d16 = models.GPT(distilgpt2(), device=dev, generator=torch.Generator(
+        ).manual_seed(SEED + 1)).to(torch.bfloat16).eval()
+    rs = np.random.RandomState(SEED + 43)
+    prefix = [int(t) for t in rs.randint(0, 50257, GPT2_PREFIX)]
+    fresh = _srv_traffic(SEED + 44, 32, GPT2_PLEN, GPT2_NEW, 50257)
+    pre_tr = [((prefix + p) if i % 2 == 0 else p, n, kw)
+              for i, (p, n, kw) in enumerate(fresh)]
+
+    def with_prefix(model):
+        def make():
+            eng = serving.Engine(model, slots=SRV_SLOTS,
+                                 buf_len=GPT2_SRV_BUF, window=SRV_WINDOW,
+                                 prefix_pool=1, prefix_chunk=GPT2_CHUNK)
+            eng.register_prefix(prefix)
+            return eng
+        return make
+
+    # GPT-2's LayerNorms: two a block, and the final one where a forward
+    # returns its hidden state (not in a prefill); flash once a block of
+    # each prefill.  By shape, from the run's windows and its traffic.
+    n_t, n_d = models.gpt2_small().n_layer, distilgpt2().n_layer
+    n_fresh = sum(p[:GPT2_PREFIX] != prefix for p, _, _ in pre_tr)
+    chunks = sum(_srv_chunks(len(p), GPT2_PREFIX, GPT2_CHUNK, GPT2_SRV_BUF)
+                 for p, _, _ in pre_tr if p[:GPT2_PREFIX] == prefix)
+    ln_at = {}
+
+    def expect_k(run):
+        ln_at["serving"] = run["windows_run"] * SRV_WINDOW * (2 * n_t + 1)
+        ln_at["serving-prefill"] = n_fresh * 2 * n_t
+        ln_at["serving-chunk"] = chunks * (2 * n_t + 1)
+        return {"flash_fwd": n_fresh * n_t,
+                "layer_norm_fwd": sum(ln_at.values())}
+
+    summary["k"], res_k, counts["k"] = _srv_path("serving-k",
+                                                 with_prefix(t16), pre_tr,
+                                                 expect_k)
+    plain16 = lambda: serving.Engine(t16, slots=SRV_SLOTS,  # noqa: E731
+                                     buf_len=GPT2_SRV_BUF,
+                                     window=SRV_WINDOW)
+    res_plain = _serve_list(plain16().warmup(), pre_tr)
+    summary["k"]["bf16_agreement_splice_vs_prefill"] = _srv_agreement(
+        res_k, res_plain)
+    spec_tr = _srv_traffic(SEED + 45, 16, GPT2_PLEN, (32, 32), 50257)
+
+    def spec16():
+        return serving.Engine(t16, slots=SPEC_SLOTS, buf_len=GPT2_SRV_BUF,
+                              draft=d16, gamma=SPEC_GAMMA)
+
+    def expect_l(run):
+        # a round: SPEC_GAMMA draft ticks, one verify chunk of the target
+        ln_at["serving-prefill"] += len(spec_tr) * 2 * (n_t + n_d)
+        ln_at["serving-spec-draft"] = (run["windows_run"] * SPEC_GAMMA
+                                       * (2 * n_d + 1))
+        ln_at["serving-spec-verify"] = run["windows_run"] * (2 * n_t + 1)
+        return {"flash_fwd": len(spec_tr) * (n_t + n_d),
+                "layer_norm_fwd": len(spec_tr) * 2 * (n_t + n_d)
+                + ln_at["serving-spec-draft"]
+                + ln_at["serving-spec-verify"]}
+
+    summary["l"], res_l, counts["l"] = _srv_path("serving-l", spec16,
+                                                 spec_tr, expect_l)
+    res_greedy = _serve_list(serving.Engine(
+        t16, slots=SPEC_SLOTS, buf_len=GPT2_SRV_BUF,
+        window=SRV_WINDOW).warmup(), spec_tr)
+    summary["l"]["bf16_agreement_with_greedy"] = _srv_agreement(
+        res_l, res_greedy)
+    del t16, d16
+    gc.collect()
+    torch.cuda.empty_cache()
+    # fp32 (TF32 off, phase 1): splice against a fresh prefill, speculative
+    # against greedy, paged against fixed, the engine against solo
+    # generate_cached
+    t32 = _gpt2_small(dev)
+    d32 = models.GPT(distilgpt2(), device=dev, generator=torch.Generator(
+        ).manual_seed(SEED + 1)).eval()
+    fp32["splice_vs_prefill"], _ = _srv_fp32_pair(
+        "k-fp32", with_prefix(t32), lambda: serving.Engine(
+            t32, slots=SRV_SLOTS, buf_len=GPT2_SRV_BUF, window=SRV_WINDOW),
+        pre_tr[:16])
+    fp32["speculative_vs_greedy"], (res_sp, _) = _srv_fp32_pair(
+        "l-fp32", lambda: serving.Engine(t32, slots=SPEC_SLOTS,
+                                         buf_len=GPT2_SRV_BUF, draft=d32,
+                                         gamma=SPEC_GAMMA),
+        lambda: serving.Engine(t32, slots=SPEC_SLOTS, buf_len=GPT2_SRV_BUF,
+                               window=SRV_WINDOW), spec_tr[:SPEC_SLOTS])
+    fp32["paged_vs_fixed"], _ = _srv_fp32_pair(
+        "i-fp32", lambda: serving.PagedEngine(
+            t32, slots=SRV_SLOTS, buf_len=GPT2_SRV_BUF,
+            block_size=SRV_BLOCK, window=SRV_WINDOW),
+        lambda: serving.Engine(t32, slots=SRV_SLOTS, buf_len=GPT2_SRV_BUF,
+                               window=SRV_WINDOW), fresh[:16])
+    solo = []
+    for p, n, _ in spec_tr[:SPEC_SLOTS]:
+        buf = torch.zeros((1, GPT2_SRV_BUF), dtype=torch.int64, device=dev)
+        buf[0, :len(p)] = torch.tensor(p, device=dev)
+        out, fl = t32.generate_cached(buf, len(p), n)
+        solo.append(out[0, len(p):int(fl[0])].tolist())
+    fp32["engine_vs_solo_generate_cached"] = _srv_agreement(res_sp, solo)
+    summary["fp32_agreement"] = fp32
+    for k, v in fp32.items():
+        assert v == 1.0, f"[serving] fp32 {k}: {v} of the tokens agree"
+    log(f"[serving] fp32 agreement (TF32 off): {json.dumps(fp32)}, each "
+        f"required 1.0; bf16: "
+        f"splice against a fresh prefill "
+        f"{summary['k']['bf16_agreement_splice_vs_prefill']:.4f}, "
+        f"speculative against greedy "
+        f"{summary['l']['bf16_agreement_with_greedy']:.4f}")
+    del t32, d32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] serving (k), (l) in {time.time() - t0:.1f} s")
+
+    # the demo's engine modes, as examples/serving/demo_torch.py runs them
+    demo = _load("examples", "serving", "demo_torch.py")
+    args = demo.parse_args(DEMO_ARGV)
+    block = args.block or (args.prompt + args.new)
+    target = demo.build(args.layers, args.width, 0, args.vocab, block, dev)
+    drs = np.random.RandomState(0)
+    (st_e, n_e), c_e = _counted(lambda: demo.run_engine(target, args, block,
+                                                        drs))
+    (st_s, n_s), _ = _counted(lambda: demo.run_seq2seq(args, drs, dev))
+    assert st_e["finished"] == st_s["finished"] == 2 * args.batch
+    assert st_e["prefix_hits"] == args.batch
+    summary["demo"] = {"engine_tokens": n_e, "seq2seq_tokens": n_s,
+                       "engine_launches": c_e}
+    log(f"[serving-demo] engine: {n_e} tokens over {st_e['finished']} "
+        f"requests ({st_e['prefix_hits']} by splice), seq2seq: {n_s} tokens")
+    # each row's launches: those at its shape on the paths that run it
+    # (the path totals held exactly above)
+    rows["flash_fwd:serving-tinyllama"]["launches"] = counts["h"]["flash_fwd"]
+    rows["flash_fwd:serving-gpt2"]["launches"] = (counts["k"]["flash_fwd"]
+                                                  + counts["l"]["flash_fwd"])
+    assert sum(ln_at.values()) == (counts["k"]["layer_norm_fwd"]
+                                   + counts["l"]["layer_norm_fwd"])
+    for tag, n in ln_at.items():
+        rows[f"layer_norm_fwd:{tag}"]["launches"] = n
+    log(f"[serving] LayerNorm launches of (k) and (l) by shape: "
+        f"{json.dumps({f'({ln_shapes[t][0]}, 768)': n for t, n in ln_at.items()})}")
+    for key, row in rows.items():
+        row["variant"] = key
+    log(f"[time] phase 18 in {time.time() - t0:.1f} s")
+    log("serving " + json.dumps(summary, default=str))
+    return list(rows.values()), summary
 
 
 def _check_counts(tag: str, counts, expect) -> None:
@@ -4288,6 +4890,8 @@ def main():
     log(f"[time] phase 16 done at {time.time() - t0:.1f} s")
     tail_rows, counts_tail = phase_decoder_tail(smi)
     log(f"[time] phase 17 done at {time.time() - t0:.1f} s")
+    serving_rows, _ = phase_serving(smi)
+    log(f"[time] phase 18 done at {time.time() - t0:.1f} s")
 
     _check_counts("train", counts_train, RESNET_COUNTS)
     _check_counts("ddp", counts_ddp, RESNET_COUNTS)
@@ -4324,6 +4928,7 @@ def main():
     log("kernels_decoder " + json.dumps(
         {"kernels": _decoder_rows(dec_rows, counts_dec)}))
     log("kernels_decoder_tail " + json.dumps({"kernels": tail_rows}))
+    log("kernels_serving " + json.dumps({"kernels": serving_rows}))
     log(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
@@ -4353,6 +4958,12 @@ if __name__ == "__main__":
         tail_rows, counts_tail = phase_decoder_tail(smi)
         _check_tail_counts(counts_tail)
         log("kernels_decoder_tail " + json.dumps({"kernels": tail_rows}))
+    elif sys.argv[1:2] == ["--serving"]:
+        # python3 chip_smoke.py --serving: phases 1, 2 and 18 alone
+        _, smi = phase_device()
+        phase_build()
+        serving_rows, _ = phase_serving(smi)
+        log("kernels_serving " + json.dumps({"kernels": serving_rows}))
     elif sys.argv[1:2] == ["--layer-norm-ab"]:
         # python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
         phase_device()

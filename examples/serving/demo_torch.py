@@ -11,19 +11,22 @@ printing its tokens and wall time:
   int8     weight-only int8 weights + the int8 KV cache
   spec     lossless speculative decoding with the draft model
   beam     beam search (--beams hypotheses)
+  engine   continuous batching (serving.Engine) with a shared-prefix KV
+           pool: half the requests start with a registered system prefix
+           and admit by KV splice
+  seq2seq  T5 continuous batching (serving.Seq2SeqEngine)
 
-The JAX demo's ``engine`` (continuous batching with a shared-prefix KV
-pool) and ``seq2seq`` (T5 continuous batching) modes need the serving
-engines, which the port does not have yet: ``run_engine`` and
-``run_seq2seq`` raise.  Weights are random (seeded); the point is the
-mechanics and the relative costs.
+Weights are random (seeded); the point is the mechanics and the relative
+costs.  On the GPU each engine's admission and decode windows replay
+CUDA graphs (``serving``'s module doc).
 
 Run on the GPU:
   python examples/serving/demo_torch.py --batch 4 --prompt 16 --new 32
 Run on the CPU (the plain versions of the kernels):
   python examples/serving/demo_torch.py --device cpu --batch 2 --new 8
 
-``main(argv)`` runs in process and returns each mode's tokens.
+``main(argv)`` runs in process and returns each mode's tokens (the
+engine modes: their ``stats()`` and token counts).
 """
 
 import argparse
@@ -40,14 +43,13 @@ if (os.path.isdir(os.path.join(_repo, "apex_tpu_torch"))
         and _repo not in sys.path):
     sys.path.insert(0, _repo)
 
-from apex_tpu_torch import models, quantization  # noqa: E402
+from apex_tpu_torch import models, quantization, serving  # noqa: E402
 from apex_tpu_torch._device import resolve_device  # noqa: E402
 from apex_tpu_torch.models import (beam_search,  # noqa: E402
                                    generate_speculative)
 
 MODES = ("greedy", "sample", "int8", "spec", "beam")
-_UNPORTED = ("the serving engines (serving.py: Engine, PagedEngine, "
-             "Seq2SeqEngine) are not ported yet: ROADMAP.md queue 1, item 5")
+ENGINE_MODES = ("engine", "seq2seq")
 
 
 def build(n_layer, n_embd, seed, vocab, block, device):
@@ -71,15 +73,48 @@ def timed(label, fn, device):
     return out
 
 
-def run_engine(*args, **kwargs):
-    """Continuous batching with a shared-prefix KV pool (the JAX demo's
-    ``engine`` mode)."""
-    raise NotImplementedError(f"engine mode: {_UNPORTED}")
+def _drain(eng):
+    """Step ``eng`` until nothing is live or queued; the tokens emitted."""
+    n = 0
+    while eng.live() or eng.stats()["waiting"]:
+        n += sum(len(t) for t in eng.step().values())
+    return n
 
 
-def run_seq2seq(*args, **kwargs):
-    """T5 continuous batching (the JAX demo's ``seq2seq`` mode)."""
-    raise NotImplementedError(f"seq2seq mode: {_UNPORTED}")
+def run_engine(target, args, block, rng):
+    """Continuous batching with a shared-prefix KV pool: 2 x batch
+    requests through ``batch`` slots, half of them starting with a
+    registered system prefix (the JAX demo's ``engine`` mode)."""
+    half = max(1, args.prompt // 2)
+    eng = serving.Engine(target, slots=args.batch, buf_len=block,
+                         prefix_pool=1)
+    sys_prefix = list(rng.randint(0, args.vocab, half))
+    eng.register_prefix(sys_prefix)
+    for i in range(2 * args.batch):
+        pr = (sys_prefix if i % 2 == 0 else
+              list(rng.randint(0, args.vocab, half))) \
+            + list(rng.randint(0, args.vocab, half))
+        eng.submit(pr, max_new_tokens=args.new)
+    n = _drain(eng)
+    return eng.stats(), n
+
+
+def run_seq2seq(args, rng, device):
+    """T5 continuous batching: 2 x batch sources of random lengths
+    through ``batch`` slots (the JAX demo's ``seq2seq`` mode)."""
+    t5 = models.T5(models.T5Config(
+        vocab_size=args.vocab, d_model=args.width, d_kv=16,
+        d_ff=2 * args.width, num_layers=max(1, args.layers // 2),
+        num_heads=4, dropout_rate=0.0), device=device,
+        generator=torch.Generator().manual_seed(2))
+    eng = serving.Seq2SeqEngine(t5.eval(), slots=args.batch,
+                                src_len=args.prompt, max_new_cap=args.new)
+    for _ in range(2 * args.batch):
+        n_src = int(rng.randint(1, args.prompt + 1))
+        eng.submit(list(rng.randint(2, args.vocab, n_src)),
+                   max_new_tokens=args.new)
+    n = _drain(eng)
+    return eng.stats(), n
 
 
 def parse_args(argv=None):
@@ -132,7 +167,15 @@ def main(argv=None):
         target, ids, plen, args.new, num_beams=args.beams)[0], device)
     for mode in MODES:
         print(f"{mode:8s} row 0: {out[mode][0, args.prompt:].tolist()}")
-    print(f"engine, seq2seq: {_UNPORTED}")
+    st, n = timed("engine", lambda: run_engine(target, args, block, rng),
+                  device)
+    print(f"engine: {n} tokens over {st['finished']} requests, "
+          f"{st['prefix_hits']} prefix-splice admissions")
+    out["engine"] = (st, n)
+    st, n = timed("seq2seq", lambda: run_seq2seq(args, rng, device),
+                  device)
+    print(f"seq2seq engine: {n} tokens over {st['finished']} requests")
+    out["seq2seq"] = (st, n)
     print("done", flush=True)
     return out
 

@@ -1461,3 +1461,135 @@ def test_speculative_greedy_equals_target_greedy_on_the_card(cuda, verify):
         assert torch.equal(beam, want) and torch.equal(bfinal, final)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _serve_all(eng, traffic):
+    """Submit every (prompt, max_new, kwargs) of ``traffic``, step until
+    idle; the results in order."""
+    rids = [eng.submit(p, n, **kw) for p, n, kw in traffic]
+    steps = 0
+    while eng.live() or eng.queue_depth():
+        eng.step()
+        steps += 1
+        assert steps < 500
+    return [eng.result(r) for r in rids]
+
+
+def _serving_traffic(seed, n, vocab, plen=(3, 40), new=(2, 20)):
+    rs = np.random.RandomState(seed)
+    return [([int(t) for t in rs.randint(0, vocab, int(rs.randint(*plen)))],
+             int(rs.randint(*new)), {}) for _ in range(n)]
+
+
+def _tiny_decoder(cuda, family="gpt"):
+    from apex_tpu_torch import models
+    gen = torch.Generator().manual_seed(5)
+    if family == "gpt":
+        return models.GPT(models.GPTConfig(
+            vocab_size=97, block_size=64, n_layer=2, n_head=4, n_embd=64,
+            dropout=0.0, n_kv_head=2), device=cuda, generator=gen)
+    return models.Llama(models.LlamaConfig(
+        vocab_size=97, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=64, tie_word_embeddings=True), device=cuda,
+        generator=gen)
+
+
+def _eager(eng):
+    for g in eng._graphs:
+        g.eager = True
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["engine", "paged", "sampled", "prefix",
+                                  "speculative", "seq2seq"])
+def test_serving_captured_window_is_the_eager_window(cuda, kind):
+    """On the card each engine's windows replay CUDA graphs: warmup()
+    captures exactly the census's admission and decode graphs, a warm
+    engine captures nothing more through queued admissions, mid-window
+    EOS, cancel and preemption, and every request's tokens are bitwise
+    those of the same engine run eagerly."""
+    from apex_tpu_torch import models, serving
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _tiny_decoder(cuda, "llama" if kind == "paged" else "gpt")
+    traffic = _serving_traffic(11, 12, 97)
+    kw = dict(slots=4, buf_len=48, window=4)
+    if kind == "engine":
+        make = lambda: serving.Engine(model, **kw)               # noqa
+    elif kind == "paged":
+        make = lambda: serving.PagedEngine(model, block_size=8,  # noqa
+                                           num_blocks=14, **kw)
+    elif kind == "sampled":
+        make = lambda: serving.Engine(model, temperature=0.9,   # noqa
+                                      top_k=20, rng=7, **kw)
+        traffic = [(p, n, {"seed": i}) for i, (p, n, _) in
+                   enumerate(traffic)]
+    elif kind == "prefix":
+        make = lambda: serving.Engine(model, prefix_pool=1,     # noqa
+                                      prefix_chunk=8, **kw)
+        pref = list(range(1, 13))
+        traffic = [(pref + p[:20], n, {}) if i % 2 else (p, n, {})
+                   for i, (p, n, _) in enumerate(traffic)]
+    elif kind == "speculative":
+        draft = _tiny_decoder(cuda, "gpt")
+        make = lambda: serving.Engine(model, draft=draft, gamma=3,  # noqa
+                                      slots=4, buf_len=48)
+    else:
+        t5 = models.T5(models.T5Config(
+            vocab_size=97, d_model=64, d_kv=16, d_ff=128, num_layers=2,
+            num_heads=4, dropout_rate=0.0), device=cuda,
+            generator=torch.Generator().manual_seed(6))
+        make = lambda: serving.Seq2SeqEngine(t5, slots=4, src_len=40,  # noqa
+                                             max_new_cap=20, window=4)
+    eng = make()
+    census = eng.compile_census()
+    eng.warmup()
+    assert eng.captures == {k: eng.captures[k] for k, stage in
+                            census.items() if stage in ("admission",
+                                                        "decode")}
+    assert set(eng.captures) == {k for k, stage in census.items()
+                                 if stage in ("admission", "decode")}
+    if kind == "prefix":
+        eng.register_prefix(pref)
+    warm = dict(eng.captures)
+    # an EOS that fires: the first request's first solo token
+    solo = _serve_all(make(), traffic[:1])
+    traffic[1] = (traffic[1][0], traffic[1][1],
+                  dict(traffic[1][2], eos_token_id=solo[0][0]))
+    got = _serve_all(eng, traffic)
+    if kind != "prefix":
+        assert eng.captures == warm
+    ref = _eager(make())
+    if kind == "prefix":
+        ref.register_prefix(pref)
+        assert eng.stats()["prefix_hits"] == 6
+    assert _serve_all(ref, traffic) == got
+    # cancel and preempt on the warm engine capture nothing
+    before = dict(eng.captures)
+    rids = [eng.submit(p[:8], 16, **k) for p, n, k in traffic[2:8]]
+    eng.step()
+    assert eng.cancel(rids[0]) and eng.preempt(rids[1])
+    while eng.live() or eng.queue_depth():
+        eng.step()
+    assert eng.captures == before
+    if kind == "paged":
+        assert eng.stats()["blocks_free"] == eng.num_blocks
+
+
+@pytest.mark.cuda
+def test_serving_paged_equals_fixed_on_the_card(cuda):
+    """fp32 on the card: the paged engine gives the fixed engine's tokens
+    (greedy and explicitly seeded sampled), captured."""
+    from apex_tpu_torch import serving
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _tiny_decoder(cuda, "llama")
+    traffic = _serving_traffic(12, 10, 97)
+    for kw in ({}, {"temperature": 0.9, "top_k": 20, "rng": 3}):
+        tr = ([(p, n, {"seed": 9 + i}) for i, (p, n, _) in
+               enumerate(traffic)] if kw else traffic)
+        fixed = serving.Engine(model, slots=3, buf_len=48, window=4, **kw)
+        paged = serving.PagedEngine(model, slots=3, buf_len=48, window=4,
+                                    block_size=8, num_blocks=12, **kw)
+        assert _serve_all(paged.warmup(), tr) == _serve_all(fixed.warmup(),
+                                                            tr)
