@@ -13,7 +13,8 @@ or the JAX package's functional step, which a CUDA graph can capture
     loss, grads = amp.scaled_grad(loss_fn, optimizer, x, y)
     info = optimizer.step(grads)
 
-and its checkpoint::
+with ZeRO (``optimizer.zero_shard(zero_stage=...)``, then the functional
+step; ``zero_gather_params`` for stage 3), and its checkpoint::
 
     torch.save({"model": model.state_dict(),
                 "optimizer": optimizer.state_dict(),
@@ -29,7 +30,9 @@ policies and the scaler introspection calls.
 
 from . import lists, policy
 from ._amp_state import master_params
-from ._process_optimizer import AmpOptimizer, FlatMasters
+from ._process_optimizer import (AmpOptimizer, FlatMasters,
+                                 zero_gather_checkpoint_policy,
+                                 zero_gather_params, zero_optimizer_specs)
 from .frontend import (Properties, amp_stats, compute_dtype,
                        current_loss_scale, initialize, opt_levels,
                        scaler_state, steps_skipped)
@@ -43,7 +46,8 @@ from .policy import (CastPolicy, NoPolicy, current_policy, float_function,
 from .scaler import LossScaler, ScalerState
 
 __all__ = ["initialize", "scale_loss", "scaled_grad", "scaled_grad_accum",
-           "master_params", "AmpOptimizer",
+           "master_params", "AmpOptimizer", "zero_optimizer_specs",
+           "zero_gather_params", "zero_gather_checkpoint_policy",
            "FlatMasters", "LossScaler", "ScalerState", "Properties",
            "opt_levels", "compute_dtype", "scaler_state",
            "current_loss_scale", "steps_skipped", "amp_stats",

@@ -41,6 +41,23 @@ is called on the bound model, on one of its submodules, or on a wrapper
 that holds it (``parallel.DistributedDataParallel``'s ``module.*`` keys);
 ``DistributedDataParallel``'s rank-0 broadcast takes the same route.
 
+ZeRO (:meth:`AmpOptimizer.zero_shard`, the JAX package's ``init(params,
+zero_axis=...)``) shards the fp32 masters and the moments over the data
+ranks: each rank keeps its window of ``ceil(N / shards)`` elements of the
+flat buffer, padded with zeros at the end to ``shards`` windows
+(:func:`zero_optimizer_specs` gives each rank's ``(start, length)``).
+Stage 1 shards over the world: the functional step reduce-scatters the
+grads the caller did not reduce, updates its window and all-gathers the
+new half (and fp32) params back into the buffers the model views.
+Stages 2 and 3 shard over the ranks of a node (``zero_ici_size``): the
+grads are reduce-scattered within the node and the 1/ici shard reduced
+across nodes (in bf16 with ``zero_compress_bf16``); stage 2 gathers the
+params back within the node, and stage 3 keeps none: the forward gathers
+them just in time (:func:`zero_gather_params`), the backward of that
+gather reduce-scatters the grads, and :func:`zero_gather_checkpoint_policy`
+regathers them in the backward instead of keeping them.  The overflow flag
+is taken over every rank, so a skip is every rank's.
+
 Checkpoints.  :meth:`AmpOptimizer.state_dict` holds the loss scalers (the
 JAX package's ``{"scalers": [...]}``), the inner optimizer's state fields
 and the flat fp32 master buffer: what the JAX package's ``AmpOptState``
@@ -58,7 +75,10 @@ import dataclasses
 import functools
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from .. import ops
 from ..multi_tensor_apply import ChunkedFlatLayout, pack_flat
@@ -67,7 +87,9 @@ from ..optimizers.base import Optimizer
 from .scaler import LossScaler, ScalerState
 from .stateful import GradStash
 
-__all__ = ["AmpOptimizer", "FlatMasters", "jax_leaf_order"]
+__all__ = ["AmpOptimizer", "FlatMasters", "jax_leaf_order",
+           "zero_optimizer_specs", "zero_gather_params",
+           "zero_gather_checkpoint_policy"]
 
 _SCALER_FIELDS = {"loss_scale": torch.float32, "unskipped": torch.int32,
                   "steps_skipped": torch.int32}
@@ -148,16 +170,125 @@ class _FlatLayout(ChunkedFlatLayout):
 
 class FlatMasters:
     """fp32 master weights as one flat buffer, the optional flat half
-    copy the model's half parameters view, and their layout."""
+    copy the model's half parameters view, and their layout.  Under ZeRO
+    ``buf`` is this rank's window, ``half`` (stages 1 and 2) the whole
+    padded half buffer and ``full`` the padded fp32 buffer the model's
+    fp32 parameters view (when it has any, or no half dtype)."""
 
     def __init__(self, buf: torch.Tensor, half: Optional[torch.Tensor],
-                 layout: _FlatLayout):
+                 layout: _FlatLayout, full: Optional[torch.Tensor] = None,
+                 zero: Optional["ZeroShard"] = None):
         self.buf = buf
         self.half = half
         self.layout = layout
+        self.full = full
+        self.zero = zero
 
     def as_list(self) -> List[torch.Tensor]:
+        if self.zero is not None:
+            raise RuntimeError(
+                "masters are ZeRO-sharded: all_gather the buffer over the "
+                "shard group and cut it to layout.total before unpacking")
         return [p for p in self.layout.pieces(self.buf) if p is not None]
+
+
+def _validate_zero_knobs(zero_stage: int, zero_ici_size,
+                         compress: bool) -> None:
+    if zero_stage not in (1, 2, 3):
+        raise ValueError(f"zero_stage must be 1, 2 or 3, got {zero_stage!r}")
+    if zero_stage >= 2 and zero_ici_size is None:
+        raise ValueError(
+            f"ZeRO stage {zero_stage} shards over the node level of the "
+            f"hierarchical fabric; pass zero_ici_size= (ranks a node)")
+    if compress and zero_stage < 2:
+        raise ValueError(
+            "zero_compress_bf16 compresses the cross-node hop of the "
+            "stage-2/3 grad reduction; stage 1 shards over the whole world "
+            "and has no such hop to shrink")
+
+
+def _zero3_gather_tables(layout: _FlatLayout, ici: int):
+    """The index tables of the ZeRO-3 gather (the JAX package's, as numpy):
+    the gather runs in the half dtype, and the elements of parameters
+    that stay fp32 ride a second small gather, each rank sending its own
+    through a row of ``idx`` padded to the largest count ``M``.  Returns
+    ``(idx [ici, max(M, 1)] local indices, rebuild [n32] indices into the
+    gathered [ici * max(M, 1)] buffer, n32, M)``."""
+    padded = -(-layout.total // ici) * ici
+    shard = padded // ici
+    half = layout.half_dtype
+    pos: List[int] = []
+    for dt, f, off, n in zip(layout.dtypes, layout.is_float,
+                             layout.offsets, layout.sizes):
+        if f and dt != half:
+            pos.extend(range(off, off + n))
+    per = [[p - d * shard for p in pos if d * shard <= p < (d + 1) * shard]
+           for d in range(ici)]
+    m_max = max((len(p) for p in per), default=0)
+    idx = np.zeros((ici, max(m_max, 1)), np.int64)
+    rebuild = np.zeros(len(pos), np.int64)
+    k = 0
+    for d, p in enumerate(per):
+        idx[d, :len(p)] = p
+        for slot in range(len(p)):
+            rebuild[k] = d * max(m_max, 1) + slot
+            k += 1
+    return idx, rebuild, len(pos), m_max
+
+
+def _zero_windows(total: int, stage: int, ici: Optional[int],
+                  world: int) -> Tuple[int, int]:
+    """``(shards, window length)`` of a ZeRO layout of ``total`` elements:
+    the windows split the world for stage 1 and a node of ``ici`` ranks
+    for stages 2 and 3; rank ``r`` holds window ``r % shards``."""
+    shards = world if stage == 1 else int(ici)
+    if world % shards:
+        raise ValueError(f"zero_ici_size {shards} must divide the world "
+                         f"size {world}")
+    return shards, -(-total // shards)
+
+
+class ZeroShard:
+    """Where this rank's ZeRO window lies: the stage, the group the
+    windows split (the world for stage 1, the node for 2 and 3), the
+    cross-node group, this rank's window index and the window length."""
+
+    def __init__(self, layout: _FlatLayout, stage: int, ici: Optional[int],
+                 compress: bool, world: int, rank: int):
+        from ..parallel import topology
+        self.stage, self.compress, self.world = stage, compress, world
+        self.shards, self.shard_n = _zero_windows(layout.total, stage, ici,
+                                                  world)
+        self.index = rank % self.shards
+        if stage >= 2:
+            self.ici = self.shards
+            self.group, self.dcn_group = topology.hierarchical_groups(
+                self.ici, world)
+        else:
+            self.ici = None
+            self.group = self.dcn_group = None
+        self.padded = self.shard_n * self.shards
+
+    def window(self, t: torch.Tensor) -> torch.Tensor:
+        return t[self.index * self.shard_n:(self.index + 1) * self.shard_n]
+
+
+def zero_optimizer_specs(optimizer: "AmpOptimizer", zero_stage: int = 1,
+                         zero_ici_size: Optional[int] = None,
+                         zero_compress_bf16: bool = False
+                         ) -> List[Tuple[int, int]]:
+    """Each rank's ``(start, length)`` window of the flat master and moment
+    buffers under :meth:`AmpOptimizer.zero_shard` with these knobs (the
+    JAX package's PartitionSpecs of a ZeRO state): one pair a rank of the
+    world, ``length`` the window with its share of the end padding.  The
+    knobs are checked as ``zero_shard`` checks them."""
+    optimizer._require_bound()
+    optimizer._require_zero_capable()
+    _validate_zero_knobs(zero_stage, zero_ici_size, zero_compress_bf16)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    shards, n = _zero_windows(optimizer.masters.layout.total, zero_stage,
+                              zero_ici_size, world)
+    return [((r % shards) * n, n) for r in range(world)]
 
 
 class AmpOptimizer:
@@ -191,6 +322,7 @@ class AmpOptimizer:
         self.last_info: Dict[str, torch.Tensor] = {}
         self._params: List[torch.nn.Parameter] = []
         self._stash: Optional[GradStash] = None
+        self._zero: Optional[ZeroShard] = None
 
     # -- set-up ---------------------------------------------------------------
     def bind(self, model: torch.nn.Module) -> None:
@@ -241,6 +373,123 @@ class AmpOptimizer:
                 mod.register_load_state_dict_pre_hook(functools.partial(
                     self._load_state_dict_hook, mname + "." if mname else ""))
 
+    # -- ZeRO -----------------------------------------------------------------
+    def _require_zero_capable(self) -> None:
+        if not (self.master_weights and self.inner.elementwise):
+            raise ValueError("zero_axis requires master weights and an "
+                             "elementwise inner optimizer (the flat-buffer "
+                             "path)")
+
+    def zero_shard(self, zero_stage: int = 1,
+                   zero_ici_size: Optional[int] = None,
+                   zero_compress_bf16: bool = False) -> None:
+        """Shard the masters and the moments over the ranks of the default
+        group (the JAX package's ``init(params, zero_axis=...,
+        zero_stage, zero_ici_size, zero_compress_bf16)``; see the module
+        doc).  Call after ``amp.initialize`` (and after the data-parallel
+        wrapper's broadcast, if any), on every rank.  The moments start
+        fresh on the window, as the JAX package's init makes them.  From
+        then on the step is the functional one, ``step(grads)`` with the
+        caller's un-reduced grads (stage 3: the grad window that
+        ``amp.scaled_grad`` takes through :func:`zero_gather_params`);
+        under stage 3 the model keeps no parameters: its forward runs
+        through ``torch.func.functional_call`` on
+        :func:`zero_gather_params`."""
+        self._require_bound()
+        self._require_zero_capable()
+        _validate_zero_knobs(zero_stage, zero_ici_size, zero_compress_bf16)
+        if self._zero is not None:
+            raise RuntimeError("the optimizer state is already ZeRO-sharded")
+        m = self.masters
+        lay = m.layout
+        if not dist.is_initialized():
+            raise RuntimeError("zero_shard needs torch.distributed: call "
+                               "apex_tpu_torch.parallel.init_process_group() "
+                               "first")
+        z = ZeroShard(lay, zero_stage, zero_ici_size, zero_compress_bf16,
+                      dist.get_world_size(), dist.get_rank())
+        dev = m.buf.device
+        pad = z.padded - lay.total
+
+        def padded(t):
+            return torch.cat([t, t.new_zeros(pad)]) if pad else t.clone()
+        shard = z.window(padded(m.buf)).clone()
+        half = full = None
+        if zero_stage < 3:
+            if m.half is not None:
+                half = padded(m.half)
+            if m.half is None or any(
+                    f and d == torch.float32
+                    for f, d in zip(lay.is_float, lay.dtypes)):
+                full = padded(m.buf)
+        for p, p32, ph in zip(self._params,
+                              lay.pieces(full) if full is not None
+                              else [None] * len(self._params),
+                              lay.pieces(half) if half is not None
+                              else [None] * len(self._params)):
+            if zero_stage == 3:
+                # the forward gathers them: the model keeps none
+                p.data = torch.empty(0, dtype=p.dtype, device=dev)
+            else:
+                p.data = p32 if p.dtype == torch.float32 else ph
+        self.masters = FlatMasters(shard, half, lay, full=full, zero=z)
+        self.state = self.inner.init(shard)
+        self._zero = z
+        # the functional step packs into the padded buffer; the stash of
+        # the eager step goes (the sharded step has none)
+        self._stash = None
+        self._zero_flat = (torch.zeros(z.padded, dtype=torch.float32,
+                                       device=dev)
+                           if zero_stage < 3 else None)
+        if zero_stage == 3:
+            # the leaf amp.scaled_grad differentiates: the window itself
+            self._zero_leaf = shard.detach().requires_grad_()
+            if lay.half_dtype is not None:
+                idx, rebuild, n32, _ = _zero3_gather_tables(lay, z.shards)
+                self._zero_tables = (torch.from_numpy(idx[z.index]).to(dev),
+                                     torch.from_numpy(rebuild).to(dev), n32)
+            self._zero_live: Dict[StorageWeakRef, str] = {}
+            self.zero_dropped_saves = 0
+            self._zero_regathered: Dict[str, torch.Tensor] = {}
+
+    def _zero_gather_buffers(self, shard: torch.Tensor
+                             ) -> Dict[str, torch.Tensor]:
+        """The ZeRO-3 gather: ``{"half": the padded half buffer, "exact":
+        the fp32 parameters' elements}``, or ``{"full": the padded fp32
+        buffer}`` when the layout has no half dtype."""
+        z, lay = self._zero, self.masters.layout
+        half = lay.half_dtype
+        if half is None:
+            full = shard.new_empty(z.padded)
+            dist.all_gather_into_tensor(full, shard, group=z.group)
+            return {"full": full}
+        fullh = torch.empty(z.padded, dtype=half, device=shard.device)
+        dist.all_gather_into_tensor(fullh, shard.to(half), group=z.group)
+        out = {"half": fullh}
+        row, rebuild, n32 = self._zero_tables
+        if n32:
+            aux = shard[row]
+            g32 = aux.new_empty(z.shards * aux.shape[0])
+            dist.all_gather_into_tensor(g32, aux, group=z.group)
+            out["exact"] = g32[rebuild]
+        return out
+
+    def _zero_leaves(self, bufs: Dict[str, torch.Tensor]
+                     ) -> List[torch.Tensor]:
+        lay = self.masters.layout
+        out, ex_off = [], 0
+        for shape, dt, off, n in zip(lay.shapes, lay.dtypes, lay.offsets,
+                                     lay.sizes):
+            if "full" in bufs:
+                out.append(bufs["full"][off:off + n].view(shape).to(dt))
+            elif dt == lay.half_dtype:
+                out.append(bufs["half"][off:off + n].view(shape))
+            else:
+                out.append(bufs["exact"][ex_off:ex_off + n].view(shape)
+                           .to(dt))
+                ex_off += n
+        return out
+
     # -- parameter values after bind ------------------------------------------
     def refresh_masters(self) -> None:
         """Without master weights the half params are the source of truth:
@@ -260,6 +509,9 @@ class AmpOptimizer:
         half copy, which the model's half parameters view, is re-derived
         from the masters."""
         self._require_bound()
+        if self._zero is not None:
+            raise RuntimeError("the optimizer state is ZeRO-sharded: write "
+                               "the parameters before zero_shard")
         m = self.masters
         lay = m.layout
         for name, v in values.items():
@@ -342,7 +594,9 @@ class AmpOptimizer:
         m = self.masters
         if sd.get("masters") is not None:
             _copy_into(m.buf, sd["masters"], "masters")
-            if m.half is not None:
+            if self._zero is not None:
+                self._zero_gather_params()
+            elif m.half is not None:
                 m.half.copy_(m.buf)
         _load_state(self.state, sd["inner"], "inner")
         self.load_scalers_state_dict(sd["scalers"])
@@ -356,6 +610,10 @@ class AmpOptimizer:
     # -- driven by amp.scale_loss ----------------------------------------------
     def _prepare_backward(self) -> None:
         self._require_bound()
+        if self._zero is not None:
+            raise RuntimeError("a ZeRO-sharded optimizer steps through the "
+                               "functional step: amp.scaled_grad, then "
+                               "optimizer.step(grads)")
         for p in self._params:
             p.grad = None
 
@@ -370,7 +628,8 @@ class AmpOptimizer:
         self._require_bound()
         for p in self._params:
             p.grad = None
-        self._stash.clear()
+        if self._stash is not None:
+            self._stash.clear()
 
     def step(self, scaled_grads=None, loss_id: int = 0,
              found_inf_extra: Optional[torch.Tensor] = None):
@@ -398,6 +657,9 @@ class AmpOptimizer:
                                 "functional step: step(scaled_grads, ...)")
             self._eager_step()
             return None
+        if self._zero is not None:
+            self._zero_step(scaled_grads, loss_id, found_inf_extra)
+            return {k: t.clone() for k, t in self.last_info.items()}
         grads = self._stash.grads
         pack_flat(self._grad_list(scaled_grads), out=grads)
         sstate = self.scalers[loss_id]
@@ -431,6 +693,80 @@ class AmpOptimizer:
             out.append(g)
         return out
 
+    def _zero_step(self, scaled_grads, loss_id: int,
+                   found_inf_extra: Optional[torch.Tensor]) -> None:
+        """The sharded functional step (``_process_optimizer.py:633-808``
+        of the JAX package): reduce the grads to this rank's window, take
+        the mean over the world, unscale with the overflow flag taken over
+        every rank, update the window, gather the params back."""
+        z = self._zero
+        if not dist.is_initialized():
+            raise RuntimeError("optimizer state is ZeRO-sharded but step() "
+                               "was called outside its process group")
+        m = self.masters
+        if z.stage == 3:
+            g = scaled_grads
+            if (not isinstance(g, torch.Tensor) or g.dim() != 1
+                    or g.shape != m.buf.shape):
+                got = (tuple(g.shape) if isinstance(g, torch.Tensor)
+                       else type(g).__name__)
+                raise ValueError(f"ZeRO-3 step expects the flat grad shard "
+                                 f"the zero_gather_params backward gives "
+                                 f"(shape {tuple(m.buf.shape)}), got {got}")
+            shard = g.float()
+        else:
+            flat = self._zero_flat
+            pack_flat(self._grad_list(scaled_grads),
+                      out=flat[:m.layout.total])
+            shard = torch.empty(z.shard_n, dtype=torch.float32,
+                                device=flat.device)
+            dist.reduce_scatter_tensor(shard, flat, group=z.group)
+        if z.stage >= 2:
+            if z.compress:
+                wire = torch.empty(z.world // z.ici * z.shard_n,
+                                   dtype=torch.bfloat16, device=shard.device)
+                dist.all_gather_into_tensor(wire, shard.to(torch.bfloat16),
+                                            group=z.dcn_group)
+                shard = wire.view(-1, z.shard_n).float().sum(0)
+            else:
+                dist.all_reduce(shard, group=z.dcn_group)
+        grads = shard / float(z.world)
+        sstate = self.scalers[loss_id]
+        _, found = self.scaler.unscale(grads, sstate, out=grads)
+        if found_inf_extra is not None:
+            found = torch.maximum(found, found_inf_extra.to(found.dtype))
+        # each rank saw its window only: the skip must be every rank's
+        dist.all_reduce(found, op=dist.ReduceOp.MAX)
+        self.scaler.update_(sstate, found)
+        sq = (grads * grads).sum()
+        dist.all_reduce(sq, group=z.group)
+        # the kernel writes the half copy of the window in place
+        half = None if m.half is None else z.window(m.half)
+        self.inner.step(m.buf, self.state, grads, half=half, noop=found)
+        self._zero_gather_params(half_written=True)
+        info = self.last_info
+        info["found_inf"].copy_(found)
+        info["loss_scale"].copy_(sstate.loss_scale)
+        info["steps_skipped"].copy_(sstate.steps_skipped)
+        info["grad_norm"].copy_(torch.sqrt(sq))
+
+    def _zero_gather_params(self, half_written: bool = False) -> None:
+        """Stages 1 and 2: the model's params gathered from the windows
+        (a skipped step gathers what every rank already holds); the half
+        copy of this rank's window re-derived first unless
+        ``half_written``."""
+        m, z = self.masters, self._zero
+        if z.stage == 3:
+            return
+        if m.full is not None:
+            dist.all_gather_into_tensor(m.full, m.buf, group=z.group)
+        if m.half is not None:
+            win = z.window(m.half)
+            if not half_written:
+                win.copy_(m.buf)
+            # in place: the window is this rank's part of the output
+            dist.all_gather_into_tensor(m.half, win, group=z.group)
+
     def _eager_step(self) -> None:
         if not self._stash.has_grads:
             raise RuntimeError("step() called before backward()")
@@ -457,3 +793,93 @@ class AmpOptimizer:
         info["loss_scale"].copy_(sstate.loss_scale)
         info["steps_skipped"].copy_(sstate.steps_skipped)
         info["grad_norm"].copy_(grad_norm)
+
+
+class _Gather(torch.autograd.Function):
+    """ZeRO-3's just-in-time parameters: the forward all-gathers the
+    master window within the shard group (in the half dtype, the fp32
+    parameters' elements exactly) and cuts the leaves; the backward packs
+    their grads into one fp32 buffer and reduce-scatters it, which is the
+    grad window the step takes."""
+
+    @staticmethod
+    def forward(ctx, leaf, opt):
+        ctx.opt = opt
+        bufs = opt._zero_gather_buffers(leaf.detach())
+        # weak references to the gathered storages: a live storage matches
+        # one only if it is that storage (the reference holds its address)
+        opt._zero_live = {StorageWeakRef(t.untyped_storage()): k
+                          for k, t in bufs.items()}
+        opt.zero_dropped_saves = 0
+        return tuple(opt._zero_leaves(bufs))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        opt = ctx.opt
+        z, lay = opt._zero, opt.masters.layout
+        opt._zero_regathered = {}
+        flat = torch.zeros(z.padded, dtype=torch.float32,
+                           device=opt.masters.buf.device)
+        for ct, off, n in zip(cts, lay.offsets, lay.sizes):
+            if ct is not None:
+                flat[off:off + n].copy_(ct.reshape(-1))
+        shard = torch.empty(z.shard_n, dtype=torch.float32,
+                            device=flat.device)
+        dist.reduce_scatter_tensor(shard, flat, group=z.group)
+        return shard, None
+
+
+def zero_gather_params(optimizer: AmpOptimizer) -> Dict[str, torch.Tensor]:
+    """ZeRO-3's parameters for one forward (``apex_tpu/amp/
+    _process_optimizer.py:164-335``): the masters gathered within the
+    shard group and cut into the model's parameters, ``{name: tensor}``
+    for ``torch.func.functional_call``.  ``amp.scaled_grad`` then
+    differentiates the loss with respect to the master window, whose grad
+    (the backward of the gather: a reduce-scatter) is what
+    ``optimizer.step`` takes.  Wrap the forward in
+    :func:`zero_gather_checkpoint_policy` so the backward regathers these
+    instead of keeping them."""
+    optimizer._require_bound()
+    z = optimizer._zero
+    if z is None or z.stage != 3:
+        raise RuntimeError("zero_gather_params requires a ZeRO-3 layout "
+                           "(zero_shard(zero_stage=3)); stages 1/2 gather "
+                           "inside the step itself")
+    leaves = _Gather.apply(optimizer._zero_leaf, optimizer)
+    return dict(zip(optimizer.masters.layout.names, leaves))
+
+
+def zero_gather_checkpoint_policy(optimizer: AmpOptimizer):
+    """A context for a ZeRO-3 forward (the JAX package's remat policy,
+    ``:145``): every tensor the forward saves for the backward is kept,
+    except views of the parameters :func:`zero_gather_params` gathered,
+    which the backward gathers again from the master window when it first
+    needs them.  So the gathered parameters are not kept alive from the
+    forward into the backward; ``optimizer.zero_dropped_saves`` counts the
+    saves of the last forward that were dropped so.  A view is known by
+    its storage (held weakly), never by its address, so a tensor the loss
+    head makes where a gathered buffer was freed is kept::
+
+        with amp.zero_gather_checkpoint_policy(optimizer):
+            loss = loss_fn(functional_call(model,
+                                           amp.zero_gather_params(optimizer),
+                                           (x,)))
+    """
+    def pack(t):
+        key = optimizer._zero_live.get(StorageWeakRef(t.untyped_storage()))
+        if key is None:
+            return t
+        optimizer.zero_dropped_saves += 1
+        return (key, t.storage_offset(), tuple(t.shape), t.stride())
+
+    def unpack(saved):
+        if isinstance(saved, torch.Tensor):
+            return saved
+        key, offset, shape, stride = saved
+        again = optimizer._zero_regathered
+        if not again:
+            again.update(optimizer._zero_gather_buffers(
+                optimizer.masters.buf))
+        return again[key].as_strided(shape, stride, offset)
+
+    return torch.autograd.graph.saved_tensors_hooks(pack, unpack)

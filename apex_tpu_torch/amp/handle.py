@@ -62,7 +62,12 @@ def _detached(tree: Any) -> Any:
 def _grads(scaled_loss: torch.Tensor, opt: AmpOptimizer
            ) -> List[torch.Tensor]:
     """d scaled_loss / d bound params, in layout order (zeros where a
-    parameter takes no part or needs no grad)."""
+    parameter takes no part or needs no grad); under ZeRO-3, d scaled_loss
+    / d the master window (``amp.zero_gather_params``'s backward reduced
+    it), one flat tensor."""
+    if opt._zero is not None and opt._zero.stage == 3:
+        (g,) = torch.autograd.grad(scaled_loss, [opt._zero_leaf])
+        return g
     params = opt._params
     live = [p for p in params if p.requires_grad]
     got = iter(torch.autograd.grad(scaled_loss, live, allow_unused=True))
@@ -108,6 +113,10 @@ def scaled_grad_accum(loss_fn: Callable, optimizer: AmpOptimizer,
     by K (one big batch of the concatenated micro-batches); otherwise the
     sums.  Returns ``(loss, scaled_grads)`` for ``optimizer.step``."""
     opt = _require_amp(optimizer)
+    if opt._zero is not None and opt._zero.stage == 3:
+        raise NotImplementedError("scaled_grad_accum under ZeRO-3: "
+                                  "accumulate the grad windows of "
+                                  "scaled_grad instead")
     scale = opt.scalers[loss_id].loss_scale
     K = leaves(batches)[0].shape[0]
     layout = opt.masters.layout

@@ -54,7 +54,7 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
     },
     "adam": {
         "apex_adam": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P,
-                      _F, _F, _F, _F, _F, _I, _F, _I, _P),
+                      _F, _F, _F, _F, _F, _I, _F, _I, _I, _I, _P),
     },
     "lamb": {
         "apex_lamb_stage1": (_P,) * 5 + (_L,) + (_P,) * 4 + (_F,) * 6

@@ -1,9 +1,13 @@
 """Data parallelism and SyncBatchNorm on ``torch.distributed``.
 
-Counterpart of the data-parallel core of ``apex_tpu/parallel``:
-``DistributedDataParallel`` (bucketed grad all-reduce, on ``.grad`` at the
-end of backward or on the functional step's grads, and ``make_step``, the
-whole step captured in a CUDA graph), ``allreduce_comm_plan``, ``Reducer``,
+Counterpart of the data-parallel stack of ``apex_tpu/parallel``:
+``DistributedDataParallel`` (bucketed grad all-reduce, flat or
+hierarchical over the node and network levels, or by Adasum; on ``.grad``
+at the end of backward, overlapped with it, or on the functional step's
+grads; the staged schedules and the fused ZeRO-2 one; and ``make_step``,
+the whole step captured in a CUDA graph), ``topology`` (the rank groups),
+the comm plans (``allreduce_comm_plan``, ``overlap_comm_schedule``,
+``zero_update_comm_plan``), ``adasum``, ``Reducer``,
 ``flat_dist_call``, ``SyncBatchNorm`` with ``convert_syncbn_model`` and
 ``create_syncbn_process_group``, ``LARC``, and ``init_process_group``
 with the ``python -m apex_tpu_torch.parallel.multiproc`` launcher.
@@ -18,14 +22,34 @@ import torch.distributed as dist
 
 from . import multiproc
 from .LARC import LARC
-from .distributed import (DistributedDataParallel, Reducer, ReduceOp,
+from . import topology
+from .adasum import adasum_comm_plan, adasum_grads, adasum_pair
+from .distributed import (COMM_TOPOLOGIES, OVERLAP_MODES,
+                          DistributedDataParallel, Reducer, ReduceOp,
                           allreduce_comm_plan, flat_dist_call, make_step,
-                          predivide_factors)
+                          overlap_collective_expectations,
+                          overlap_comm_schedule, overlap_schedule_fields,
+                          plan_collective_expectations,
+                          plan_resharding_expectations, predivide_factors,
+                          staged_grads, zero_update_comm_plan)
 from .multiproc import init_process_group
 from .sync_batchnorm import SyncBatchNorm
+from .topology import (auto_comm_topology, collective_rank_groups,
+                       default_ici_size, hierarchical_axis_groups,
+                       hierarchical_groups, make_mesh, mesh_info,
+                       overlap_issue_order)
 
 __all__ = ["DistributedDataParallel", "Reducer", "ReduceOp",
-           "allreduce_comm_plan", "make_step", "flat_dist_call", "predivide_factors", "SyncBatchNorm",
+           "allreduce_comm_plan", "zero_update_comm_plan", "make_step",
+           "flat_dist_call", "predivide_factors", "staged_grads",
+           "overlap_comm_schedule", "overlap_schedule_fields",
+           "plan_collective_expectations", "plan_resharding_expectations",
+           "overlap_collective_expectations", "COMM_TOPOLOGIES",
+           "OVERLAP_MODES", "adasum_pair", "adasum_grads",
+           "adasum_comm_plan", "topology", "make_mesh", "mesh_info",
+           "hierarchical_axis_groups", "hierarchical_groups",
+           "default_ici_size", "auto_comm_topology", "overlap_issue_order",
+           "collective_rank_groups", "SyncBatchNorm",
            "convert_syncbn_model", "create_syncbn_process_group",
            "init_process_group", "multiproc", "LARC"]
 

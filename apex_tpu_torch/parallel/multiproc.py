@@ -13,9 +13,10 @@ Counterpart of ``apex_tpu/parallel/multiproc.py`` on ``torch.distributed``:
 - ``python -m apex_tpu_torch.parallel.multiproc --nprocs N script.py
   args...`` spawns N local processes wired into one group, at a
   ``tcp://`` address on an OS-assigned free port unless ``--init-method``
-  names one (a ``file://`` store, say), and exits non-zero if any child
-  fails, killing the survivors, which would otherwise wait in the group's
-  bring-up.
+  names one (a ``file://`` store, say), all on one node
+  (``LOCAL_WORLD_SIZE`` = N, which ``parallel.topology`` reads), and
+  exits non-zero if any child fails, killing the survivors, which would
+  otherwise wait in the group's bring-up.
 """
 
 from __future__ import annotations
@@ -88,6 +89,7 @@ def main(argv=None) -> int:
     children = []
     for rank in range(args.nprocs):
         env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE=str(args.nprocs),
                    WORLD_SIZE=str(args.nprocs), **{ENV_INIT_METHOD: init})
         children.append(subprocess.Popen(
             [sys.executable, args.script, *args.script_args], env=env))

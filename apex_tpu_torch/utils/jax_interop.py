@@ -22,6 +22,11 @@ load_state_dict`` takes, and back.  The JAX side is read by attribute
 (``opt_state.scalers``, ``.inner``, ``.masters``) and ``np.asarray``, so
 nothing here imports it.
 
+A ZeRO-sharded state goes across a rank at a time
+(:func:`zero_state_from_jax`, :func:`zero_state_to_jax`): the JAX
+package's global buffers are its devices' windows side by side, each
+rank's the piece at its index.
+
 The decoders' and T5's weights need nothing more: ``models.GPT``,
 ``models.Llama`` and ``models.T5`` name their parameters by the JAX
 trees' paths (a tied head is the one table).  A KV cache goes across with
@@ -42,7 +47,7 @@ dict ``{path: {"a", "b"}}`` keyed alike in both packages, go across with
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +57,7 @@ from ..optimizers.fused_lamb import LambState
 
 __all__ = ["params_from_jax", "params_to_jax", "lamb_state_from_jax",
            "lamb_state_to_jax", "amp_state_from_jax", "amp_state_to_jax",
+           "zero_state_from_jax", "zero_state_to_jax",
            "kv_cache_from_jax", "kv_cache_to_jax", "qtensor_from_jax",
            "qtensor_to_jax",
            "adapters_from_jax", "adapters_to_jax", "STATE_KEYS"]
@@ -70,11 +76,15 @@ def _to_torch(a) -> torch.Tensor:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy: a view would share the port's buffers, which its steps
+    write in place, and a JAX array made from it on the CPU shares them
+    too (zero copy), so a later port step would change the JAX state
+    under a JAX step that has not yet run (dispatch is asynchronous)."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes                  # only numpy's view of bf16 needs it
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-    return t.numpy()
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
 
 
 def _is_qtensor(leaf) -> bool:
@@ -240,6 +250,57 @@ def amp_state_to_jax(optimizer, chunk: int = 1024) -> Dict[str, Any]:
                  for k, v in sd["inner"].items()}
         masters = _to_numpy(sd["masters"])
     return {"scalers": scalers, "inner": inner, "masters": masters}
+
+
+def zero_state_from_jax(opt_state, rank: int, world: int, device="cpu"
+                        ) -> Dict[str, Any]:
+    """Rank ``rank``'s part of a JAX ZeRO ``AmpOptState`` (the output of
+    ``shard_map`` with ``amp.zero_optimizer_specs``: every flat buffer the
+    concatenation of the ``world`` devices' windows, in device order) as
+    the dict a ZeRO-sharded ``AmpOptimizer.load_state_dict`` takes.  The
+    JAX package's devices of a data axis are the port's ranks in order,
+    so rank ``r`` takes the ``r``-th of ``world`` equal pieces (under
+    stages 2 and 3 the windows repeat once a node, as they do on the
+    ranks)."""
+    def piece(a):
+        a = np.asarray(a)
+        if a.ndim == 0:
+            return _to_torch(a).to(device)
+        n = a.shape[0] // world
+        return _to_torch(np.ascontiguousarray(
+            a[rank * n:(rank + 1) * n])).to(device)
+
+    inner = opt_state.inner
+    return {"scalers": [{k: piece(getattr(s, k)) for k in _SCALER_KEYS}
+                        for s in opt_state.scalers],
+            "inner": {k: None if getattr(inner, k) is None
+                      else piece(getattr(inner, k)) for k in inner._fields},
+            "masters": piece(np.asarray(opt_state.masters.buf, np.float32))}
+
+
+def zero_state_to_jax(optimizers) -> Dict[str, Any]:
+    """Inverse of :func:`zero_state_from_jax`: the ZeRO-sharded
+    ``AmpOptimizer`` of every rank, in rank order (or their
+    ``state_dict()``s), as numpy ``{"scalers", "inner", "masters"}`` in
+    the JAX package's global layout: each flat buffer the ranks' windows
+    concatenated, a scalar (the scalers, Adam's step) rank 0's, which is
+    every rank's."""
+    sds = [o if isinstance(o, Mapping) else o.state_dict()
+           for o in optimizers]
+
+    def cat(ts):
+        if ts[0] is None:
+            return None
+        if ts[0].dim() == 0:
+            return _to_numpy(ts[0])
+        return np.concatenate([_to_numpy(t) for t in ts])
+
+    first = sds[0]
+    return {"scalers": [{k: _to_numpy(d[k]) for k in _SCALER_KEYS}
+                        for d in first["scalers"]],
+            "inner": {k: cat([sd["inner"][k] for sd in sds])
+                      for k in first["inner"]},
+            "masters": cat([sd["masters"] for sd in sds])}
 
 
 def kv_cache_from_jax(cache: Dict[str, Any], device="cpu") -> Dict[str, Any]:

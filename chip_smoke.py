@@ -5,11 +5,13 @@
     python3 chip_smoke.py --captured
     python3 chip_smoke.py --decoder
     python3 chip_smoke.py --decoder-tail
+    python3 chip_smoke.py --serving
+    python3 chip_smoke.py --dp
     python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
 
 The second form runs phases 1, 2 and 15 alone, the third phases 1, 2 and
-16 (with 16's launch-count checks), the fourth phases 1, 2 and 17.  The
-fifth builds the
+16 (with 16's launch-count checks), the fourth phases 1, 2 and 17, the
+fifth 1, 2 and 18, the sixth 1, 2 and 19.  The last builds the
 kernels and times the LayerNorm backward of this checkout against the one
 in PARENT_CHECKOUT (another tree of this repository), at BERT-base's and
 BERT-large's shapes, by graph replay in the order parent, change, change,
@@ -199,6 +201,35 @@ Phases, in order; any failure raises and the exit code is non-zero:
             multi_tensor_scale and multi_tensor_l2norm launched on the
             phase's paths; the kernel rows print as the
             "kernels_decoder_tail" line.
+
+18. serving  the serving engines (Engine, PagedEngine, Seq2SeqEngine) on
+            the card, their decode windows captured in CUDA graphs (the
+            "kernels_serving" line).
+19. dp      the wider data-parallel stack on a one-rank NCCL group, cuDNN
+            deterministic.  First the Adam kernel on every ZeRO window of
+            ResNet-50's flat buffer (25,557,032) padded to 3 windows (odd,
+            bases off 16 bytes: the element path) and to 8, bitwise its
+            plain version with nothing outside the window written, and its
+            time on one window of 3 against its bound and torch's fused
+            Adam (the "kernels_dp" line).  Then four paths, each from one
+            state 8 eager steps bitwise its plain twin's, then held as phase
+            15 holds its paths (graph against eager, exact launch counts,
+            step_ms, idle share, peak memory, the graph's pool), then the
+            NCCL kernels of one replay counted exactly: (m) ResNet-50 O2 +
+            FusedAdam at batch 128 under ZeRO-1 against the unsharded
+            step, and examples/imagenet/main_amp_torch.py --zero for 10
+            iterations with exact launch counts; (n) BERT-base O2 +
+            FusedAdam at 32 x 128, dropout 0.1, through the hook path
+            under DistributedDataParallel(overlap=True, comm_topology=
+            'hierarchical', ici_size=1) against the flat after-backward
+            hook path; (o) GPT-2 small's widths with an untied head, all
+            bf16, at 8 x 1024, dropout 0.1, through
+            staged_zero2_allreduce_grads over 14 stages (embeddings, 12
+            blocks, final LayerNorm and head), FusedAdam's kernel on fp32
+            masters a stage, against ZeRO-1 of the model; (p) the same
+            model under ZeRO-3 (zero_gather_params under
+            zero_gather_checkpoint_policy) against ZeRO-1; and ZeRO-3's
+            peak beside the staged ZeRO-2's.
 
 Phase 3 also times the variants the O1 paths run: Adam without the half
 copy at N = 25,557,032, the LayerNorm forward and backward in fp32 at
@@ -2722,9 +2753,12 @@ def _snapshot(model, opt, gens, host=False):
     the card)."""
     def clone(t):
         return t.to("cpu", copy=True) if host else t.clone()
+    full = getattr(opt.masters, "full", None)
     return {"opt": {k: clone(v) for k, v in _flat_state(opt.state_dict())},
             "half": (None if opt.masters.half is None
                      else clone(opt.masters.half)),
+            # under ZeRO the model's fp32 params view a gathered buffer
+            "full": None if full is None else clone(full),
             "buffers": {k: clone(b) for k, b in model.named_buffers()},
             "gens": [g.get_state() for g in gens],
             "offsets": [g.get_offset() for g in gens]}
@@ -2740,6 +2774,8 @@ def _restore(model, opt, gens, snap):
             t.copy_(flat[name])
         if snap["half"] is not None:
             opt.masters.half.copy_(snap["half"])
+        if snap["full"] is not None:
+            opt.masters.full.copy_(snap["full"])
         for k, b in model.named_buffers():
             b.copy_(snap["buffers"][k])
     for g, st in zip(gens, snap["gens"]):
@@ -2752,6 +2788,7 @@ def _held(tag, a, b):
         for k in a[part]:
             assert same(a[part][k], b[part][k]), f"[{tag}] {part} {k} differs"
     assert a["half"] is None or same(a["half"], b["half"]), f"[{tag}] half"
+    assert a["full"] is None or same(a["full"], b["full"]), f"[{tag}] full"
     assert a["offsets"] == b["offsets"], \
         f"[{tag}] generator offsets {a['offsets']} and {b['offsets']}"
     return len(a["opt"]) + len(a["buffers"]) + (a["half"] is not None)
@@ -4738,6 +4775,556 @@ def phase_serving(smi):
     return list(rows.values()), summary
 
 
+# -- phase 19: the wider data-parallel stack ----------------------------------
+
+DP_GPT_BATCH, DP_GPT_SEQ = 8, 1024      # phase 16's GPT-2 small batch
+DP_SHARDS = (3, 8)                      # ZeRO windows of ResNet-50's buffer
+DP_EXAMPLE_ITERS = 10
+
+
+def _nccl_kernels(call) -> tuple:
+    """The NCCL kernels of one ``call()`` (a replay) by name, and its
+    device-to-device copies, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    out, copies = {}, 0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        if "nccl" in evt.key.lower():
+            out[evt.key[:80]] = out.get(evt.key[:80], 0) + evt.count
+        elif "memcpy" in evt.key.lower() and "dtod" in evt.key.lower():
+            copies += evt.count
+    return out, copies
+
+
+def _dp_state(opt, names=None) -> dict:
+    """Clones of what a step writes: masters (the window's first
+    ``layout.total`` elements under ZeRO), moments, step, scale."""
+    n = opt.masters.layout.total
+    st = opt.state
+    return {"masters": opt.masters.buf[:n].clone(),
+            "m": st.m[:n].clone(), "v": st.v[:n].clone(),
+            "step": st.step.clone(),
+            "scale": opt.scalers[0].loss_scale.clone()}
+
+
+def _dp_twins(tag, a, b, what) -> int:
+    """Two runs' losses and states bitwise; returns the tensors held."""
+    la, sa = a
+    lb, sb = b
+    assert same(la, lb), f"[{tag}] losses {la.tolist()} against {what} " \
+        f"{lb.tolist()}"
+    for k in sa:
+        assert same(sa[k], sb[k]), f"[{tag}] {k} differs from {what}"
+    return len(sa) + 1
+
+
+def _dp_eager(step, batch, opt):
+    losses = torch.stack([step(batch).float().reshape(())
+                          for _ in range(CAPTURE_HOLD)])
+    torch.cuda.synchronize()
+    return losses, _dp_state(opt)
+
+
+# On one rank NCCL runs a collective as a copy (or nothing, in place) and
+# launches none of its kernels: a replay's NCCL kernels are exactly 0
+DP_NCCL = 0
+DP_NCCL_WHY = ("a one-rank communicator launches no NCCL kernel; its "
+               "collectives {}")
+
+
+def _dp_path(tag, model, opt, step, batch, per, smi, items, gens=(),
+             make=None, twin=None, nccl=DP_NCCL, collectives=""):
+    """A path of phase 19: 8 eager steps held bitwise against the twin's
+    (``twin``: (losses, state) of the plain step from the same start),
+    then ``_captured_path`` (graph against eager, exact launch counts,
+    step_ms, idle share, peak memory, the graph's pool), then the NCCL
+    kernels of one replay against ``nccl``; ``collectives`` names the
+    step's collectives for the log."""
+    nccl_why = DP_NCCL_WHY.format(collectives)
+    from apex_tpu_torch import parallel
+    held = 0
+    if twin is not None:
+        snap = _snapshot(model, opt, gens)
+        held = _dp_twins(tag, _dp_eager(step, batch, opt), twin, "the twin")
+        log(f"[{tag}] {CAPTURE_HOLD} eager steps: losses and {held - 1} "
+            f"state tensors bitwise the twin's")
+        _restore(model, opt, gens, snap)
+        del snap
+    counts, out = _captured_path(tag, model, opt, step, batch, per, smi,
+                                 items, gens=gens, make=make)
+    if make is None:
+        def make(fn, k):
+            return parallel.make_step(fn, model, steps_per_call=k)
+    train = make(step, 1)
+    for _ in range(2):                  # the warm-up, the capture
+        train(batch)
+    kernels, copies = _nccl_kernels(lambda: train(batch))
+    got = sum(kernels.values())
+    log(f"[{tag}] one replay: {got} NCCL kernels (expected {nccl}: "
+        f"{nccl_why}) {json.dumps(kernels)}, {copies} device-to-device "
+        f"copies")
+    assert nccl is None or got == nccl, f"[{tag}] {got} NCCL kernels"
+    out["nccl_kernels_per_step"] = got
+    out["dtod_copies_per_step"] = copies
+    out["twin_tensors_bitwise"] = held
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def _dp_resnet(smi):
+    """(m) ResNet-50 O2 + FusedAdam, the ImageNet example's step, under
+    ZeRO-1 over the one-rank group, against the same step unsharded; then
+    the example itself with --zero."""
+    from apex_tpu_torch import amp, models, optimizers
+
+    def build():
+        model = models.resnet50(
+            device=DEVICE, generator=torch.Generator().manual_seed(SEED))
+        return amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
+                              opt_level="O2", verbosity=0)
+    batch = _batch(np.random.RandomState(SEED), BATCH, IMAGE, 1000, DEVICE)
+    model, opt = build()
+    twin = _dp_eager(_resnet_functional(model, opt), batch, opt)
+    del model, opt
+    model, opt = build()
+    opt.zero_shard()
+    z = opt.masters.zero
+    log(f"[dp-m] resnet50 O2 FusedAdam, ZeRO-1 over the one-rank group: "
+        f"window {z.shard_n} of {z.padded} (N {opt.masters.layout.total}), "
+        f"batch {BATCH}: scaled_grad, step(grads) (reduce-scatter, update "
+        f"of the window, all-gather) through make_step")
+    per = {"multi_tensor_scale": 1, "fused_adam": 1,
+           "syncbn_fwd": BN_LAYERS, "syncbn_bwd": BN_LAYERS}
+    counts, out = _dp_path(
+        "dp-m", model, opt, _resnet_functional(model, opt), batch, per, smi,
+        (BATCH, "images"), twin=twin,
+        collectives="(a reduce-scatter, the overflow flag's and the grad "
+                    "norm's all-reduces, the fp32 and half all-gathers)")
+    del model, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the example as a user runs it, on this phase's group
+    ips, ex_counts, text, _, _ = _run_example(
+        _example(), "dp-m-example",
+        ["--arch", "resnet50", "-b", str(BATCH), "--image-size", str(IMAGE),
+         "--iters", str(DP_EXAMPLE_ITERS), "--print-freq", "5",
+         "--fused-adam", "--zero"])
+    assert "ZeRO-1 optimizer-state sharding" in text, text[-2000:]
+    steps = EXAMPLE_WARMUP + DP_EXAMPLE_ITERS
+    _check_counts("dp-m-example", ex_counts,
+                  {"multi_tensor_scale": steps, "fused_adam": steps,
+                   "syncbn_fwd": BN_LAYERS * steps,
+                   "syncbn_bwd": BN_LAYERS * steps})
+    log(f"[dp-m-example] --zero: {ips:.1f} img/s over "
+        f"{DP_EXAMPLE_ITERS} iterations")
+    out["example_images_per_s"] = ips
+    return counts, out
+
+
+def _dp_bert(smi):
+    """(n) BERT-base O2 + FusedAdam through the hook path (scale_loss,
+    backward, step()) under DDP with overlap=True and the hierarchical
+    topology (ici_size=1), against the flat after-backward hook path."""
+    from apex_tpu_torch import amp, models, optimizers, parallel
+    cfg = models.bert_base()
+    batch = _bert_batch(cfg.vocab_size, np.random.RandomState(SEED),
+                        BERT_BATCH, BERT_SEQ, DEVICE)
+
+    def build(**kw):
+        model, opt, gen = _bert_model(cfg, optimizers.FusedAdam(lr=1e-4))
+        ddp = parallel.DistributedDataParallel(model, **kw)
+
+        def step(b):
+            loss = ddp.module.loss(*b)
+            with amp.scale_loss(loss, opt) as scaled:
+                scaled.backward()
+            opt.step()
+            return loss.detach()
+        return model, opt, gen, ddp, step
+    model, opt, gen, ddp, step = build()
+    twin = _dp_eager(step, batch, opt)
+    del model, opt, gen, ddp, step
+    gc.collect()
+    model, opt, gen, ddp, step = build(overlap=True,
+                                       comm_topology="hierarchical",
+                                       ici_size=1)
+    # a bucket a grad dtype (bf16, and the LayerNorms' fp32)
+    buckets = len({p.dtype for p in model.parameters()})
+    log(f"[dp-n] BertForPretraining(bert_base) O2 FusedAdam, dropout "
+        f"{cfg.hidden_dropout_prob}, {BERT_BATCH} x {BERT_SEQ}, the hook "
+        f"path (scale_loss, backward, step()) under "
+        f"DistributedDataParallel(overlap=True, comm_topology="
+        f"'hierarchical', ici_size=1), {buckets} buckets, against the flat "
+        f"after-backward hook path")
+    per = {"multi_tensor_scale": 1, "multi_tensor_l2norm": 1,
+           "fused_adam": 1, "layer_norm_fwd": LN_PER_PASS,
+           "layer_norm_bwd": LN_PER_PASS, "flash_fwd": FLASH_PER_PASS,
+           "flash_dq": FLASH_PER_PASS, "flash_dkv": FLASH_PER_PASS}
+    counts, out = _dp_path(
+        "dp-n", model, opt, step, batch, per, smi, (BERT_BATCH, "sequences"),
+        gens=[gen], make=lambda fn, k: ddp.make_step(fn, k), twin=twin,
+        collectives=f"({buckets} buckets of a reduce-scatter, a cross-node "
+                    f"all-reduce and an all-gather, on the comm stream)")
+    out["buckets"] = buckets
+    del model, opt, gen, ddp, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+class _StagedGPT(torch.nn.Module):
+    """GPT-2 small's embeddings, blocks and final LayerNorm with an untied
+    head (the staged schedule gives a parameter to one stage): 14 stages,
+    the embeddings, the 12 blocks, the final LayerNorm with the head."""
+
+    def __init__(self, gpt):
+        super().__init__()
+        self.wte, self.wpe, self.drop = gpt.wte, gpt.wpe, gpt.drop
+        self.h, self.ln_f = gpt.h, gpt.ln_f
+        self.head = torch.nn.Parameter(gpt.wte.weight.detach().clone())
+
+    def stages(self):
+        from apex_tpu_torch.nn import functional as F
+
+        def embed(p, ids):
+            pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
+            return self.drop(self.wte(ids) + self.wpe(pos))
+
+        def block(i):
+            return lambda p, x: self.h[i](x)
+
+        def final(p, x):
+            return F.matmul(self.ln_f(x), self.head.t())
+        fns = [embed] + [block(i) for i in range(len(self.h))] + [final]
+        params = ([[self.wte.weight, self.wpe.weight]]
+                  + [list(b.parameters()) for b in self.h]
+                  + [[self.ln_f.weight, self.ln_f.bias, self.head]])
+        return fns, params
+
+    def forward(self, ids):
+        fns, params = self.stages()
+        x = ids
+        for fn, p in zip(fns, params):
+            x = fn(p, x)
+        return x
+
+
+def _gpt_nll(logits, ids):
+    from apex_tpu_torch.nn.functional import cross_entropy
+    return cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                         ids[:, 1:].reshape(-1))
+
+
+def _dp_gpt_build():
+    """The untied GPT-2 small under O2 with every parameter bf16 (one dtype
+    a stage) and a static loss scale of 1 (the staged update runs without
+    a scaler), dropout 0.1, random weights from the seed."""
+    from apex_tpu_torch import amp, models, optimizers
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    gpt = models.GPT(models.gpt2_small(), device=DEVICE,
+                     generator=torch.Generator().manual_seed(SEED),
+                     dropout_generator=gen)
+    model = _StagedGPT(gpt).train()
+    model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-4),
+                                opt_level="O2", keep_batchnorm_fp32=False,
+                                loss_scale=1.0, verbosity=0)
+    return model, opt, gen
+
+
+def _dp_gpt(smi):
+    """(o) the untied GPT-2 small under ZeRO-2 through
+    staged_zero2_allreduce_grads (a stage's grads scatter-reduced, its
+    window updated by FusedAdam's kernel on fp32 masters, the bf16 params
+    gathered back, all on the comm stream as the stage's grads arrive),
+    and (p) the same model under ZeRO-3 (zero_gather_params under
+    zero_gather_checkpoint_policy), each against ZeRO-1 of the model."""
+    from apex_tpu_torch import amp, optimizers, parallel
+    rs = np.random.RandomState(SEED)
+    ids = torch.from_numpy(rs.randint(0, DECODER_TOKENS, (
+        DP_GPT_BATCH, DP_GPT_SEQ)).astype(np.int64)).to(DEVICE)
+    counts, out = {}, {}
+
+    # the twin: ZeRO-1, the monolithic backward
+    model, opt, gen = _dp_gpt_build()
+    opt.zero_shard()
+
+    def z1_step(b):
+        loss, g = amp.scaled_grad(lambda: _gpt_nll(model(b), b), opt)
+        opt.step(g)
+        return loss
+    floor = _mem_floor()
+    torch.cuda.reset_peak_memory_stats()
+    twin = _dp_eager(z1_step, ids, opt)
+    z1_peak = torch.cuda.max_memory_allocated() - floor
+    log(f"[dp-o] the twin, ZeRO-1 of the model: {CAPTURE_HOLD} eager steps, "
+        f"peak above the state {z1_peak} B ({z1_peak / 2**30:.2f} GiB)")
+    halves = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, opt, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (o)
+    model, opt, gen = _dp_gpt_build()
+    ddp = parallel.DistributedDataParallel(
+        model, comm_topology="hierarchical", ici_size=1, overlap=True,
+        zero_stage=2)
+    fns, params = model.stages()
+    inner = optimizers.FusedAdam(lr=1e-4)
+    windows = []
+    for leaves in params:
+        buf = torch.cat([p.detach().float().reshape(-1) for p in leaves])
+        windows.append((buf, inner.init(buf), torch.empty_like(
+            buf, dtype=torch.bfloat16)))
+
+    def update(stage, p_shard, g_shard):
+        buf, st, half = windows[stage]
+        inner.step(buf, st, g_shard.float(), half=half)
+        return half
+
+    def o_step(b):
+        loss, new = ddp.staged_zero2_allreduce_grads(
+            fns, lambda logits: _gpt_nll(logits, b), params, b, update)
+        with torch.no_grad():
+            for leaves, vals in zip(params, new):
+                for p, v in zip(leaves, vals):
+                    p.copy_(v)
+        return loss
+
+    log(f"[dp-o] GPT-2 small widths, untied head, O2 all bf16, FusedAdam(lr "
+        f"1e-4) on fp32 masters a stage, dropout 0.1, {DP_GPT_BATCH} x "
+        f"{DP_GPT_SEQ}: staged_zero2_allreduce_grads over {len(fns)} stages "
+        f"(overlap=True, hierarchical, ici_size=1)")
+    losses = torch.stack([o_step(ids).float() for _ in range(CAPTURE_HOLD)])
+    torch.cuda.synchronize()
+    assert same(losses, twin[0]), \
+        f"[dp-o] losses {losses.tolist()} against ZeRO-1 {twin[0].tolist()}"
+    by_stage = {}
+    for leaves, (buf, st, half) in zip(params, windows):
+        off = 0
+        for p in leaves:
+            by_stage[id(p)] = (buf[off:off + p.numel()],
+                               st.m[off:off + p.numel()])
+            off += p.numel()
+    pnames = {id(p): n for n, p in model.named_parameters()}
+    lay = opt.masters.layout
+    for leaves in params:
+        for p in leaves:
+            n = pnames[id(p)]
+            i = lay.names.index(n)
+            o, k = lay.offsets[i], lay.sizes[i]
+            assert same(p.detach(), halves[n]), f"[dp-o] param {n}"
+            assert same(by_stage[id(p)][0], twin[1]["masters"][o:o + k]), \
+                f"[dp-o] master {n}"
+            assert same(by_stage[id(p)][1], twin[1]["m"][o:o + k]), \
+                f"[dp-o] m {n}"
+    fields = parallel.overlap_schedule_fields(ddp.last_overlap_schedule)
+    log(f"[dp-o] {CAPTURE_HOLD} eager steps: losses, the bf16 params, the "
+        f"fp32 masters and m bitwise ZeRO-1's ({len(lay.names)} tensors); "
+        f"schedule {json.dumps(fields)}")
+    per = {"fused_adam": len(fns), "layer_norm_fwd": 25,
+           "layer_norm_bwd": 25, "flash_fwd": 12, "flash_dq": 12,
+           "flash_dkv": 12}
+
+    class _Windows:
+        """The stages' windows as one optimizer for the snapshots; the
+        model's bf16 params view the amp optimizer's half buffer."""
+        masters = type("M", (), {"half": opt.masters.half})()
+
+        @staticmethod
+        def state_dict():
+            return {str(i): {"buf": b, "m": st.m, "v": st.v,
+                             "step": st.step, "half": h}
+                    for i, (b, st, h) in enumerate(windows)}
+    counts["o"], out["o"] = _dp_path(
+        "dp-o", model, _Windows, o_step, ids, per, smi,
+        (DP_GPT_BATCH, "sequences"), gens=[gen],
+        collectives=f"({len(fns)} stages of a reduce-scatter, a cross-node "
+                    f"all-reduce and an all-gather, on the comm stream)")
+    del model, opt, gen, ddp, windows, params, fns
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (p)
+    model, opt, gen = _dp_gpt_build()
+    opt.zero_shard(zero_stage=3, zero_ici_size=1)
+
+    def p_step(b):
+        with amp.zero_gather_checkpoint_policy(opt):
+            loss, g = amp.scaled_grad(lambda: _gpt_nll(
+                torch.func.functional_call(
+                    model, amp.zero_gather_params(opt), (b,)), b), opt)
+        opt.step(g)
+        return loss
+    log(f"[dp-p] the same model under ZeRO-3 (zero_shard(zero_stage=3, "
+        f"zero_ici_size=1)): the forward through functional_call on "
+        f"zero_gather_params under zero_gather_checkpoint_policy (the "
+        f"backward regathers), the grad window into step(grads)")
+    counts["p"], out["p"] = _dp_path(
+        "dp-p", model, opt, p_step, ids, {
+            "multi_tensor_scale": 1, "fused_adam": 1,
+            "layer_norm_fwd": 25, "layer_norm_bwd": 25, "flash_fwd": 12,
+            "flash_dq": 12, "flash_dkv": 12},
+        smi, (DP_GPT_BATCH, "sequences"), gens=[gen], twin=twin,
+        collectives="(the half gather, its regather in the backward, the "
+                    "grads' reduce-scatter, the cross-node all-reduce, the "
+                    "overflow flag's and the grad norm's all-reduces)")
+    out["p"]["zero1_eager_peak_bytes"] = z1_peak
+    out["p"]["zero_dropped_saves"] = opt.zero_dropped_saves
+    assert opt.zero_dropped_saves > 0, \
+        "[dp-p] the ZeRO-3 policy dropped no save of a gathered parameter"
+    log(f"[dp-p] the policy dropped {opt.zero_dropped_saves} saves of the "
+        f"gathered parameters in the last traced forward (regathered in "
+        f"the backward)")
+    del model, opt, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def _dp_adam_rows():
+    """The Adam kernel on every ZeRO window of ResNet-50's flat buffer
+    padded to 3 and to 8 windows (odd windows over 3: bases off 16 bytes),
+    bitwise its plain version, nothing outside the window written; and
+    its time on one ZeRO-1 window of 3, with its bound and the library's
+    fused Adam on the same window."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import adam as adam_mod
+    rows = {}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    for shards in DP_SHARDS:
+        shard = -(-N_FULL // shards)
+        total = shard * shards
+
+        def padded(scale=1.0, positive=False):
+            t = torch.randn(N_FULL, device=DEVICE, generator=gen) * scale
+            t = t.abs() if positive else t
+            return torch.cat([t, torch.zeros(total - N_FULL, device=DEVICE)])
+        p, m, v = padded(), padded(0.1, True), padded(0.01, True)
+        g = padded()
+        half = p.to(torch.bfloat16)
+        args = (torch.tensor(1e-3, device=DEVICE),
+                torch.tensor(0.5, device=DEVICE), 0.9, 0.999, 1e-8, False,
+                0.01)
+        for i in range(shards):
+            win = slice(i * shard, (i + 1) * shard)
+            before = [t.clone() for t in (p, m, v, half)]
+            plain = [t[win].clone() for t in (p, m, v)]
+            ph = half[win].clone()
+            ops.fused_adam(p[win], m[win], v[win], g[win], *args,
+                           half=half[win])
+            adam_mod._adam_plain(*plain, g[win], *args, ph, None)
+            for t, want in zip((p, m, v, half), plain + [ph]):
+                assert same(t[win], want), f"[dp-adam] {shards} window {i}"
+            keep = torch.ones(total, dtype=torch.bool, device=DEVICE)
+            keep[win] = False
+            for t, old in zip((p, m, v, half), before):
+                assert same(t[keep], old[keep]), \
+                    f"[dp-adam] {shards} window {i} wrote outside"
+            # the sharded step's layout: fp32 operands of their own, the
+            # half copy in place in the full buffer
+            own = [t[win].clone() for t in (p, m, v)]
+            plain = [t.clone() for t in own]
+            hw, ph = half[win], half[win].clone()
+            ops.fused_adam(*own, g[win], *args, half=hw)
+            adam_mod._adam_plain(*plain, g[win], *args, ph, None)
+            for t, want in zip(own + [hw], plain + [ph]):
+                assert same(t, want), f"[dp-adam] {shards} own window {i}"
+        log(f"[dp-adam] N {N_FULL} in {shards} windows of {shard} (padded "
+            f"to {total}; bases {[i * shard * 4 % 16 for i in range(shards)]}"
+            f" bytes off 16): every window bitwise the plain version, "
+            f"nothing outside it written; and each window's fp32 operands "
+            f"as their own allocations with the half copy in place, bitwise")
+        if shards == DP_SHARDS[0]:
+            rows.update(_dp_adam_times(p, m, v, g, half, shard, args))
+        del p, m, v, g, half
+    return rows
+
+
+def _dp_adam_times(p, m, v, g, half, shard, args):
+    """The Adam kernel timed on window 1 of 3, in two layouts: every
+    operand a window of its padded buffer (fp32 bases 12 bytes off 16:
+    a scalar head of one element, then 16-byte vectors and paired half
+    stores), and the sharded step's own (the fp32 window, moments and
+    grads its own allocations, the half copy written in place in the full
+    half buffer, 6 bytes off 8: vectors and single half stores)."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import adam as adam_mod
+    win = slice(shard, 2 * shard)
+    own = [t[win].clone() for t in (p, m, v, g)]
+    rows = {}
+    for key, (pk, mk, vk, gk), hk in (
+            ("fused_adam:zero_window", [t[win] for t in (p, m, v, g)],
+             half[win]),
+            ("fused_adam:zero_window_own", own, half[win])):
+        plan = adam_mod._vector_plan(pk, mk, vk, gk, hk)
+        pp, mp, vp, hp = (t.clone() for t in (pk, mk, vk, hk))
+        lib = pk.clone()
+        lib.grad = gk.clone()
+        lib_adam = torch.optim.Adam([lib], lr=1e-3, fused=True,
+                                    capturable=True)
+        nbytes = 30 * shard    # reads p m v g, writes p m v and the half
+        kms = graph_ms(lambda: ops.fused_adam(pk, mk, vk, gk, *args,
+                                              half=hk))
+        pms = graph_ms(lambda: adam_mod._adam_plain(pp, mp, vp, gk, *args,
+                                                    hp, None))
+        lms = graph_ms(lib_adam.step)
+        bound = nbytes / MEM_BYTES_PER_S * 1e3
+        rows[key] = {"name": "fused_adam", "route": "cuda",
+                     "source": SOURCE["fused_adam"],
+                     "replaces": REPLACES["fused_adam"], "launches": 0,
+                     "max_abs_err": 0.0, "ms": kms, "plain_ms": pms,
+                     "bound_ms": bound, "bound_by": "bytes",
+                     "library_ms": lms, "n": shard, "bytes": nbytes,
+                     "vector_plan": list(plan)}
+        log(f"[dp-adam] {key}: window 1 of 3, n {shard}, (head, paired "
+            f"half stores) {plan}: kernel_ms {kms:.4f} bound_ms "
+            f"{bound:.4f} ({nbytes} B) plain_ms {pms:.4f} library_ms "
+            f"{lms:.4f} (device time, graph replay)")
+    return rows
+
+
+def phase_dp(smi):
+    """Phase 19: the wider data-parallel stack at world 1 over NCCL, paths
+    (m) to (p), each held bitwise against its eager run and its plain
+    twin, and the Adam kernel on ZeRO windows."""
+    import torch.distributed as dist
+    from apex_tpu_torch import parallel
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    parallel.init_process_group(
+        init_method=parallel.multiproc.local_init_method(), world_size=1,
+        rank=0)
+    counts, results = {}, {}
+    try:
+        rows = _dp_adam_rows()
+        counts["m"], results["m"] = _dp_resnet(smi)
+        counts["n"], results["n"] = _dp_bert(smi)
+        got, res = _dp_gpt(smi)
+        counts.update(got)
+        results.update(res)
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = det
+    p = results["p"]
+    log(f"[dp-p] peak above the state, eager: ZeRO-3 "
+        f"{p['eager_peak_bytes']} B against ZeRO-1 "
+        f"{p['zero1_eager_peak_bytes']} B; captured: ZeRO-3 "
+        f"{p['graphs'][1]['peak_bytes']} B against the staged ZeRO-2 "
+        f"{results['o']['graphs'][1]['peak_bytes']} B.  At world 1 a window "
+        f"is the whole buffer: ZeRO-3 saves only the gathered parameters it "
+        f"does not keep between the forward and the backward")
+    log("dp " + json.dumps(results))
+    return counts, results, rows
+
+
 def _check_counts(tag: str, counts, expect) -> None:
     """Each wrapper launched exactly as often as the path needs it, and the
     wrappers of other paths not at all."""
@@ -4772,6 +5359,14 @@ def _decoder_rows(rows, counts):
         row["launches"] = counts[path][1][0][row["name"]]
         out.append(row)
     return out
+
+
+def _check_dp_counts(counts, rows) -> None:
+    """Phase 19's graphs: each path's launches over its captured calls;
+    the Adam window row takes the launches of path (m)."""
+    _check_captured_counts({f"dp-{k}": v for k, v in counts.items()})
+    for row in rows.values():
+        row["launches"] = counts["m"][1][0][row["name"]]
 
 
 def _check_captured_counts(counts) -> None:
@@ -4892,6 +5487,8 @@ def main():
     log(f"[time] phase 17 done at {time.time() - t0:.1f} s")
     serving_rows, _ = phase_serving(smi)
     log(f"[time] phase 18 done at {time.time() - t0:.1f} s")
+    counts_dp, _, dp_rows = phase_dp(smi)
+    log(f"[time] phase 19 done at {time.time() - t0:.1f} s")
 
     _check_counts("train", counts_train, RESNET_COUNTS)
     _check_counts("ddp", counts_ddp, RESNET_COUNTS)
@@ -4904,6 +5501,7 @@ def main():
     _check_captured_counts(counts_captured)
     _check_decoder_counts(counts_dec, counts_dec_ex)
     _check_tail_counts(counts_tail)
+    _check_dp_counts(counts_dp, dp_rows)
     variants = {k: rows.pop(k) for k in list(rows) if ":" in k}
     o1_counts = {"bert_o1": counts_bert_o1, "resnet_o1": counts_resnet_o1}
     for k, row in variants.items():
@@ -4929,6 +5527,7 @@ def main():
         {"kernels": _decoder_rows(dec_rows, counts_dec)}))
     log("kernels_decoder_tail " + json.dumps({"kernels": tail_rows}))
     log("kernels_serving " + json.dumps({"kernels": serving_rows}))
+    log("kernels_dp " + json.dumps({"kernels": list(dp_rows.values())}))
     log(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
@@ -4964,6 +5563,13 @@ if __name__ == "__main__":
         phase_build()
         serving_rows, _ = phase_serving(smi)
         log("kernels_serving " + json.dumps({"kernels": serving_rows}))
+    elif sys.argv[1:2] == ["--dp"]:
+        # python3 chip_smoke.py --dp: phases 1, 2 and 19 alone
+        _, smi = phase_device()
+        phase_build()
+        counts_dp, _, dp_rows = phase_dp(smi)
+        _check_dp_counts(counts_dp, dp_rows)
+        log("kernels_dp " + json.dumps({"kernels": list(dp_rows.values())}))
     elif sys.argv[1:2] == ["--layer-norm-ab"]:
         # python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
         phase_device()

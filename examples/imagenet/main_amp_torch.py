@@ -21,6 +21,11 @@ Two ranks:
   python -m apex_tpu_torch.parallel.multiproc --nprocs 2 \\
       examples/imagenet/main_amp_torch.py --device cpu ...
 
+``--zero`` shards the masters and the moments over the ranks (ZeRO-1,
+``AmpOptimizer.zero_shard``; main_amp.py:227-250): the step reduces its
+own grads (a reduce-scatter), so the data-parallel all-reduce is skipped.
+Unlaunched, a group of one rank is made for it.
+
 ``main(argv)`` runs in process and returns the mean img/s.
 """
 
@@ -92,7 +97,7 @@ def parse_args(argv=None):
     p.add_argument("--fused-adam", action="store_true",
                    help="use FusedAdam instead of SGD")
     p.add_argument("--zero", action="store_true",
-                   help="ZeRO-1 optimizer-state sharding (not ported)")
+                   help="ZeRO-1 optimizer-state sharding over the ranks")
     p.add_argument("--prof", action="store_true",
                    help="write a torch.profiler trace of iterations 10-19")
     p.add_argument("--seed", type=int, default=0)
@@ -149,13 +154,18 @@ def resume_state(ckpt_dir, model, optimizer, stem):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.zero:
-        raise NotImplementedError(
-            "--zero (ZeRO-1) is not ported yet (ROADMAP queue 1 item 6, the "
-            "wider parallel stack)")
+    if args.zero and args.checkpoint_dir:
+        raise ValueError("--zero with --checkpoint-dir: each rank holds its "
+                         "window of the sharded optimizer state, whose "
+                         "checkpoint is not written yet")
     own_group = not dist.is_initialized()
     if own_group:
         parallel.init_process_group()       # a no-op unless launched
+        if args.zero and not dist.is_initialized():
+            # the sharded step's collectives need a group, of one rank here
+            parallel.init_process_group(
+                parallel.multiproc.local_init_method(), world_size=1,
+                rank=0)
     own_group = own_group and dist.is_initialized()
     grouped = dist.is_initialized()
     try:
@@ -305,6 +315,9 @@ def _train(args, rank, world):
         loss_scale=args.loss_scale, half_dtype=args.half_dtype,
         verbosity=1 if rank == 0 else 0)
     net = parallel.DistributedDataParallel(model) if world > 1 else model
+    if args.zero:
+        say("=> ZeRO-1 optimizer-state sharding over the data ranks")
+        optimizer.zero_shard()
 
     start_epoch = 0
     if args.checkpoint_dir and args.resume:
@@ -323,9 +336,9 @@ def _train(args, rank, world):
         loss, out, grads = amp.scaled_grad(
             lambda: (lambda o: (cross_entropy(o, y), o))(net(x)), optimizer,
             has_aux=True)
-        if world > 1:
+        if world > 1 and not args.zero:
             grads = net.allreduce_grads(grads)
-        optimizer.step(grads)
+        optimizer.step(grads)           # under --zero it reduces them
         acc = (out.argmax(-1) == y).float().mean() * 100.0
         vals = torch.stack([loss, acc])
         if world > 1:

@@ -1593,3 +1593,264 @@ def test_serving_paged_equals_fixed_on_the_card(cuda):
                                     block_size=8, num_blocks=12, **kw)
         assert _serve_all(paged.warmup(), tr) == _serve_all(fixed.warmup(),
                                                             tr)
+
+
+# -- the wider data-parallel stack at world 1 over NCCL ------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_group():
+    """A one-rank NCCL group for the module's data-parallel tests (NCCL
+    puts one rank on a device, and these tests need one card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
+    import torch.distributed as dist
+    from apex_tpu_torch import parallel
+    parallel.init_process_group(parallel.multiproc.local_init_method(),
+                                world_size=1, rank=0)
+    yield dist.get_backend()
+    dist.destroy_process_group()
+
+
+class _Mlp(torch.nn.Module):
+    def __init__(self, device, seed=0):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.layers = torch.nn.ModuleList(
+            [nn.Linear(64, 64, device=device, generator=g) for _ in range(4)])
+
+    def forward(self, x):
+        for m in self.layers:
+            x = torch.tanh(m(x))
+        return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["hierarchical", "compressed", "adasum",
+                                  "adasum_hierarchical"])
+def test_wide_reduce_at_world_one_captured_and_eager(cuda, nccl_group,
+                                                     mode):
+    """The hierarchical reduce (reduce-scatter, cross-node all-reduce,
+    all-gather: each over a one-rank NCCL group) and Adasum at world 1,
+    eager and captured in a CUDA graph: the flat reduce's grads bitwise
+    (a sum of one), the compressed hop the grads rounded once to bf16."""
+    from apex_tpu_torch import parallel
+    kw = {"hierarchical": dict(comm_topology="hierarchical", ici_size=1),
+          "compressed": dict(comm_topology="hierarchical", ici_size=1,
+                             allreduce_compress_bf16=True),
+          "adasum": dict(adasum=True),
+          "adasum_hierarchical": dict(adasum=True,
+                                      comm_topology="hierarchical",
+                                      ici_size=1)}[mode]
+    model = _Mlp(cuda)
+    flat = parallel.DistributedDataParallel(model)
+    ddp = parallel.DistributedDataParallel(model, **kw)
+    x = torch.randn(32, 64, generator=torch.Generator().manual_seed(1)) \
+        .to(cuda)
+
+    def step(xb):
+        grads = torch.autograd.grad((model(xb) ** 2).mean(),
+                                    list(model.parameters()))
+        names = [n for n, _ in model.named_parameters()]
+        g = dict(zip(names, grads))
+        return {"flat": flat.allreduce_grads(g), "wide": ddp.allreduce_grads(g)}
+
+    eager = step(x)
+    train = parallel.make_step(step, model)
+    outs = [train(x) for _ in range(3)]
+    assert cuda.type != "cuda" or train.replays == 2
+    for out in outs:
+        for k, v in eager["wide"].items():
+            assert torch.equal(out["wide"][k], v), k
+    for k, v in eager["flat"].items():
+        want = v.to(torch.bfloat16).float() if mode == "compressed" else v
+        assert torch.equal(eager["wide"][k], want), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(message_size=1000),
+                                dict(comm_topology="hierarchical",
+                                     ici_size=1)])
+def test_overlapped_hook_path_captured(cuda, nccl_group, deterministic, kw):
+    """The hook path with overlap=True (each chunk's all-reduce on the comm
+    stream as its grads arrive, the callback only waits) captured in a
+    CUDA graph: losses and state bitwise its eager run and the
+    overlap=False twin's."""
+    from apex_tpu_torch import amp, optimizers, parallel
+
+    def pair(overlap):
+        model = _Mlp(cuda)
+        model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
+                                    opt_level="O2", verbosity=0)
+        ddp = parallel.DistributedDataParallel(model, overlap=overlap, **kw)
+
+        def step(xb):
+            loss = (ddp(xb) ** 2).mean()
+            with amp.scale_loss(loss, opt) as scaled:
+                scaled.backward()
+            opt.step()
+            return loss.detach().float()
+        return model, opt, step
+
+    x = torch.randn(32, 64, generator=torch.Generator().manual_seed(2)) \
+        .to(cuda).to(torch.bfloat16)
+    runs = {}
+    for name, overlap, capture in (("plain", False, False),
+                                   ("overlap", True, False),
+                                   ("graph", True, True)):
+        model, opt, step = pair(overlap)
+        fn = parallel.make_step(step, model) if capture else step
+        losses = torch.stack([fn(x) for _ in range(4)])
+        if capture and cuda.type == "cuda":
+            assert fn.replays == 3
+        runs[name] = (losses, opt.masters.buf.clone(), opt.state.m.clone())
+    for name in ("overlap", "graph"):
+        for a, b in zip(runs[name], runs["plain"]):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [3, 8])
+def test_adam_on_padded_odd_shards(cuda, shards):
+    """The Adam kernel on each ZeRO window of a padded flat buffer
+    (1,000,003 elements: odd windows over 3, bases off 16 bytes): every
+    window bitwise the plain version, the half copy written in place in
+    the full half buffer, and nothing outside the window touched."""
+    n = 1_000_003
+    shard = -(-n // shards)
+    rs = np.random.RandomState(shards)
+
+    def padded(a):
+        return torch.cat([_t(a), torch.zeros(shard * shards - n)]).to(cuda)
+
+    bufs = [padded(rs.randn(n).astype(np.float32)),
+            padded(np.abs(rs.randn(n)).astype(np.float32) * 0.1),
+            padded(np.abs(rs.randn(n)).astype(np.float32) * 0.01)]
+    g = padded(rs.randn(n).astype(np.float32))
+    half = bufs[0].to(torch.bfloat16)
+    args = (torch.tensor(1e-3, device=cuda), torch.tensor(0.5, device=cuda),
+            0.9, 0.999, 1e-8, False, 0.01)
+    for i in range(shards):
+        win = slice(i * shard, (i + 1) * shard)
+        before = [b.clone() for b in bufs] + [half.clone()]
+        plain = [b[win].clone() for b in bufs]
+        ph = half[win].clone()
+        ops.fused_adam(*[b[win] for b in bufs], g[win], *args,
+                       half=half[win])
+        adam_mod._adam_plain(*plain, g[win], *args, ph, None)
+        for b, p in zip(bufs + [half], plain + [ph]):
+            assert torch.equal(b[win], p)
+        for b, old in zip(bufs + [half], before):
+            rest = torch.ones(b.numel(), dtype=torch.bool, device=cuda)
+            rest[win] = False
+            assert torch.equal(b[rest], old[rest])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_zero_step_captured_equals_eager(cuda, nccl_group, deterministic,
+                                         stage):
+    """ZeRO at world 1 over NCCL, the sharded update captured whole with its
+    collectives: losses, masters and moments bitwise the eager run's, and
+    (a sum of one) bitwise the unsharded step's."""
+    from apex_tpu_torch import amp, parallel
+    from apex_tpu_torch.nn.functional import cross_entropy
+    batch = _images(cuda)
+
+    def run(zero, capture):
+        model, opt = _small_resnet(cuda)
+        if zero:
+            opt.zero_shard(zero_stage=stage,
+                           zero_ici_size=None if stage == 1 else 1)
+
+        def step(b):
+            x, y = b
+            if zero and stage == 3:
+                with amp.zero_gather_checkpoint_policy(opt):
+                    loss, g = amp.scaled_grad(lambda: cross_entropy(
+                        torch.func.functional_call(
+                            model, amp.zero_gather_params(opt), (x,)), y),
+                        opt)
+            else:
+                loss, g = amp.scaled_grad(lambda: cross_entropy(model(x), y),
+                                          opt)
+            opt.step(g)
+            return loss
+        fn = parallel.make_step(step, model) if capture else step
+        losses = torch.stack([fn(batch) for _ in range(4)])
+        n = opt.masters.layout.total
+        return losses, opt.masters.buf[:n].clone(), opt.state.m[:n].clone()
+
+    plain = run(False, False)
+    eager = run(True, False)
+    graph = run(True, True)
+    for a, b, c in zip(plain, eager, graph):
+        assert torch.equal(a, b) and torch.equal(b, c)
+
+
+class _Stages(torch.nn.Module):
+    """Sequential stages of wide tanh layers, as dicts for the staged
+    schedule."""
+
+    def __init__(self, device, n=6, width=2048):
+        super().__init__()
+        g = torch.Generator().manual_seed(3)
+        self.w = torch.nn.ParameterList(
+            [torch.nn.Parameter((torch.randn(width, width, generator=g)
+                                 / width ** 0.5).to(device))
+             for _ in range(n)])
+        self.b = torch.nn.ParameterList(
+            [torch.nn.Parameter((0.1 * torch.randn(width, generator=g))
+                                .to(device)) for _ in range(n)])
+
+    def stage_params(self):
+        return [{"w": w, "b": b} for w, b in zip(self.w, self.b)]
+
+
+@pytest.mark.cuda
+def test_staged_zero2_overlap_keeps_its_buffers_until_the_join(cuda,
+                                                               nccl_group):
+    """The fused ZeRO-2 staged step with overlap=True at world 1 over NCCL,
+    eager and captured: each stage's flat grads, flat params and param
+    shard are made on the compute stream and read on the comm stream
+    (the predivide, the shard update that reads the params), while the
+    next stages' wide backward allocates on the compute stream.  Losses
+    and params bitwise the overlap=False run's."""
+    from apex_tpu_torch import parallel
+    x = torch.randn(8192, 2048, generator=torch.Generator().manual_seed(4)) \
+        .to(cuda)
+
+    def fn(p, a):
+        return torch.tanh(a @ p["w"] + p["b"])
+
+    def head(a):
+        return (a ** 2).mean()
+
+    def upd(stage, p, g):
+        return p - 0.5 * g
+
+    def run(overlap, capture):
+        model = _Stages(cuda)
+        ddp = parallel.DistributedDataParallel(
+            model, comm_topology="hierarchical", ici_size=1,
+            gradient_predivide_factor=2.0, overlap=overlap, zero_stage=2)
+        params = model.stage_params()
+
+        def step(xb):
+            loss, new = ddp.staged_zero2_allreduce_grads(
+                [fn] * len(params), head, params, xb, upd)
+            with torch.no_grad():
+                for p, q in zip(params, new):
+                    p["w"].copy_(q["w"])
+                    p["b"].copy_(q["b"])
+            return loss
+        train = parallel.make_step(step, model) if capture else step
+        losses = torch.stack([train(x) for _ in range(4)])
+        if capture:
+            assert train.replays == 3
+        return [losses] + [t.detach().clone() for t in model.parameters()]
+
+    plain = run(False, False)
+    for name, got in (("eager", run(True, False)),
+                      ("graph", run(True, True))):
+        for a, b in zip(got, plain):
+            assert torch.equal(a, b), name

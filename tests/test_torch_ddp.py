@@ -600,11 +600,22 @@ def test_ddp_needs_a_group_and_refuses_unported_options():
     lin = torch.nn.Linear(2, 2)
     with pytest.raises(RuntimeError, match="init_process_group"):
         parallel.DistributedDataParallel(lin)
+    # the wider stack's knobs are ported: valid ones still need the group,
+    # invalid combinations are refused first, as the JAX package refuses
+    # them, and what is left unported names its ROADMAP item
     for kw in ({"adasum": True}, {"comm_topology": "hierarchical"},
-               {"allreduce_compress_bf16": True}, {"overlap": True},
-               {"zero_stage": 2}, {"ici_size": 4}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+               {"overlap": True}, {"ici_size": 4},
+               {"comm_topology": "hierarchical", "zero_stage": 2}):
+        with pytest.raises(RuntimeError, match="init_process_group"):
             parallel.DistributedDataParallel(lin, **kw)
+    for kw in ({"allreduce_compress_bf16": True}, {"zero_stage": 2}):
+        with pytest.raises(ValueError):
+            parallel.DistributedDataParallel(lin, **kw)
+    for fn in (parallel.DistributedDataParallel.supervisor_signals,
+               lambda ddp: parallel.DistributedDataParallel.record_numerics(
+                   ddp, {})):
+        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+            fn(None)
     assert parallel.predivide_factors(8, 1.0) == (1.0, 8)
     assert parallel.predivide_factors(8, 4.0) == (4.0, 2.0)
 

@@ -538,11 +538,22 @@ def test_comm_plan_triggers_match_jax():
 
 
 def test_comm_plan_hierarchical_raises_naming_the_roadmap():
-    _, meta = _shapes(jmodels.resnet50(), "O2")
+    """The hierarchical plan is ported (the JAX package's, bucket for
+    bucket); what still raises names its ROADMAP item: the analysis
+    expectations built on the plan (item 10), and compression on the flat
+    topology is refused as the JAX package refuses it."""
+    params, meta = _shapes(jmodels.resnet50(), "O2")
     for kw in ({"comm_topology": "hierarchical", "world": 8},
-               {"allreduce_compress_bf16": True}, {"ici_size": 4}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            parallel.allreduce_comm_plan(meta, **kw)
+               {"comm_topology": "hierarchical", "world": 8, "ici_size": 4,
+                "allreduce_compress_bf16": True},
+               {"ici_size": 4}):
+        assert parallel.allreduce_comm_plan(meta, **kw) == \
+            jparallel.allreduce_comm_plan(params, **kw)
+    with pytest.raises(ValueError, match="no inner level"):
+        parallel.allreduce_comm_plan(meta, allreduce_compress_bf16=True)
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        parallel.plan_collective_expectations(
+            parallel.allreduce_comm_plan(meta))
 
 
 # -- make_step (tests/test_ddp.py:244) ----------------------------------------------

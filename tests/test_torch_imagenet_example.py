@@ -5,8 +5,9 @@ ResNet-18 at batch 4, 32 x 32, three iterations: NCHW; channels-last with
 the space-to-depth stem and FusedAdam; a uint8 NHWC ``--data`` blob with a
 val split through the DataLoader and the convergence gate; a checkpoint
 then a resume into the space-to-depth stem, whose first logits are the
-saved conv7 model's; ``--zero`` refused; and two gloo ranks through the
-port's launcher, which print the same (rank-averaged) loss.  Then
+saved conv7 model's; ``--zero`` with a checkpoint refused; and two gloo
+ranks through the port's launcher, which print the same (rank-averaged)
+loss.  Then
 ``utils.profiler`` against ``apex_tpu.utils.profiler``: ``AverageMeter``
 the same numbers, range nesting, and profiler windows that nest and write
 a trace into a directory of their own.
@@ -124,9 +125,11 @@ def test_checkpoint_then_resume_into_space_to_depth(capsys, tmp_path):
     assert "converting" not in out and "resumed from epoch 3" in out, out
 
 
-def test_zero_and_missing_gpu_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        example.main(BASE + ["--zero"])
+def test_zero_and_missing_gpu_raise(tmp_path):
+    # --zero runs (tests/test_torch_imagenet_zero.py); its sharded state has
+    # no checkpoint yet
+    with pytest.raises(ValueError, match="checkpoint"):
+        example.main(BASE + ["--zero", "--checkpoint-dir", str(tmp_path)])
     if not torch.cuda.is_available():
         argv = [a for a in BASE if a not in ("--device", "cpu")]
         with pytest.raises(RuntimeError, match="CUDA"):
