@@ -14,8 +14,15 @@ and :func:`error` why not.
   available() -> bool
   preprocess_images(u8_nhwc, mean, std, data_format="NCHW"|"NHWC")
       -> normalized float32, NCHW or NHWC
+  flatten(arrays) -> one contiguous 1-D array of same-dtype host arrays
+  unflatten(flat, like) -> arrays shaped like ``like``
+  plan_buckets(sizes, message_size) -> greedy in-order bucket ids (int32)
   library() -> the loaded ctypes library or None (the DataLoader's ring:
       apex_loader_create / next / release / destroy)
+
+``flatten``, ``unflatten`` and ``plan_buckets`` are the reference's
+apex_C helpers on host arrays (the JAX package's ``_native`` ones); the
+device-side flat buffers are ``multi_tensor_apply``'s.
 """
 
 from __future__ import annotations
@@ -28,12 +35,13 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
 __all__ = ["available", "error", "build", "library", "version",
-           "preprocess_images", "SOURCE", "BUILD_DIR"]
+           "preprocess_images", "flatten", "unflatten", "plan_buckets",
+           "SOURCE", "BUILD_DIR"]
 
 SOURCE = Path(__file__).resolve().parent / "apex_tpu_torch_C.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
@@ -54,6 +62,9 @@ _SIGNATURES = {
     "apex_loader_next": ((_P, ctypes.POINTER(_P), ctypes.POINTER(_P)), _L),
     "apex_loader_release": ((_P, _P), None),
     "apex_loader_destroy": ((_P,), None),
+    "apex_flatten": ((_P, _P, _I, _L, _P), None),
+    "apex_unflatten": ((_P, _P, _I, _L, _P), None),
+    "apex_plan_buckets": ((_P, _I, _L, _P), _I),
 }
 
 _lock = threading.Lock()
@@ -150,3 +161,64 @@ def preprocess_images(images_u8: np.ndarray, mean: Sequence[float],
     fn(images_u8.ctypes.data_as(ctypes.c_void_p),
        out.ctypes.data_as(ctypes.c_void_p), n, h, w, c, mean_c, std_c)
     return out
+
+
+def flatten(tensors: Sequence[np.ndarray]) -> np.ndarray:
+    """Concatenate same-dtype host arrays into one contiguous 1-D array
+    (the library copies on its worker threads)."""
+    tensors = [np.ascontiguousarray(t) for t in tensors]
+    if not tensors:
+        return np.zeros((0,), np.float32)
+    dt = tensors[0].dtype
+    if any(t.dtype != dt for t in tensors):
+        raise TypeError("flatten() requires a same-dtype list")
+    lib = library()
+    if lib is None:
+        return np.concatenate([t.reshape(-1) for t in tensors])
+    out = np.empty((sum(t.size for t in tensors),), dt)
+    n = len(tensors)
+    srcs = (ctypes.c_void_p * n)(*[t.ctypes.data for t in tensors])
+    sizes = (ctypes.c_int64 * n)(*[t.size for t in tensors])
+    lib.apex_flatten(srcs, sizes, n, dt.itemsize, out.ctypes.data)
+    return out
+
+
+def unflatten(flat: np.ndarray, like: Sequence[np.ndarray]
+              ) -> List[np.ndarray]:
+    """Inverse of :func:`flatten`: new arrays shaped like ``like``, of
+    ``flat``'s dtype."""
+    flat = np.ascontiguousarray(flat)
+    outs = [np.empty(np.shape(t), flat.dtype) for t in like]
+    lib = library()
+    if lib is None:
+        off = 0
+        for o in outs:
+            o[...] = flat[off:off + o.size].reshape(o.shape)
+            off += o.size
+        return outs
+    n = len(outs)
+    dsts = (ctypes.c_void_p * n)(*[o.ctypes.data for o in outs])
+    sizes = (ctypes.c_int64 * n)(*[o.size for o in outs])
+    lib.apex_unflatten(flat.ctypes.data, sizes, n, flat.dtype.itemsize,
+                       dsts)
+    return outs
+
+
+def plan_buckets(sizes: Sequence[int], message_size: int) -> np.ndarray:
+    """Greedy in-order bucket ids: a bucket closes once it holds at least
+    ``message_size`` elements (the reference DDP's bucketing)."""
+    sizes = np.ascontiguousarray(np.asarray(list(sizes), np.int64))
+    ids = np.zeros(len(sizes), np.int32)
+    lib = library()
+    if lib is None:
+        bucket = filled = 0
+        for i, s in enumerate(sizes):
+            ids[i] = bucket
+            filled += int(s)
+            if filled >= message_size:
+                bucket += 1
+                filled = 0
+        return ids
+    lib.apex_plan_buckets(sizes.ctypes.data, len(sizes), int(message_size),
+                          ids.ctypes.data)
+    return ids

@@ -172,6 +172,58 @@ void apex_preprocess_nhwc_u8_to_nhwc_f32(const uint8_t* in, float* out,
 
 int apex_native_version() { return 3; }
 
+// Concatenate n same-dtype host tensors into one contiguous buffer
+// (apex_C.flatten). srcs[i] points at sizes[i] elements of elem_size bytes.
+void apex_flatten(const void** srcs, const int64_t* sizes, int n,
+                  int64_t elem_size, void* dst) {
+  std::vector<int64_t> offsets(n + 1, 0);
+  for (int i = 0; i < n; ++i) offsets[i + 1] = offsets[i] + sizes[i];
+  auto& pool = ThreadPool::Get();
+  char* out = static_cast<char*>(dst);
+  for (int i = 0; i < n; ++i) {
+    const char* src = static_cast<const char*>(srcs[i]);
+    char* d = out + offsets[i] * elem_size;
+    int64_t bytes = sizes[i] * elem_size;
+    pool.Submit([src, d, bytes] { std::memcpy(d, src, bytes); });
+  }
+  pool.Wait();
+}
+
+// Inverse: scatter a flat buffer back into n host tensors
+// (apex_C.unflatten).
+void apex_unflatten(const void* src, const int64_t* sizes, int n,
+                    int64_t elem_size, void** dsts) {
+  std::vector<int64_t> offsets(n + 1, 0);
+  for (int i = 0; i < n; ++i) offsets[i + 1] = offsets[i] + sizes[i];
+  auto& pool = ThreadPool::Get();
+  const char* in = static_cast<const char*>(src);
+  for (int i = 0; i < n; ++i) {
+    const char* s = in + offsets[i] * elem_size;
+    char* dst = static_cast<char*>(dsts[i]);
+    int64_t bytes = sizes[i] * elem_size;
+    pool.Submit([s, dst, bytes] { std::memcpy(dst, s, bytes); });
+  }
+  pool.Wait();
+}
+
+// Greedy in-order bucket assignment: tensors are packed into buckets of at
+// least message_size elements in arrival order (the planning half of the
+// reference DDP's bucketing).  Returns the number of buckets.
+int apex_plan_buckets(const int64_t* sizes, int n, int64_t message_size,
+                      int32_t* bucket_ids) {
+  int bucket = 0;
+  int64_t filled = 0;
+  for (int i = 0; i < n; ++i) {
+    bucket_ids[i] = bucket;
+    filled += sizes[i];
+    if (filled >= message_size) {
+      bucket++;
+      filled = 0;
+    }
+  }
+  return (filled > 0 || n == 0) ? bucket + 1 : bucket;
+}
+
 }  // extern "C"
 
 // ---------------------------------------------------------------------------

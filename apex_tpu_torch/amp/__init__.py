@@ -25,7 +25,8 @@ step; ``zero_gather_params`` for stage 3), and its checkpoint::
     amp.load_state_dict(optimizer, ck["amp"])
 
 plus the O1 registries (``register_half_function`` etc.), the cast
-policies and the scaler introspection calls.
+policies, the scaler introspection calls and the legacy handle API
+(``amp.init``, ``AmpHandle``, ``OptimWrapper``).
 """
 
 from . import lists, policy
@@ -38,6 +39,7 @@ from .frontend import (Properties, amp_stats, compute_dtype,
                        scaler_state, steps_skipped)
 from .handle import (disable_casts, scale_loss, scaled_grad,
                      scaled_grad_accum)
+from .legacy import AmpHandle, NoOpHandle, OptimWrapper, init
 from .lists import (register_float_function, register_half_function,
                     register_promote_function)
 from .policy import (CastPolicy, NoPolicy, current_policy, float_function,
@@ -55,7 +57,8 @@ __all__ = ["initialize", "scale_loss", "scaled_grad", "scaled_grad_accum",
            "policy", "CastPolicy", "NoPolicy", "current_policy",
            "set_policy", "use_policy", "half_function", "float_function",
            "promote_function", "register_half_function",
-           "register_float_function", "register_promote_function"]
+           "register_float_function", "register_promote_function", "init",
+           "AmpHandle", "NoOpHandle", "OptimWrapper"]
 
 
 def state_dict(optimizer) -> dict:

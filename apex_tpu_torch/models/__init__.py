@@ -1,7 +1,9 @@
 """Models of the port: the ResNet family, BERT, the decoder families
 (GPT-2; Llama with its Mistral, Qwen2, Gemma and GPT-NeoX knobs; Mixtral),
-the T5 encoder-decoder, beam search and speculative decoding."""
+the T5 encoder-decoder, beam search and speculative decoding, and the
+DCGAN generator and discriminator."""
 
+from .dcgan import Discriminator, Generator, dcgan
 from .bert import (BertConfig, BertForPretraining, BertModel, bert_base,
                    bert_large)
 from .gpt import GPT, GPTConfig, gpt2_medium, gpt2_small
@@ -21,4 +23,5 @@ __all__ = ["ResNet", "BasicBlock", "Bottleneck", "resnet18", "resnet34",
            "bert_large", "GPTConfig", "GPT", "gpt2_small", "gpt2_medium",
            "LlamaConfig", "Llama", "RMSNorm", "llama_params_to_tp",
            "MixtralConfig", "MixtralBlock", "Mixtral", "generate_speculative",
-           "beam_search", "T5Config", "T5"]
+           "beam_search", "T5Config", "T5", "Generator", "Discriminator",
+           "dcgan"]

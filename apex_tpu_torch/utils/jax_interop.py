@@ -53,6 +53,12 @@ QTensor (data, scale, axis and logical dtype).  LoRA adapters, a flat
 dict ``{path: {"a", "b"}}`` keyed alike in both packages, go across with
 :func:`adapters_from_jax` and :func:`adapters_to_jax`.
 
+The legacy surface's models name their parameters by the JAX trees'
+paths as well: :func:`rnn_from_jax` carries an ``RNN`` stack's params
+(``rnns.<i>.<w>``, ``fwd.``/``bwd.`` for a bidirectional one, a weight
+norm's ``<name>_g``/``<name>_v``), :func:`dcgan_from_jax` a DCGAN model's
+params and BatchNorm state (``main.<i>.running_mean``, ...).
+
 Pipeline stages: the JAX package stacks the S stages' parameters on a
 leading axis (``parallel.pipeline.init_stacked``); a port
 ``parallel.pipeline.StackedStages`` holds a rank's stage (``0.<path>``) or
@@ -77,7 +83,8 @@ __all__ = ["params_from_jax", "params_to_jax", "lamb_state_from_jax",
            "zero_state_from_jax", "zero_state_to_jax", "tp_shard",
            "kv_cache_from_jax", "kv_cache_to_jax", "qtensor_from_jax",
            "qtensor_to_jax",
-           "adapters_from_jax", "adapters_to_jax", "STATE_KEYS"]
+           "adapters_from_jax", "adapters_to_jax", "rnn_from_jax",
+           "dcgan_from_jax", "STATE_KEYS"]
 
 _SCALER_KEYS = ("loss_scale", "unskipped", "steps_skipped")
 
@@ -135,6 +142,31 @@ def params_from_jax(params: Dict[str, Any],
         for k, v in leaves.items():
             flat[f"{path}.{k}" if path else k] = v
     return {k: _to_torch(v) for k, v in flat.items()}
+
+
+def rnn_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``RNN`` stack's (or ``WeightNorm``'s) params -> the port
+    module's ``state_dict``: the ``rnns``/``fwd``/``bwd`` trees by path."""
+    sd = params_from_jax(params)
+    bad = [k for k in sd if k.rpartition(".")[2] in STATE_KEYS]
+    if bad:
+        raise ValueError(f"an RNN has no BatchNorm state, got {bad[:4]}")
+    return sd
+
+
+def dcgan_from_jax(params: Dict[str, Any],
+                   state: Dict[str, Dict[str, Any]]
+                   ) -> Dict[str, torch.Tensor]:
+    """A JAX DCGAN ``Generator``'s or ``Discriminator``'s ``(params,
+    state)`` -> the port model's ``state_dict``, BatchNorm running
+    statistics and counts included (each BatchNorm must have its state)."""
+    sd = params_from_jax(params, state)
+    bns = {k.rpartition(".")[0] for k in sd if k.endswith(".bias")
+           and sd[k.rpartition(".")[0] + ".weight"].dim() == 1}
+    missing = sorted(b for b in bns if f"{b}.running_mean" not in sd)
+    if missing:
+        raise ValueError(f"no BatchNorm state for {missing}")
+    return sd
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor]

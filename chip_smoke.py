@@ -9,12 +9,13 @@
     python3 chip_smoke.py --dp
     python3 chip_smoke.py --mp
     python3 chip_smoke.py --sp-pp
+    python3 chip_smoke.py --legacy
     python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
 
 The second form runs phases 1, 2 and 15 alone, the third phases 1, 2 and
 16 (with 16's launch-count checks), the fourth phases 1, 2 and 17, the
 fifth 1, 2 and 18, the sixth 1, 2 and 19, the seventh 1, 2 and 20, the
-eighth 1, 2 and 21.  The last builds the
+eighth 1, 2 and 21, the ninth 1, 2 and 22.  The last builds the
 kernels and times the LayerNorm backward of this checkout against the one
 in PARENT_CHECKOUT (another tree of this repository), at BERT-base's and
 BERT-large's shapes, by graph replay in the order parent, change, change,
@@ -270,6 +271,40 @@ Phases, in order; any failure raises and the exit code is non-zero:
             grads against the sequential fallback, GPipe's forward bitwise
             the sequential one, and the peak memory of 1F1B against
             autograd through GPipe.
+22. legacy  the Apex legacy surface and the sharded checkpoint.  (x)
+            examples/dcgan/main_amp_torch.py in process at its defaults
+            (O1, batch 64, nz 100, ngf = ndf = 64, 64x64, 200
+            iterations), then at O2 for 20, each with exact launches an
+            iteration (scale, l2norm and Adam twice, the syncbn forward 17
+            times and backward 13), ms/it and peak memory; then its step in
+            fp32 at ngf = ndf = 16, batch 8, 5 iterations, the card against
+            the CPU from the same weights: losses and BatchNorm running
+            statistics within 5e-3, their counts equal.  (y) an mLSTM at
+            the width of Radford et al. 2017 (a 256 -> 64 byte embedding,
+            one layer of 4096 units, a 4096 -> 256 decoder: 86,294,784
+            parameters) in fp16 by network_to_half under the legacy
+            FP16_Optimizer(FusedAdam(lr 5e-4), dynamic scale) on random
+            bytes at 128 x 256, 6 steps with clip_master_grads: the first
+            loss near ln 256, exact launches; one update through the
+            kernels against their plain versions on the card (masters
+            within a bound from the l2norm's summation order); an inf
+            skipped bitwise; state_dict into a fresh optimizer and its next
+            step bitwise; LSTM, GRU, ReLU, Tanh and a 2-layer bidirectional
+            LSTM in fp32 on the card against the CPU.  The legacy amp
+            handle (amp.init, OptimWrapper with two losses, the no-op
+            handle) and the shims (multi_tensor_applier, _native's
+            flatten).  (z) DCGAN's whole state through
+            utils/checkpoint_orbax.py (torch.distributed.checkpoint), sync
+            and async, restored bitwise, the next iteration bitwise, a torn
+            save refused, keep pruning; examples/imagenet/main_amp_torch.py
+            --zero --checkpoint-dir on a one-rank NCCL group, resnet18 at
+            batch 128: three epochs of 3 iterations against the epoch-2
+            checkpoint resumed, the third epoch's losses and the epoch-3
+            checkpoints bitwise.  The kernel rows print as the
+            "kernels_legacy" line: scale and Adam (no half copy) at G's and
+            D's lengths, scale, l2norm and Adam (fp16 copy) at the mLSTM's,
+            the syncbn forward and backward at DCGAN's 7 BatchNorm shapes
+            in bf16 and fp32.
 
 Phase 3 also times the variants the O1 paths run: Adam without the half
 copy at N = 25,557,032, the LayerNorm forward and backward in fp32 at
@@ -283,6 +318,7 @@ beside it.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -6243,6 +6279,757 @@ def phase_sp_pp(smi):
     return rows, results
 
 
+# -- phase 22, the legacy surface and the sharded checkpoint --------------------
+
+DCGAN_ITERS = 200                   # the reference example's default
+DCGAN_O2_ITERS = 20
+DCGAN_TWIN = ["--opt-level", "O0", "--ngf", "16", "--ndf", "16", "-b", "8"]
+DCGAN_TWIN_STEPS = 5
+# (x)'s fp32 twin, card against CPU: Adam's first steps move a weight by
+# about lr = 2e-4 in the sign of its grad, which a grad near zero need not
+# share across cuDNN's and oneDNN's summation orders, so a weight may part
+# by 2 lr a step, 2e-3 over the 5 steps; the losses and the BatchNorm
+# running statistics (averages of normalized activations of order 1) are
+# held within 2.5 times that
+DCGAN_TWIN_TOL = 5e-3
+# an iteration: G forward for the fake (4 BatchNorms, no update, no
+# backward), D on real and on fake (3 + 3), G again and D on it (4 + 3);
+# backward through D twice (6), then through D and G (3 + 4); each
+# optimizer steps once (scale, the l2norm of AmpOptimizer's grad norm,
+# Adam)
+DCGAN_PER_ITER = {"multi_tensor_scale": 2, "multi_tensor_l2norm": 2,
+                  "fused_adam": 2, "syncbn_fwd": 17, "syncbn_bwd": 13}
+MLSTM_WIDTH, MLSTM_HIDDEN = 64, 4096        # Radford et al. 2017
+MLSTM_BATCH, MLSTM_SEQ = 128, 256
+MLSTM_STEPS = 6
+# below the grad norm (about 0.007 at the start on random bytes, my chip
+# run 1, PR 18): the clip acts
+MLSTM_CLIP = 0.005
+MLSTM_LR = 5e-4
+# a step: the unscale (scale), clip_master_grads (l2norm), Adam with the
+# half copy
+MLSTM_PER_STEP = {"multi_tensor_scale": 1, "multi_tensor_l2norm": 1,
+                  "fused_adam": 1}
+RNN_TWIN = (16, 8, 32, 64)                  # T, B, F, H
+RNN_TWIN_TOL = dict(rtol=1e-4, atol=1e-5)
+ZERO_RESUME_ARGV = ["--arch", "resnet18", "-b", str(BATCH), "--image-size",
+                    str(IMAGE), "--iters", "3", "--print-freq", "1",
+                    "--fused-adam", "--zero"]
+
+
+def _dcgan_example():
+    return _load("examples", "dcgan", "main_amp_torch.py")
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN on its deterministic algorithms, no autotuning: two runs of
+    one step held bitwise."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def _dcgan_run(ex, tag, argv, iters):
+    """examples/dcgan/main_amp_torch.main in process on the card, the
+    launch counts set to 0 just before and read just after, held to
+    DCGAN_PER_ITER; returns the run and its numbers."""
+    from apex_tpu_torch import amp
+    floor = _mem_floor()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--device", DEVICE, "--iters", str(iters),
+            "--print-freq", "50"] + argv
+    log(f"[legacy-x] {tag}: dcgan main_amp_torch.main({argv})")
+    run, counts = _counted(lambda: ex.main(argv))
+    peak = torch.cuda.max_memory_allocated() - floor
+    losses = run["losses"]
+    assert losses.shape == (iters, 2) and bool(torch.isfinite(losses).all())
+    expect = {k: v * iters for k, v in DCGAN_PER_ITER.items()}
+    _check_counts(f"legacy-x-{tag}", {**dict.fromkeys(expect, 0), **counts},
+                  expect)
+    log(f"[legacy-x] {tag}: {iters} iterations, {run['ms_per_it']:.2f} "
+        f"ms/it ({run['ms_per_it_after_first']:.2f} after the first, which "
+        f"autotunes cuDNN), peak {peak} B ({peak / 2**30:.3f} GiB) above the floor; "
+        f"first losses D/G {losses[0].tolist()}, last {losses[-1].tolist()}")
+    # where the time goes: three more iterations under the profiler, in
+    # the run's precision (O1: its cast policy again)
+    args = ex.parse_args(argv[2:])
+    rng = np.random.RandomState(SEED + 5)
+    if args.opt_level == "O1":
+        amp.set_policy(amp.CastPolicy(torch.bfloat16))
+    try:
+        by_cat = phase_profile(
+            lambda: ex.train_step(run["netD"], run["netG"], run["optD"],
+                                  run["optG"],
+                                  *ex.batch(rng, args, torch.device(DEVICE))),
+            run["ms_per_it_after_first"], f"legacy-x-{tag}-profile")
+    finally:
+        amp.set_policy(amp.NoPolicy())
+    return run, counts, {"ms_per_it": run["ms_per_it"],
+                         "ms_per_it_after_first":
+                             run["ms_per_it_after_first"],
+                         "device_ms_by_category": by_cat,
+                         "peak_bytes": peak,
+                         "first": losses[0].tolist(),
+                         "last": losses[-1].tolist()}
+
+
+def _dcgan_twin(ex):
+    """The fp32 twin: DCGAN_TWIN_STEPS iterations of the example's step on
+    the card (kernels) and on the CPU (plain versions) from the same
+    weights and data."""
+    args = ex.parse_args(DCGAN_TWIN)
+    out = []
+    for dev in (torch.device(DEVICE), torch.device("cpu")):
+        netD, netG, optD, optG = ex.build(args, dev)
+        rng = np.random.RandomState(args.seed)
+        (losses, counts) = _counted(lambda: torch.stack([torch.stack(
+            ex.train_step(netD, netG, optD, optG, *ex.batch(rng, args, dev)))
+            for _ in range(DCGAN_TWIN_STEPS)]).cpu())
+        out.append((losses, {n: b.cpu() for m in (netD, netG)
+                             for n, b in m.named_buffers(prefix=type(m)
+                                                         .__name__)},
+                    counts))
+    (lk, bk, ck), (lp, bp, cp) = out
+    expect = {k: v * DCGAN_TWIN_STEPS for k, v in DCGAN_PER_ITER.items()}
+    _check_counts("legacy-x-twin", {**dict.fromkeys(expect, 0), **ck},
+                  expect)
+    assert not cp, cp
+    loss_rel = float(((lk - lp).abs() / lp.abs()).max())
+    bn_err = max(float((bk[n].float() - bp[n].float()).abs().max())
+                 for n in bk if not n.endswith("num_batches_tracked"))
+    assert all(int(bk[n]) == int(bp[n]) for n in bk
+               if n.endswith("num_batches_tracked"))
+    assert loss_rel <= DCGAN_TWIN_TOL and bn_err <= DCGAN_TWIN_TOL, \
+        (loss_rel, bn_err)
+    log(f"[legacy-x] fp32 twin {DCGAN_TWIN}, {DCGAN_TWIN_STEPS} iterations: "
+        f"card against CPU, losses within rel {loss_rel:.3e}, BatchNorm "
+        f"running statistics within {bn_err:.3e} (bound {DCGAN_TWIN_TOL}), "
+        f"their counts equal")
+    return {"loss_rel": loss_rel, "bn_err": bn_err}, ck
+
+
+class _ByteMLSTM(torch.nn.Module):
+    """The byte model of Radford et al. 2017: a 256 -> 64 byte embedding,
+    one mLSTM layer of 4096 units, a 4096 -> 256 decoder."""
+
+    def __init__(self, device, seed=SEED):
+        super().__init__()
+        from apex_tpu_torch import RNN, nn
+        g = torch.Generator().manual_seed(seed)
+        self.embed = nn.Embedding(256, MLSTM_WIDTH, init_std=0.1,
+                                  device=device, generator=g)
+        self.rnn = RNN.mLSTM(MLSTM_WIDTH, MLSTM_HIDDEN, device=device,
+                             generator=g)
+        self.head = nn.Linear(MLSTM_HIDDEN, 256, device=device, generator=g)
+
+    def forward(self, ids):
+        out, _ = self.rnn(self.embed(ids))
+        return self.head(out)
+
+
+def _byte_loss(model, ids):
+    """Next-byte cross entropy over (T + 1, B) ids."""
+    from apex_tpu_torch.nn import functional as F
+    logits = model(ids[:-1]).float()
+    return F.cross_entropy(logits.reshape(-1, 256), ids[1:].reshape(-1))
+
+
+def _mlstm_state(opt):
+    st = opt._inner_state
+    return [opt.masters.clone(), opt._half.clone(), st.m.clone(),
+            st.v.clone(), st.step.clone()]
+
+
+def _mlstm_put(opt, snap):
+    st = opt._inner_state
+    for t, s in zip([opt.masters, opt._half, st.m, st.v, st.step], snap):
+        t.copy_(s)
+
+
+class _PlainOps:
+    """The optimizer kernels' plain versions in place of the wrappers, on
+    the card, while the block runs."""
+
+    def __enter__(self):
+        from apex_tpu_torch import ops
+        from apex_tpu_torch.ops import adam as adam_mod
+        from apex_tpu_torch.ops import multi_tensor as mt
+        self.ops = ops
+        self.saved = {k: getattr(ops, k) for k in
+                      ("multi_tensor_scale", "multi_tensor_l2norm",
+                       "fused_adam")}
+        ops.multi_tensor_scale = lambda x, s, out=None: mt._scale_plain(
+            x, mt.as_scalar(s, x), torch.empty_like(x) if out is None
+            else out)
+        ops.multi_tensor_l2norm = mt._l2norm_plain
+        ops.fused_adam = (lambda *a, half=None, noop=None:
+                          adam_mod._adam_plain(*a, half, noop))
+
+    def __exit__(self, *exc):
+        for k, f in self.saved.items():
+            setattr(self.ops, k, f)
+
+
+def _mlstm(smi):
+    """(y): the mLSTM at Radford et al.'s width, half by network_to_half,
+    under the legacy FP16_Optimizer(FusedAdam(lr 5e-4), dynamic scale),
+    random bytes from seed 0 at 128 x 256: MLSTM_STEPS steps with
+    clip_master_grads, counted; one update through the kernels against
+    the same update through their plain versions from one state; an inf
+    skipped; state_dict into a fresh optimizer and the next step bitwise.
+    Returns the numbers, the counts and the flat length."""
+    from apex_tpu_torch import fp16_utils, optimizers
+    dev = torch.device(DEVICE)
+    floor = _mem_floor()
+    torch.cuda.reset_peak_memory_stats()
+
+    def make(seed=SEED):
+        model = fp16_utils.network_to_half(_ByteMLSTM(dev, seed))
+        opt = fp16_utils.FP16_Optimizer(
+            optimizers.FusedAdam(lr=MLSTM_LR), dynamic_loss_scale=True,
+            verbose=False)
+        opt.setup(model)
+        return model, opt
+
+    model, opt = make()
+    n = opt.masters.numel()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = [torch.randint(0, 256, (MLSTM_SEQ + 1, MLSTM_BATCH),
+                             generator=gen, device=dev)
+               for _ in range(MLSTM_STEPS + 2)]
+
+    def step(ids):
+        loss = _byte_loss(model, ids)
+        opt.backward(loss)
+        norm = opt.clip_master_grads(MLSTM_CLIP)
+        opt.step()
+        return loss.detach(), norm
+
+    def run():
+        out = []
+        for ids in batches[:MLSTM_STEPS]:
+            out.append(torch.stack(step(ids)))
+        return torch.stack(out)
+
+    t0 = time.perf_counter()
+    res, counts = _counted(run)
+    ms = (time.perf_counter() - t0) * 1e3 / MLSTM_STEPS
+    expect = {k: v * MLSTM_STEPS for k, v in MLSTM_PER_STEP.items()}
+    _check_counts("legacy-y", {**dict.fromkeys(expect, 0), **counts},
+                  expect)
+    losses, norms = res[:, 0].tolist(), res[:, 1].tolist()
+    assert all(math.isfinite(v) for v in losses + norms), res
+    assert abs(losses[0] - math.log(256)) < 0.05, losses[0]
+    peak = torch.cuda.max_memory_allocated() - floor
+    tok_s = MLSTM_BATCH * MLSTM_SEQ / ms * 1e3
+    by_cat = phase_profile(lambda: step(batches[0]), ms, "legacy-y-profile",
+                           steps=1)
+    log(f"[legacy-y] mLSTM {MLSTM_WIDTH} -> {MLSTM_HIDDEN} fp16 ({n} "
+        f"parameters) under the legacy FP16_Optimizer(FusedAdam) at "
+        f"{MLSTM_BATCH} x {MLSTM_SEQ} bytes ({smi}): losses {losses} "
+        f"(ln 256 = {math.log(256):.4f}), grad norms before the clip "
+        f"{norms}; {ms:.1f} ms a step ({tok_s:.0f} bytes/s), peak {peak} B "
+        f"({peak / 2**30:.2f} GiB); launches {counts}")
+    # one update through the kernels and through the plain versions
+    ids = batches[MLSTM_STEPS]
+    opt.backward(_byte_loss(model, ids))
+    snap, grads = _mlstm_state(opt), opt._master_grads.clone()
+    scaler = opt._scaler_state
+    nk = opt.clip_master_grads(MLSTM_CLIP)
+    opt.step()
+    after_k = _mlstm_state(opt)
+    _mlstm_put(opt, snap)
+    opt._master_grads, opt._scaler_state = grads, scaler
+    with _PlainOps():
+        np_ = opt.clip_master_grads(MLSTM_CLIP)
+        opt.step()
+    after_p = _mlstm_state(opt)
+    norm_rel = abs(float(nk) - float(np_)) / float(np_)
+    assert norm_rel <= 1e-6, (float(nk), float(np_))
+    assert float(np_) > MLSTM_CLIP, "the clip did not act"
+    # the l2norm sums its fp32 squares in another order than torch.sum:
+    # within rel 1e-6 (asserted), which moves the clip coefficient by as
+    # much; Adam's update m / (sqrt(v) + eps) is invariant to a common
+    # scale of the grads but for eps, so the masters part by at most that
+    # relative amount of lr, plus one rounding of the new master
+    bound = MLSTM_LR * 1e-5 + 2.0 ** -23 * float(after_p[0].abs().max())
+    err = float((after_k[0] - after_p[0]).abs().max())
+    assert err <= bound, (err, bound)
+    assert same(after_k[4], after_p[4])
+    log(f"[legacy-y] one update from one state, kernels against plain "
+        f"versions: grad norm rel {norm_rel:.3e}, masters within {err:.3e} "
+        f"(bound {bound:.3e}), m within "
+        f"{max_abs(after_k[2], after_p[2]):.3e}")
+    _mlstm_put(opt, after_k)
+    # an inf: the step is skipped, the scale halves
+    snap, scale = _mlstm_state(opt), opt.loss_scale
+    opt.backward(_byte_loss(model, ids) * float("inf"))
+    assert opt.overflow
+    opt.step()
+    assert all(same(a, b) for a, b in zip(snap, _mlstm_state(opt)))
+    assert opt.loss_scale == scale / 2, (opt.loss_scale, scale)
+    # the checkpoint into a fresh optimizer, then the next step on both
+    model2, opt2 = make(SEED + 1)
+    opt2.load_state_dict(opt.state_dict())
+    assert all(same(a, b) for a, b in zip(_mlstm_state(opt),
+                                          _mlstm_state(opt2)))
+    assert all(same(a, b) for a, b in zip(model.parameters(),
+                                          model2.parameters()))
+    for m, o in ((model, opt), (model2, opt2)):
+        o.backward(_byte_loss(m, batches[-1]))
+        o.clip_master_grads(MLSTM_CLIP)
+        o.step()
+    assert all(same(a, b) for a, b in zip(_mlstm_state(opt),
+                                          _mlstm_state(opt2)))
+    log(f"[legacy-y] an inf skipped the step (masters, half copy, m, v, "
+        f"step bitwise; scale {scale} -> {opt.loss_scale}); state_dict into "
+        f"a fresh optimizer and its next step bitwise")
+    del model, opt, model2, opt2, batches
+    _mem_floor()
+    return ({"losses": losses, "grad_norms": norms, "step_ms": ms,
+             "device_ms_by_category": by_cat,
+             "bytes_per_s": tok_s, "peak_bytes": peak, "n": n,
+             "norm_rel": norm_rel, "master_err": err, "master_bound": bound},
+            counts, n)
+
+
+def _rnn_twins():
+    """LSTM, GRU, ReLU, Tanh and a 2-layer bidirectional LSTM at RNN_TWIN
+    in fp32: output, final state and grads on the card against the CPU
+    from the same weights, within RNN_TWIN_TOL (the GEMMs sum in other
+    orders; TF32 is off)."""
+    from apex_tpu_torch import RNN
+    T, B, F, H = RNN_TWIN
+    x = torch.randn(T, B, F, generator=torch.Generator().manual_seed(SEED))
+    worst = {}
+    for name, kw in (("LSTM", {}), ("GRU", {}), ("ReLU", {}), ("Tanh", {}),
+                     ("LSTM", dict(num_layers=2, bidirectional=True))):
+        res = []
+        for dev in (torch.device(DEVICE), torch.device("cpu")):
+            m = getattr(RNN, name)(F, H, device=dev, generator=torch
+                                   .Generator().manual_seed(SEED), **kw)
+            xi = x.to(dev, copy=True).requires_grad_()
+            out, h = m(xi)
+            leaves = [out] + [t for part in h for t in
+                              (part if isinstance(part, (list, tuple))
+                               else [part])]
+            leaves = [t for l in leaves for t in
+                      (l if isinstance(l, (list, tuple)) else [l])]
+            sum((t.float() ** 2).sum() for t in leaves).backward()
+            res.append([t.detach().cpu() for t in leaves]
+                       + [xi.grad.cpu()]
+                       + [p.grad.cpu() for p in m.parameters()])
+        tag = name + ("-bi2" if kw else "")
+        worst[tag] = 0.0
+        for a, b in zip(*res):
+            torch.testing.assert_close(a, b, **RNN_TWIN_TOL)
+            worst[tag] = max(worst[tag], max_abs(a, b))
+    log(f"[legacy-y] RNN twins at (T, B, F, H) = {RNN_TWIN} fp32, card "
+        f"against CPU: outputs, states and grads within {RNN_TWIN_TOL}; "
+        f"max abs err {worst}")
+    return worst
+
+
+def _legacy_handle():
+    """amp.init() with wrap_optimizer(num_loss=2): two steps of two losses
+    on the card; amp.init(enabled=False) passes through.  Leaves
+    NoPolicy."""
+    import warnings
+    from apex_tpu_torch import amp, nn, optimizers
+    dev = torch.device(DEVICE)
+    g = torch.Generator().manual_seed(SEED)
+    model = torch.nn.Sequential(nn.Linear(64, 64, device=dev, generator=g),
+                                nn.ReLU(),
+                                nn.Linear(64, 8, device=dev, generator=g))
+    model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-3),
+                                opt_level="O2", half_dtype="float16",
+                                loss_scale="dynamic", verbosity=0)
+    handle = amp.init(enabled=True, half_dtype=torch.float16)
+    try:
+        assert isinstance(amp.current_policy(), amp.CastPolicy)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            w = handle.wrap_optimizer(opt, num_loss=2)
+        x = torch.randn(16, 64, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED))
+        before = model[0].weight.detach().clone()
+        for _ in range(2):
+            for k in (1.0, 0.5):
+                with handle.scale_loss(model(x).float().pow(2).mean() * k,
+                                       w) as scaled:
+                    scaled.backward()
+            w.step()
+        moved = max_abs(model[0].weight, before)
+        stats = amp.amp_stats(opt)
+        assert moved > 0 and stats["num_losses"] == 2, stats
+        noop = amp.init(enabled=False)
+        loss = torch.ones((), device=dev)
+        with noop.scale_loss(loss, w) as out:
+            assert out is loss
+    finally:
+        handle._deactivate()
+    assert isinstance(amp.current_policy(), amp.NoPolicy)
+    log(f"[legacy] amp.init() handle, OptimWrapper(num_loss=2): two steps "
+        f"of two losses, weights moved {moved:.3e}, scales "
+        f"{[d['loss_scale'] for d in stats['per_loss']]}; the no-op handle "
+        f"passed through; NoPolicy restored")
+    return {"moved": moved, "scales": [d["loss_scale"]
+                                       for d in stats["per_loss"]]}
+
+
+def _shims():
+    """multi_tensor_applier(multi_tensor_scale, ...) launches the scale
+    kernel once; _native.flatten/unflatten round-trip bitwise."""
+    from apex_tpu_torch import _native
+    from apex_tpu_torch import multi_tensor_apply as mta
+    dev = torch.device(DEVICE)
+    xs = [torch.randn(n, device=dev) for n in (5, 1000, 3)]
+    (out, found), counts = _counted(
+        lambda: mta.multi_tensor_applier(mta.multi_tensor_scale, [xs], 0.5))
+    assert counts == {"multi_tensor_scale": 1}, counts
+    assert all(same(o, x * 0.5) for o, x in zip(out, xs))
+    assert float(found) == 0.0
+    arrays = [np.random.RandomState(i).randn(*s).astype(np.float32)
+              for i, s in enumerate(((3, 5), (7,), (0,), (2, 2, 2)))]
+    flat = _native.flatten(arrays)
+    back = _native.unflatten(flat, arrays)
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(arrays, back))
+    log(f"[legacy] multi_tensor_applier(multi_tensor_scale): one scale "
+        f"launch; _native.flatten/unflatten bitwise (library "
+        f"{_native.available()}); plan_buckets "
+        f"{_native.plan_buckets([10] * 5, 25).tolist()}")
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _dcgan_tree(netD, netG, optD, optG):
+    from apex_tpu_torch import amp
+    return {"netD": netD.state_dict(), "netG": netG.state_dict(),
+            "optD": optD.state_dict(), "optG": optG.state_dict(),
+            "amp": amp.state_dict([optD, optG])}
+
+
+def _dcgan_checkpoint(ex, run, ck):
+    """(z): the whole DCGAN state of (x)'s O1 run through
+    utils.checkpoint_orbax, sync and async, restored in place into a fresh
+    pair: every tensor bitwise; the next iteration on both bitwise; a torn
+    save refused; keep pruning."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.utils import checkpoint_orbax as co
+    args = ex.parse_args([])
+    netD, netG, optD, optG = (run[k] for k in ("netD", "netG", "optD",
+                                               "optG"))
+    saved = _dcgan_tree(netD, netG, optD, optG)
+    t0 = time.perf_counter()
+    co.save_checkpoint(ck, 1, saved)        # the first: DCP's set-up too
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    co.save_checkpoint(ck, 2, saved, async_save=True)
+    staged_ms = (time.perf_counter() - t0) * 1e3
+    co.wait()
+    async_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    co.save_checkpoint(ck, 3, saved)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(saved))
+    fresh = ex.build(ex.parse_args(["--seed", "1"]), torch.device(DEVICE))
+    amp.set_policy(amp.NoPolicy())
+    for step in (1, 2):
+        t0 = time.perf_counter()
+        back = co.restore_checkpoint(ck, _dcgan_tree(*fresh), step=step)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        assert all(same(a, b) for a, b in zip(_tensors(back),
+                                              _tensors(saved)))
+    # the next iteration, uninterrupted and restored, under O1's policy
+    rng = np.random.RandomState(SEED + 7)
+    real, z = ex.batch(rng, args, torch.device(DEVICE))
+    amp.set_policy(amp.CastPolicy(torch.bfloat16))
+    try:
+        with _deterministic():
+            la = ex.train_step(netD, netG, optD, optG, real, z)
+            lb = ex.train_step(*fresh, real, z)
+    finally:
+        amp.set_policy(amp.NoPolicy())
+    after = _tensors(_dcgan_tree(netD, netG, optD, optG))
+    assert all(same(a, b) for a, b in zip(la, lb))
+    assert all(same(a, b) for a, b in zip(
+        after, _tensors(_dcgan_tree(*fresh))))
+    # a torn save: the marker without the sidecar
+    path = co.save_checkpoint(ck, 4, saved)
+    os.unlink(os.path.join(path, "_apex_checksum.json"))
+    with open(os.path.join(ck, "_apex_pending_step_4.json"), "w") as f:
+        f.write('{"step": 4}')
+    try:
+        co.restore_checkpoint(ck, _dcgan_tree(*fresh), step=4)
+        raise AssertionError("a torn save restored")
+    except co.CheckpointCorrupt:
+        pass
+    co.save_checkpoint(ck, 5, saved, keep=2)
+    assert co.available_steps(ck) == [4, 5], co.available_steps(ck)
+    log(f"[legacy-z] DCGAN's whole state ({len(after)} tensors, {nbytes} "
+        f"B: both models with their BatchNorm buffers, both AmpOptimizers, "
+        f"amp.state_dict) through checkpoint_orbax: the first sync save "
+        f"{cold_ms:.1f} ms (DCP's set-up too), a later one {sync_ms:.1f} "
+        f"ms, async staged in {staged_ms:.1f} ms and durable "
+        f"at the join in {async_ms:.1f} ms, restore {restore_ms:.1f} ms; "
+        f"restored bitwise, the next iteration bitwise the uninterrupted "
+        f"one (losses {[float(v) for v in la]}); a torn save refused; keep "
+        f"pruned to [4, 5]")
+    return {"bytes": nbytes, "first_sync_save_ms": cold_ms,
+            "sync_save_ms": sync_ms,
+            "async_staged_ms": staged_ms, "async_durable_ms": async_ms,
+            "restore_ms": restore_ms}
+
+
+def _zero_resume(tmp):
+    """(z): examples/imagenet/main_amp_torch.py --zero --checkpoint-dir on
+    a one-rank NCCL group (the example makes it), resnet18 at batch
+    BATCH: three epochs of 3 iterations uninterrupted; the epoch-2
+    checkpoint alone resumed for the third.  The third epoch's losses and
+    the epoch-3 checkpoints bitwise."""
+    import shutil
+    from apex_tpu_torch.utils import checkpoint as ckpt
+    example = _example()
+    ck, ck2 = os.path.join(tmp, "zero"), os.path.join(tmp, "zero2")
+    with _deterministic():
+        _, counts, _, _, whole = _run_example(
+            example, "legacy-zero", ZERO_RESUME_ARGV + [
+                "--epochs", "3", "--checkpoint-dir", ck])
+        assert ckpt.available_steps(ck) == [1, 2, 3]
+        os.makedirs(ck2)
+        name = os.path.basename(ckpt._path(ck, 2))
+        shutil.copy(os.path.join(ck, name), os.path.join(ck2, name))
+        _, counts_r, text, _, third = _run_example(
+            example, "legacy-zero-resume", ZERO_RESUME_ARGV + [
+                "--epochs", "3", "--checkpoint-dir", ck2, "--resume"])
+    assert "resumed from epoch 2" in text
+    assert third == whole[6:], (third, whole)
+    with np.load(ckpt._path(ck, 3)) as a, np.load(ckpt._path(ck2, 3)) as b:
+        keys = sorted(a.files)
+        assert keys == sorted(b.files)
+        for k in keys:
+            assert a[k].tobytes() == b[k].tobytes(), k
+    expect = {"multi_tensor_scale": EXAMPLE_WARMUP + 9,
+              "fused_adam": EXAMPLE_WARMUP + 9,
+              "syncbn_fwd": BN_OF["resnet18"] * (EXAMPLE_WARMUP + 9),
+              "syncbn_bwd": BN_OF["resnet18"] * (EXAMPLE_WARMUP + 9)}
+    _check_counts("legacy-zero", counts, expect)
+    log(f"[legacy-z] --zero --checkpoint-dir: 3 epochs of 3 iterations, "
+        f"then the epoch-2 checkpoint resumed: the third epoch's losses "
+        f"{third} bitwise the uninterrupted run's, the epoch-3 checkpoints "
+        f"bitwise ({len(keys)} arrays)")
+    return {"third_epoch_losses": third, "arrays": len(keys)}
+
+
+def _legacy_rows(counts_x, counts_twin, counts_y, n_mlstm, run):
+    """The "kernels_legacy" line: scale and Adam without the half copy at
+    G's and D's flat lengths (O1), scale, l2norm and Adam with the fp16
+    copy at the mLSTM's, the syncbn forward and backward at DCGAN's 7
+    BatchNorm shapes (batch 64) in bf16 (O1, O2) and fp32 (the twin),
+    each against its plain version, then timed."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import adam as adam_mod
+    from apex_tpu_torch.ops import multi_tensor as mt
+    from apex_tpu_torch.ops import syncbn as sbn
+    dev = torch.device(DEVICE)
+    rows = {}
+    lengths = {"G": run["optG"].masters.layout.total,
+               "D": run["optD"].masters.layout.total,
+               "mLSTM": n_mlstm}
+    for tag, n in lengths.items():
+        gen = torch.Generator(device=dev).manual_seed(SEED + 220)
+        x = torch.randn(n, generator=gen, device=dev)
+        g = torch.randn(n, generator=gen, device=dev) * 1024.0
+        m0 = torch.randn(n, generator=gen, device=dev).abs() * 0.1
+        v0 = torch.randn(n, generator=gen, device=dev).abs() * 0.01
+        s = torch.full((), 1.0 / 65536.0, device=dev)
+        out = torch.empty_like(x)
+        err = {}
+        ok, fk = ops.multi_tensor_scale(x, s, out=out)
+        op, fp = mt._scale_plain(x, s, torch.empty_like(x))
+        assert same(ok, op) and float(fk) == float(fp) == 0.0, tag
+        err["multi_tensor_scale"] = max_abs(ok, op)
+        del op
+        half = (torch.empty(n, dtype=torch.float16, device=dev)
+                if tag == "mLSTM" else None)
+        ss = torch.full((), 5e-4, device=dev)
+        inv = torch.full((), 1.0 / 1024.0, device=dev)
+        args = (0.9, 0.999, 1e-8, False, 0.0)
+        bk = [t.clone() for t in (x, m0, v0)]
+        bp = [t.clone() for t in (x, m0, v0)]
+        hk = None if half is None else torch.empty_like(half)
+        hp = None if half is None else torch.empty_like(half)
+        ops.fused_adam(*bk, g, ss, inv, *args, half=hk)
+        adam_mod._adam_plain(*bp, g, ss, inv, *args, hp, None)
+        for a, b in zip(bk + ([hk] if hk is not None else []),
+                        bp + ([hp] if hp is not None else [])):
+            assert same(a, b), f"[legacy] adam {tag}: kernel != plain"
+        err["fused_adam"] = max(max_abs(a, b) for a, b in zip(bk, bp))
+        del bk, bp, hk, hp
+        pl = torch.nn.Parameter(x.clone())
+        pl.grad = g.clone()
+        lib_adam = torch.optim.Adam([pl], lr=5e-4, fused=True,
+                                    capturable=True)
+        timing = {
+            f"multi_tensor_scale:{tag}": (
+                8 * n, 0, lambda: ops.multi_tensor_scale(x, s, out=out),
+                lambda: mt._scale_plain(x, s, out), lambda: torch.mul(x, s)),
+            f"fused_adam:{tag}": (
+                (30 if half is not None else 28) * n, 0,
+                lambda: ops.fused_adam(x, m0, v0, g, ss, inv, *args,
+                                       half=half),
+                lambda: adam_mod._adam_plain(x, m0, v0, g, ss, inv, *args,
+                                             half, None),
+                lib_adam.step)}
+        if tag == "mLSTM":
+            nk, np_ = ops.multi_tensor_l2norm(x), mt._l2norm_plain(x)
+            assert abs(float(nk) - float(np_)) <= 1e-6 * float(np_)
+            err["multi_tensor_l2norm"] = abs(float(nk) - float(np_))
+            timing[f"multi_tensor_l2norm:{tag}"] = (
+                4 * n, 0, lambda: ops.multi_tensor_l2norm(x),
+                lambda: mt._l2norm_plain(x),
+                lambda: torch.linalg.vector_norm(x))
+        per = (f"n = {n} fp32 (the mLSTM's, fp16 copy), one call a step"
+               if tag == "mLSTM" else
+               f"n = {n} fp32 (DCGAN's {tag} at O1, no half copy), one "
+               f"call an iteration")
+        rows.update(_time_rows(timing, err, per, plain_graph=(2, 5)))
+        del timing, lib_adam, pl, x, g, m0, v0, out, half
+        _mem_floor()
+    # syncbn at DCGAN's BatchNorm shapes, one forward and one backward a
+    # layer summed over the 7 layers
+    shapes = _dcgan_bn_shapes()
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                   "call_ms": 0.0, "bytes": 0, "err": 0.0}
+               for k in ("syncbn_fwd", "syncbn_bwd")}
+        ratio = 0.0
+        for i, shape in enumerate(shapes):
+            (x, dy, mean, inv, w, b), errs, rat = _bn_check(
+                shape, dtype, SEED + 230 + i)
+            ratio = max(ratio, rat["kernel"], rat["plain"])
+            B_, C, H, W = shape
+            nel, isz = x.numel(), x.element_size()
+            count = torch.full((1,), B_ * H * W, dtype=torch.int32,
+                               device=dev)
+            for key, e, nbytes, kern, plain, lib in (
+                    ("syncbn_fwd", errs[0], 2 * nel * isz + 4 * C * 4,
+                     lambda: ops.syncbn_fwd(x, mean, inv, w, b),
+                     lambda: sbn._fwd_plain(x, mean, inv, w, b),
+                     lambda: torch.batch_norm_elemt(x, w, b, mean, inv,
+                                                    1e-5)),
+                    ("syncbn_bwd", errs[1],
+                     3 * nel * isz + 3 * C * 4 + 2 * B_ * C * 4,
+                     lambda: ops.syncbn_bwd(dy, x, mean, inv, w),
+                     lambda: sbn._bwd_plain(dy, x, mean, inv, w),
+                     lambda: _lib_bn_bwd(dy, x, mean, inv, w, count))):
+                t = tot[key]
+                t["ms"] += graph_ms(kern)
+                t["plain_ms"] += graph_ms(plain)
+                t["library_ms"] += graph_ms(lib)
+                t["call_ms"] += time_ms(kern)
+                t["bytes"] += nbytes
+                t["err"] = max(t["err"], e)
+            del x, dy
+        launches = counts_twin if dtype == torch.float32 else counts_x
+        for key, t in tot.items():
+            bound = t["bytes"] / MEM_BYTES_PER_S * 1e3
+            rows[f"{key}:{tag}"] = {
+                "name": key, "route": "cuda", "source": SOURCE[key],
+                "replaces": REPLACES[key], "launches": launches[key],
+                "max_abs_err": t["err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": bound,
+                "bound_by": "bytes", "library_ms": t["library_ms"],
+                "call_ms": t["call_ms"], "bytes": t["bytes"],
+                "row_sum_bound_ratio": ratio,
+                "per": f"DCGAN's 7 BatchNorm layers at batch 64 ({tag}), "
+                       f"one call each: {shapes}"}
+            log(f"[legacy] {key}:{tag} over the 7 layers: kernel_ms "
+                f"{t['ms']:.4f} bound_ms {bound:.4f} plain_ms "
+                f"{t['plain_ms']:.4f} library_ms {t['library_ms']:.4f}; "
+                f"eager calls {t['call_ms']:.4f}; y and dx bitwise, row "
+                f"sums within {ratio:.3e} of their bound")
+    out = []
+    for key, row in rows.items():
+        row["variant"] = key
+        tag = key.split(":")[1]
+        if tag == "mLSTM":
+            row["launches"] = counts_y[row["name"]]
+        elif tag in ("G", "D"):
+            # an iteration steps each of the two optimizers once
+            row["launches"] = counts_x[row["name"]] // 2
+        out.append(row)
+    return out
+
+
+def _dcgan_bn_shapes():
+    """(B, C, H, W) of DCGAN's 7 BatchNorm inputs at batch 64 (G's four,
+    then D's three), read off one forward on the CPU."""
+    from apex_tpu_torch import models, nn
+    g, d = models.dcgan(generator=torch.Generator().manual_seed(SEED))
+    shapes = []
+    for m in list(g.modules()) + list(d.modules()):
+        if isinstance(m, nn.BatchNorm2d):
+            m.register_forward_pre_hook(
+                lambda mod, a: shapes.append((64,) + tuple(a[0].shape[1:])))
+    with torch.no_grad():
+        d(g(torch.zeros(1, 100, 1, 1)))
+    assert len(shapes) == 7, shapes
+    return shapes
+
+
+def phase_legacy(smi):
+    """Phase 22: the Apex legacy surface and the sharded checkpoint: (x)
+    DCGAN, (y) the mLSTM under the legacy FP16_Optimizer and the RNN
+    twins, the legacy amp handle and the shims, (z) checkpoints; the
+    "kernels_legacy" line.  Leaves amp.policy at NoPolicy."""
+    import tempfile
+    from apex_tpu_torch import amp
+    t0 = time.time()
+    ex = _dcgan_example()
+    results = {}
+    try:
+        run, counts_x, results["x_o1"] = _dcgan_run(ex, "O1", [],
+                                                    DCGAN_ITERS)
+        _, _, results["x_o2"] = _dcgan_run(ex, "O2", ["--opt-level", "O2"],
+                                           DCGAN_O2_ITERS)
+        results["x_twin"], counts_twin = _dcgan_twin(ex)
+        log(f"[time] legacy (x) in {time.time() - t0:.1f} s")
+        results["y"], counts_y, n_mlstm = _mlstm(smi)
+        results["y_rnn"] = _rnn_twins()
+        log(f"[time] legacy (y) in {time.time() - t0:.1f} s")
+        results["handle"] = _legacy_handle()
+        _shims()
+        with tempfile.TemporaryDirectory() as tmp:
+            results["z_dcgan"] = _dcgan_checkpoint(
+                ex, run, os.path.join(tmp, "dcgan"))
+            results["z_zero"] = _zero_resume(tmp)
+        log(f"[time] legacy (z) in {time.time() - t0:.1f} s")
+        rows = _legacy_rows(counts_x, counts_twin, counts_y, n_mlstm, run)
+        log(f"[time] legacy rows in {time.time() - t0:.1f} s")
+    finally:
+        amp.set_policy(amp.NoPolicy())
+    del run
+    _mem_floor()
+    results["card"] = smi
+    results["seconds"] = time.time() - t0
+    log("legacy " + json.dumps(results, default=str))
+    return rows, results
+
+
 def _check_counts(tag: str, counts, expect) -> None:
     """Each wrapper launched exactly as often as the path needs it, and the
     wrappers of other paths not at all."""
@@ -6411,6 +7198,8 @@ def main():
     log(f"[time] phase 20 done at {time.time() - t0:.1f} s")
     sp_rows, _ = phase_sp_pp(smi)
     log(f"[time] phase 21 done at {time.time() - t0:.1f} s")
+    legacy_rows, _ = phase_legacy(smi)
+    log(f"[time] phase 22 done at {time.time() - t0:.1f} s")
 
     _check_counts("train", counts_train, RESNET_COUNTS)
     _check_counts("ddp", counts_ddp, RESNET_COUNTS)
@@ -6452,6 +7241,7 @@ def main():
     log("kernels_dp " + json.dumps({"kernels": list(dp_rows.values())}))
     log("kernels_mp " + json.dumps({"kernels": mp_rows}))
     log("kernels_sp " + json.dumps({"kernels": sp_rows}))
+    log("kernels_legacy " + json.dumps({"kernels": legacy_rows}))
     log(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
@@ -6506,6 +7296,12 @@ if __name__ == "__main__":
         phase_build()
         sp_rows, _ = phase_sp_pp(smi)
         log("kernels_sp " + json.dumps({"kernels": sp_rows}))
+    elif sys.argv[1:2] == ["--legacy"]:
+        # python3 chip_smoke.py --legacy: phases 1, 2 and 22 alone
+        _, smi = phase_device()
+        phase_build()
+        legacy_rows, _ = phase_legacy(smi)
+        log("kernels_legacy " + json.dumps({"kernels": legacy_rows}))
     elif sys.argv[1:2] == ["--layer-norm-ab"]:
         # python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
         phase_device()

@@ -24,7 +24,14 @@ Two ranks:
 ``--zero`` shards the masters and the moments over the ranks (ZeRO-1,
 ``AmpOptimizer.zero_shard``; main_amp.py:227-250): the step reduces its
 own grads (a reduce-scatter), so the data-parallel all-reduce is skipped.
-Unlaunched, a group of one rank is made for it.
+Unlaunched, a group of one rank is made for it.  Its checkpoint holds
+what the JAX example's holds, whole arrays: every rank gathers its
+optimizer windows and rank 0 writes them through utils/checkpoint.py;
+``--resume`` gives each rank its window back, at any world size.
+
+A resume loads the checkpoint after the warm-up steps, in place (the
+captured graph keeps its buffers), so the resumed run continues exactly
+where the saved one stopped.
 
 ``main(argv)`` runs in process and returns the mean img/s.
 """
@@ -111,18 +118,80 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _gather_window(optimizer, t):
+    """A ZeRO window of every rank gathered, cut to the unpadded length."""
+    z = optimizer._zero
+    whole = t.new_empty(z.padded)
+    dist.all_gather_into_tensor(whole, t.contiguous())
+    return whole[:optimizer.masters.layout.total]
+
+
+def optimizer_state(optimizer):
+    """The optimizer's state dict with whole arrays: under ZeRO every
+    rank's windows gathered (a collective: every rank calls it)."""
+    sd = optimizer.state_dict()
+    z = optimizer._zero
+    if z is None:
+        return sd
+
+    def whole(v):
+        if isinstance(v, dict):
+            return {k: whole(x) for k, x in v.items()}
+        if isinstance(v, torch.Tensor) and v.dim() == 1 \
+                and v.numel() == z.shard_n:
+            return _gather_window(optimizer, v)
+        return v
+    return {"scalers": sd["scalers"], "inner": whole(sd["inner"]),
+            "masters": whole(sd["masters"])}
+
+
+def load_optimizer_state(optimizer, sd):
+    """Load a state dict of whole arrays; under ZeRO each rank takes its
+    window (the end padded with zeros), whatever the world size that
+    saved it."""
+    z = optimizer._zero
+    if z is None:
+        optimizer.load_state_dict(sd)
+        return
+    total = optimizer.masters.layout.total
+
+    def window(v):
+        if isinstance(v, dict):
+            return {k: window(x) for k, x in v.items()}
+        if isinstance(v, torch.Tensor) and v.dim() == 1 \
+                and v.numel() == total:
+            return z.window(torch.cat([v, v.new_zeros(z.padded - total)]))
+        return v
+    optimizer.load_state_dict({"scalers": sd["scalers"],
+                               "inner": window(sd["inner"]),
+                               "masters": window(sd["masters"])})
+
+
 def train_state(model, optimizer):
     """What a checkpoint holds: the model's and the optimizer's state
-    dicts (the optimizer's carries the fp32 masters and the scalers)."""
-    return {"model": model.state_dict(), "optimizer": optimizer.state_dict()}
+    dicts (the optimizer's carries the fp32 masters and the scalers),
+    with whole arrays under ZeRO."""
+    return {"model": model.state_dict(),
+            "optimizer": optimizer_state(optimizer)}
 
 
-def resume_state(ckpt_dir, model, optimizer, stem):
+def resume_state(ckpt_dir, model, optimizer, stem, fresh=None):
     """Load the newest checkpoint of ``ckpt_dir`` into ``model`` and
-    ``optimizer`` and return its epoch (None when there is none).  A
-    conv7 checkpoint loads into a ``space_to_depth`` model through the
-    exact stem conversion, with the optimizer's moments and loss scale
-    left fresh (main_amp.py:294-345)."""
+    ``optimizer`` in place and return its epoch (None when there is
+    none).  Under ZeRO the parameters come from the masters, each rank's
+    window of them, and the model takes its buffers.  A conv7 checkpoint
+    loads into a ``space_to_depth`` model through the exact stem
+    conversion, with the optimizer's moments and loss scale fresh: as it
+    is, or ``fresh`` (a state dict from before any step) loaded
+    (main_amp.py:294-345)."""
     last = ckpt.latest_step(ckpt_dir)
     if last is None:
         return None
@@ -135,8 +204,15 @@ def resume_state(ckpt_dir, model, optimizer, stem):
         # (num_classes, arch) is the user's error
         if stem != "space_to_depth" or "conv1" not in str(e):
             raise
+        if optimizer._zero is not None:
+            raise SystemExit(
+                "resuming a conv7 checkpoint into --stem space_to_depth is "
+                "not supported with --zero; convert it offline with "
+                "models.convert_stem_to_s2d")
         print("=> checkpoint has the conv7 stem; converting (identical "
               "function; optimizer moments and loss scale reset)")
+        if fresh is not None:
+            optimizer.load_state_dict(fresh)
         template = dict(model.state_dict())
         w = template["conv1.weight"]
         template["conv1.weight"] = torch.empty(
@@ -147,17 +223,18 @@ def resume_state(ckpt_dir, model, optimizer, stem):
                                         step=last)
         model.load_state_dict(models.convert_stem_to_s2d(state["model"]))
         return last
-    model.load_state_dict(state["model"])
-    optimizer.load_state_dict(state["optimizer"])
+    if optimizer._zero is None:
+        model.load_state_dict(state["model"])
+    else:
+        with torch.no_grad():
+            for name, buf in model.named_buffers():
+                buf.copy_(state["model"][name])
+    load_optimizer_state(optimizer, state["optimizer"])
     return last
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.zero and args.checkpoint_dir:
-        raise ValueError("--zero with --checkpoint-dir: each rank holds its "
-                         "window of the sharded optimizer state, whose "
-                         "checkpoint is not written yet")
     own_group = not dist.is_initialized()
     if own_group:
         parallel.init_process_group()       # a no-op unless launched
@@ -319,17 +396,11 @@ def _train(args, rank, world):
         say("=> ZeRO-1 optimizer-state sharding over the data ranks")
         optimizer.zero_shard()
 
-    start_epoch = 0
-    if args.checkpoint_dir and args.resume:
-        last = resume_state(args.checkpoint_dir, model, optimizer, args.stem)
-        if last is not None:
-            start_epoch = last
-            say(f"=> resumed from epoch {last} (reference "
-                f"main_amp.py:170-185 resume flow)")
-            if start_epoch >= args.epochs:
-                say(f"=> nothing to do: resumed epoch {start_epoch} >= "
-                    f"--epochs {args.epochs}")
-                return 0.0
+    resuming = (args.checkpoint_dir and args.resume
+                and ckpt.latest_step(args.checkpoint_dir) is not None)
+    # the state before any step, for a resume that converts the stem
+    fresh = (_clone(optimizer.state_dict())
+             if resuming and optimizer._zero is None else None)
 
     def step(batch):
         x, y = batch
@@ -381,6 +452,18 @@ def _train(args, rank, world):
         train_step(to_device(*host_batch(0)))
     say(f"=> warm-up in {time.time() - t0:.1f}s")
 
+    start_epoch = 0
+    if resuming:
+        start_epoch = resume_state(args.checkpoint_dir, model, optimizer,
+                                   args.stem, fresh)
+        del fresh
+        say(f"=> resumed from epoch {start_epoch} (reference "
+            f"main_amp.py:170-185 resume flow)")
+        if start_epoch >= args.epochs:
+            say(f"=> nothing to do: resumed epoch {start_epoch} >= "
+                f"--epochs {args.epochs}")
+            return 0.0
+
     batch_time = AverageMeter()
     losses = AverageMeter()
     top1 = AverageMeter()
@@ -411,9 +494,12 @@ def _train(args, rank, world):
         if val_acc is not None:
             say(f" * Prec@1 {val_acc:.3f}  (epoch {epoch}, {n_val_eval} "
                 f"val images)")
-        if args.checkpoint_dir and rank == 0:
-            ckpt.save_checkpoint(args.checkpoint_dir, epoch + 1,
-                                 train_state(model, optimizer), keep=3)
+        if args.checkpoint_dir:
+            state = train_state(model, optimizer)     # every rank gathers
+            if rank == 0:
+                ckpt.save_checkpoint(args.checkpoint_dir, epoch + 1, state,
+                                     keep=3)
+            del state
     if loader is not None:
         loader.close()
     ips = global_batch / batch_time.avg if batch_time.avg > 0 else 0.0

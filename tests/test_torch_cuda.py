@@ -9,6 +9,8 @@ and no jax it runs without the repository's conftest::
 ``chip_smoke.py`` runs the same comparisons at the main path's sizes.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -2107,3 +2109,183 @@ def test_capture_survives_a_dead_graph_collected_meanwhile(cuda):
     torch.cuda.synchronize()
     assert new.replays == 2
     assert torch.equal(out.cpu(), torch.full((4,), 3.0))
+
+
+# -- the legacy surface and the sharded checkpoint ------------------------------
+
+class _ByteMLSTM(torch.nn.Module):
+    """A byte embedding, an mLSTM and a decoder back to bytes."""
+
+    def __init__(self, device, width=64, hidden=256, seed=0):
+        super().__init__()
+        from apex_tpu_torch import RNN
+        g = torch.Generator().manual_seed(seed)
+        self.embed = nn.Embedding(256, width, device=device, generator=g)
+        self.rnn = RNN.mLSTM(width, hidden, device=device, generator=g)
+        self.head = nn.Linear(hidden, 256, device=device, generator=g)
+
+    def forward(self, ids):
+        out, _ = self.rnn(self.embed(ids))
+        return self.head(out)
+
+
+def _byte_loss(model, ids):
+    from apex_tpu_torch.nn import functional as F
+    logits = model(ids[:-1]).float()
+    return F.cross_entropy(logits.reshape(-1, 256), ids[1:].reshape(-1))
+
+
+class _PlainOps:
+    """The optimizer kernels' plain versions in place of the kernels, on
+    the card, while the block runs."""
+
+    def __enter__(self):
+        from apex_tpu_torch.ops.multi_tensor import as_scalar
+        self.saved = {k: getattr(ops, k) for k in
+                      ("multi_tensor_scale", "multi_tensor_l2norm",
+                       "fused_adam")}
+        ops.multi_tensor_scale = lambda x, s, out=None: mt._scale_plain(
+            x, as_scalar(s, x), torch.empty_like(x) if out is None else out)
+        ops.multi_tensor_l2norm = mt._l2norm_plain
+        ops.fused_adam = (lambda *a, half=None, noop=None:
+                          adam_mod._adam_plain(*a, half, noop))
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in self.saved.items():
+            setattr(ops, k, f)
+
+
+@pytest.mark.cuda
+def test_legacy_fp16_optimizer_kernels_match_plain(cuda):
+    """The legacy FP16_Optimizer over FusedAdam on a half mLSTM: one step
+    with clip_master_grads through the kernels and the same step through
+    their plain versions, from one state.  The scaled grads and their
+    unscale are bitwise; the l2norm sums in another order (within rel
+    1e-6, its kernel test's bound), which moves the clip coefficient by as
+    much, and Adam's step, normalized by sqrt(v), moves by that relative
+    amount of lr at most: the masters within lr * 1e-5 plus one fp32 ulp of
+    their largest value.  An inf in the loss skips the step: masters,
+    model and moments bitwise, the scale halved."""
+    from apex_tpu_torch import fp16_utils, optimizers
+    ids = torch.randint(0, 256, (33, 8), generator=torch.Generator()
+                        .manual_seed(1)).to(cuda)
+    lr = 1e-3
+    runs = []
+    for plain in (False, True):
+        model = fp16_utils.network_to_half(_ByteMLSTM(cuda))
+        opt = fp16_utils.FP16_Optimizer(optimizers.FusedAdam(lr=lr),
+                                        dynamic_loss_scale=True,
+                                        verbose=False)
+        opt.setup(model)
+        counts = dict(ops.launch_counts())
+        with _PlainOps() if plain else contextlib.nullcontext():
+            opt.backward(_byte_loss(model, ids))
+            norm = opt.clip_master_grads(0.1)
+            grads = opt._master_grads.clone()
+            opt.step()
+        torch.cuda.synchronize()
+        launched = {k: v - counts[k] for k, v in ops.launch_counts().items()
+                    if v != counts[k]}
+        runs.append((model, opt, norm, grads, launched))
+    (mk, ok, nk, gk, lk), (mp, op_, np_, gp, lp) = runs
+    assert lk == {"multi_tensor_scale": 1, "multi_tensor_l2norm": 1,
+                  "fused_adam": 1} and lp == {}
+    assert float(nk) > 0.1       # the clip acted
+    torch.testing.assert_close(nk, np_, rtol=1e-6, atol=0)
+    bound = lr * 1e-5 + 2.0 ** -23 * float(op_.masters.abs().max())
+    assert float((ok.masters - op_.masters).abs().max()) <= bound
+    # the model's half params are the kernel's half output of the masters
+    assert torch.equal(ok._half, ok.masters.half())
+    # an inf: the step skipped
+    state = [ok.masters.clone(), ok._half.clone(),
+             ok._inner_state.m.clone(), ok._inner_state.v.clone()]
+    scale = ok.loss_scale
+    ok.backward(_byte_loss(mk, ids) * float("inf"))
+    assert ok.overflow
+    ok.step()
+    for a, b in zip(state, [ok.masters, ok._half, ok._inner_state.m,
+                            ok._inner_state.v]):
+        assert torch.equal(a, b)
+    assert ok.loss_scale == scale / 2
+
+
+@pytest.mark.cuda
+def test_dcgan_card_matches_cpu(cuda, monkeypatch):
+    """examples/dcgan/main_amp_torch.py's step in fp32 (O0) on the card
+    (the syncbn, scale and Adam kernels) and on the CPU (their plain
+    versions) from the same weights and data, TF32 off: three iterations,
+    the losses within rtol 5e-3 and the BatchNorm running statistics
+    within 5e-3 (Adam's first steps move a weight by about lr = 2e-4 in the
+    sign of its grad, which a grad near zero need not share across cuDNN's
+    and oneDNN's summation orders: 2 lr a step at most), their counts
+    exactly."""
+    import importlib.util
+    import os
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "dcgan",
+        "main_amp_torch.py")
+    spec = importlib.util.spec_from_file_location("dcgan_example", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    args = ex.parse_args(["--opt-level", "O0", "-b", "4", "--ngf", "8",
+                          "--ndf", "8"])
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        netD, netG, optD, optG = ex.build(args, dev)
+        rng = np.random.RandomState(args.seed)
+        before = dict(ops.launch_counts())
+        losses = [torch.stack(ex.train_step(netD, netG, optD, optG,
+                                            *ex.batch(rng, args, dev)))
+                  for _ in range(3)]
+        launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        out.append((torch.stack(losses).cpu(), netD, netG, launched))
+    (lk, dk, gk, ck), (lp, dp, gp, cp) = out
+    assert ck["syncbn_fwd"] == 3 * 17 and ck["syncbn_bwd"] == 3 * 13
+    assert ck["fused_adam"] == ck["multi_tensor_scale"] == 6
+    assert not any(cp.values())
+    torch.testing.assert_close(lk, lp, rtol=5e-3, atol=0)
+    for a, b in ((dk, dp), (gk, gp)):
+        for (n, x), (_, y) in zip(a.named_buffers(), b.named_buffers()):
+            if n.endswith("num_batches_tracked"):
+                assert int(x) == int(y), n
+            else:
+                torch.testing.assert_close(x.cpu(), y, rtol=0, atol=5e-3)
+
+
+@pytest.mark.cuda
+def test_checkpoint_orbax_round_trip_of_a_cuda_state(cuda, nccl_group,
+                                                     tmp_path):
+    """A CUDA amp state (model, optimizer, amp scalers) through
+    utils.checkpoint_orbax on a one-rank NCCL group, sync and async (the
+    async save's collectives on a gloo group made for it), restored in
+    place into fresh CUDA tensors: every tensor bitwise."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.utils import checkpoint_orbax as co
+    trees = []
+    for seed in (0, 1):
+        model, opt = _small_resnet(cuda, seed=seed)
+        x = torch.randn(2, 3, 32, 32, device=cuda)
+        loss, grads = amp.scaled_grad(lambda: model(x).float().mean(), opt)
+        opt.step(grads)
+        trees.append({"model": model.state_dict(),
+                      "optimizer": opt.state_dict(),
+                      "amp": amp.state_dict(opt)})
+    saved, fresh = trees
+    co.save_checkpoint(str(tmp_path), 1, saved)
+    co.save_checkpoint(str(tmp_path), 2, saved, async_save=True)
+    co.wait()
+    for step in (1, 2):
+        back = co.restore_checkpoint(str(tmp_path), fresh, step=step)
+        for a, b in zip(_leaves(back), _leaves(saved)):
+            assert a.device == b.device and torch.equal(a, b)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]

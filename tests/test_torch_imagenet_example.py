@@ -25,6 +25,7 @@ import torch
 from apex_tpu.utils import profiler as jprofiler
 
 from apex_tpu_torch import amp, models, optimizers
+from apex_tpu_torch.utils import checkpoint as ckpt
 from apex_tpu_torch.utils import profiler
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -126,10 +127,10 @@ def test_checkpoint_then_resume_into_space_to_depth(capsys, tmp_path):
 
 
 def test_zero_and_missing_gpu_raise(tmp_path):
-    # --zero runs (tests/test_torch_imagenet_zero.py); its sharded state has
-    # no checkpoint yet
-    with pytest.raises(ValueError, match="checkpoint"):
-        example.main(BASE + ["--zero", "--checkpoint-dir", str(tmp_path)])
+    # --zero runs (tests/test_torch_imagenet_zero.py) and, with
+    # --checkpoint-dir, saves its gathered state (resumed bitwise there)
+    example.main(BASE + ["--zero", "--checkpoint-dir", str(tmp_path)])
+    assert ckpt.available_steps(str(tmp_path)) == [1]
     if not torch.cuda.is_available():
         argv = [a for a in BASE if a not in ("--device", "cpu")]
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -15,10 +15,18 @@ the JAX package's in tests/test_torch_zero.py.  On one rank the
 sharded step's collectives move nothing, so ``--zero`` prints the very
 losses of the unsharded run.  On two gloo ranks at a learning rate that
 moves the loss, ``--zero`` follows the same ranks' DDP run.
+
+``--zero --checkpoint-dir`` on the two gloo ranks: an uninterrupted run
+of three epochs, and a run resumed from its epoch-2 checkpoint, whose
+third epoch prints the same losses and whose epoch-3 checkpoint holds the
+same bits, every array (the whole optimizer state each rank gathered, the
+model); and that two-rank checkpoint given back at world 1 (one window
+of the whole buffer), bitwise.
 """
 
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -29,7 +37,10 @@ import jax
 
 from apex_tpu import models as jmodels
 
-from apex_tpu_torch import models
+import torch
+
+from apex_tpu_torch import amp, models, optimizers, parallel
+from apex_tpu_torch.utils import checkpoint as ckpt
 from apex_tpu_torch.utils.jax_interop import params_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -97,7 +108,7 @@ def test_zero_follows_the_jax_examples_trajectory(capsys, jax_weights):
     assert got == plain
 
 
-def _two_ranks(store, argv):
+def _two_ranks(store, argv, epochs=1):
     proc = subprocess.run(
         [sys.executable, "-m", "apex_tpu_torch.parallel.multiproc",
          "--nprocs", "2", "--init-method", f"file://{store}", EXAMPLE,
@@ -108,7 +119,7 @@ def _two_ranks(store, argv):
     l0 = _losses(proc.stdout, "[rank 0] ")
     l1 = _losses(proc.stdout, "[rank 1] ")
     # each rank prints the loss averaged over the ranks
-    assert len(l0) == 3 and l0 == l1 and np.all(np.isfinite(l0)), \
+    assert len(l0) == 3 * epochs and l0 == l1 and np.all(np.isfinite(l0)), \
         proc.stdout
     return np.array(l0)
 
@@ -128,3 +139,68 @@ def test_zero_on_two_gloo_ranks(tmp_path):
                      [a for a in argv if a != "--zero"])
     assert ddp[0] - ddp[-1] > 1.0
     np.testing.assert_allclose(zero, ddp, rtol=1e-2, atol=5e-3)
+
+
+CK_ARGS = ARGS[:ARGS.index("--lr")] + ["--lr", "1e-3", "--zero"]
+
+
+def _arrays(path):
+    with np.load(path) as f:
+        return dict(f)
+
+
+@pytest.fixture(scope="module")
+def zero_run(tmp_path_factory):
+    """Three epochs on two gloo ranks under ``--zero``, a checkpoint an
+    epoch."""
+    tmp = tmp_path_factory.mktemp("zero_ck")
+    ck = str(tmp / "ck")
+    whole = _two_ranks(tmp / "s1", CK_ARGS + [
+        "--epochs", "3", "--checkpoint-dir", ck], epochs=3)
+    assert ckpt.available_steps(ck) == [1, 2, 3]
+    return whole, ck
+
+
+def test_zero_checkpoint_resumes_bitwise_on_two_gloo_ranks(tmp_path,
+                                                           zero_run):
+    whole, ck = zero_run
+    ck2 = str(tmp_path / "ck2")
+    # the epoch-2 checkpoint alone, resumed for the third epoch
+    os.makedirs(ck2)
+    name = os.path.basename(ckpt._path(ck, 2))
+    shutil.copy(os.path.join(ck, name), os.path.join(ck2, name))
+    third = _two_ranks(tmp_path / "s2", CK_ARGS + [
+        "--epochs", "3", "--checkpoint-dir", ck2, "--resume"])
+    np.testing.assert_array_equal(third, whole[6:])
+    a, b = _arrays(ckpt._path(ck, 3)), _arrays(ckpt._path(ck2, 3))
+    assert a.keys() == b.keys()
+    assert any("['m']" in k for k in a)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_two_rank_zero_checkpoint_resumes_at_world_one(tmp_path,
+                                                       monkeypatch,
+                                                       zero_run):
+    _, ck = zero_run
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME",
+                       os.environ.get("GLOO_SOCKET_IFNAME", "lo"))
+    parallel.init_process_group(init_method=f"file://{tmp_path / 'store'}",
+                                world_size=1, rank=0)
+    try:
+        model, opt = amp.initialize(
+            models.resnet18(device="cpu",
+                            generator=torch.Generator().manual_seed(9)),
+            optimizers.FusedAdam(lr=1e-3), opt_level="O2", verbosity=0)
+        opt.zero_shard()
+        assert example.resume_state(ck, model, opt, "conv7") == 3
+        assert opt.masters.buf.numel() == opt.masters.layout.total
+        got = ckpt._leaf_dict(example.train_state(model, opt))
+    finally:
+        torch.distributed.destroy_process_group()
+        amp.set_policy(amp.NoPolicy())
+    stored = _arrays(ckpt._path(ck, 3))
+    stored.pop("__checksum__")
+    assert got.keys() == stored.keys()
+    for k in stored:
+        np.testing.assert_array_equal(got[k], stored[k], err_msg=k)

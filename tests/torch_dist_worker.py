@@ -1577,9 +1577,65 @@ def _sp(inp, rank, world):
             "example": _sp_example(inp)}
 
 
+# -- suite "dcp" ----------------------------------------------------------------
+
+def _dcp_pair():
+    gen = torch.Generator().manual_seed(5)
+    model = torch.nn.Sequential(nn.Linear(5, 3, device="cpu", generator=gen),
+                                nn.Linear(3, 2, device="cpu", generator=gen))
+    return amp.initialize(model, optimizers.FusedAdam(lr=1e-2),
+                          opt_level="O2", verbosity=0)
+
+
+def _dcp_whole(opt):
+    """The ZeRO windows of the masters and the moments gathered whole."""
+    z, total = opt._zero, opt.masters.layout.total
+    out = {}
+    st = opt.state_dict()
+    for name, t in (("masters", st["masters"]), ("m", st["inner"]["m"]),
+                    ("v", st["inner"]["v"])):
+        whole = t.new_empty(z.padded)
+        torch.distributed.all_gather_into_tensor(whole, t.contiguous(),
+                                                 group=z.group)
+        out[name] = _np(whole[:total])
+    out["step"] = int(st["inner"]["step"])
+    out["loss_scale"] = float(st["scalers"][0]["loss_scale"])
+    return out
+
+
+def _dcp(inp, rank, world):
+    """ZeRO-1 state over the world (windows of ceil(26 / 4) = 7, the last
+    padded by 2) saved through checkpoint_orbax as DTensors, sync and
+    async; read back into a ZeRO-2 layout (two windows of 13 over a
+    (2, 2) mesh, replicated across its rows) and a torn save refused."""
+    from apex_tpu_torch.utils import checkpoint_orbax as co
+    ck = inp["dir"]
+    model, opt = _dcp_pair()
+    opt.zero_shard()
+    x = torch.from_numpy(_half(inp["x"], rank, world))
+    for _ in range(2):
+        loss, grads = amp.scaled_grad(lambda: (model(x) ** 2).mean(), opt)
+        opt.step(grads)
+    out = {"saved": _dcp_whole(opt), "window": opt._zero.shard_n}
+    co.save_checkpoint(ck, 1, co.zero_state(opt))
+    co.save_checkpoint(ck, 2, co.zero_state(opt), async_save=True,
+                       data_state={"cursor": 3})
+    co.wait()
+    model2, opt2 = _dcp_pair()
+    opt2.zero_shard(zero_stage=2, zero_ici_size=2)
+    out["before"] = _dcp_whole(opt2)
+    co.restore_checkpoint(ck, co.zero_state(opt2), step=1)
+    opt2.load_state_dict(opt2.state_dict())     # gathers the parameters
+    out["resharded"] = _dcp_whole(opt2)
+    out["params"] = {n: _np(p) for n, p in model.named_parameters()}
+    out["params2"] = {n: _np(p) for n, p in model2.named_parameters()}
+    out["data_state"] = co.load_data_state(ck, step=2)
+    return out
+
+
 SUITES = {"syncbn": _syncbn, "ddp": _ddp, "make_step": _make_step,
           "wide_ddp": _wide_ddp, "zero": _zero, "tp": _tp, "ep": _ep,
-          "pp": _pp, "sp": _sp}
+          "pp": _pp, "sp": _sp, "dcp": _dcp}
 WORLD = 2
 
 
