@@ -264,6 +264,13 @@ class CapturedFn:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
 
+    @property
+    def may_capture(self) -> bool:
+        """Whether a later call may capture: on the card, not eager, and
+        no graph yet."""
+        return (self.device.type == "cuda" and not self.eager
+                and self.graph is None)
+
     def __call__(self) -> None:
         if self.device.type != "cuda" or self.eager:
             self.fn()

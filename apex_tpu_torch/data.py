@@ -25,9 +25,16 @@ every global batch (the cursor is world-independent), and records that
 ``bad_record_fn`` flags are replaced in-batch by a good one and counted.
 The native ring's shuffle order and rounding are its own, so the state
 protocol raises on a native loader (``num_shards > 1`` and
-``bad_record_fn`` take the Python pipeline).  The JAX package's
-``metrics=`` and ``ring=`` (registry and flight ring of the observability
-plane) are not ported.
+``bad_record_fn`` take the Python pipeline).
+
+Telemetry, as in the JAX package: ``stats()`` reads loader-local metrics
+(the wait in ``next_batch`` as a histogram summary, the batch count);
+the registry given as ``metrics=`` (the process registry by default)
+also gets ``data_load_wait_seconds``, ``data_batches_total``,
+``data_samples_quarantined_total`` and the ``data_samples_consumed``
+gauge, totals across the loaders that share it.  Each quarantined record
+appends a ``data_sample_quarantined`` event to the flight ring given as
+``ring=`` (the process ring by default).
 """
 
 from __future__ import annotations
@@ -39,14 +46,13 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 
 from . import _native
+from .observability import flightrec, get_registry
+from .observability.metrics import Counter, Histogram
 
 __all__ = ["DataLoader", "IMAGENET_MEAN", "IMAGENET_STD"]
 
 IMAGENET_MEAN = (0.485 * 255, 0.456 * 255, 0.406 * 255)
 IMAGENET_STD = (0.229 * 255, 0.224 * 255, 0.225 * 255)
-
-_NOT_PORTED = ("{} belongs to the observability plane, which is not ported "
-               "yet (ROADMAP queue 1 item 9)")
 
 
 class DataLoader:
@@ -63,10 +69,6 @@ class DataLoader:
                  data_format: str = "NCHW", metrics=None,
                  shard_id: int = 0, num_shards: int = 1,
                  bad_record_fn=None, ring=None):
-        if metrics is not None:
-            raise NotImplementedError(_NOT_PORTED.format("metrics="))
-        if ring is not None:
-            raise NotImplementedError(_NOT_PORTED.format("ring="))
         if data_format not in ("NCHW", "NHWC"):
             raise ValueError(f"data_format must be NCHW or NHWC, "
                              f"got {data_format!r}")
@@ -102,6 +104,7 @@ class DataLoader:
                 f"({self.global_batch} = batch_size x num_shards)")
         self.batches_per_epoch = self.n // self.global_batch
         self.bad_record_fn = bad_record_fn
+        self._ring = ring
         self.shuffle = shuffle
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
@@ -135,14 +138,38 @@ class DataLoader:
         self._quarantined = 0
         self._perm = None
         self._perm_epoch = -1
-        # how long the training loop waits in next_batch
-        self._batches = 0
-        self._wait_sum = 0.0
-        self._wait_max = 0.0
+        # how long the training loop waits in next_batch: stats() reads
+        # the loader's own metrics, the registry gets totals across the
+        # loaders that share it
+        self._metrics = metrics if metrics is not None else get_registry()
+        self._m_wait = Histogram(
+            "data_load_wait_seconds",
+            help="training-loop stall per next_batch() call")
+        self._m_batches = Counter("data_batches_total")
+        self._g_wait = self._metrics.histogram(
+            "data_load_wait_seconds",
+            help="training-loop stall per next_batch() call (all "
+                 "loaders on this registry)")
+        self._g_batches = self._metrics.counter(
+            "data_batches_total", help="batches delivered (all loaders)")
+        self._g_quarantined = self._metrics.counter(
+            "data_samples_quarantined_total",
+            help="corrupt records skipped by the quarantine (never a "
+                 "crashed step)")
+        self._g_consumed = self._metrics.gauge(
+            "data_samples_consumed",
+            help="global samples consumed by the shard group this "
+                 "loader belongs to (the exactly-once census)")
 
     @property
     def native(self) -> bool:
         return self._handle is not None
+
+    @property
+    def ring(self):
+        """The flight ring quarantine events go to: the one given, else
+        the current process ring."""
+        return flightrec.resolve(self._ring)
 
     # -- native path -------------------------------------------------------
     def _next_native(self) -> Tuple[np.ndarray, np.ndarray, int]:
@@ -206,6 +233,11 @@ class DataLoader:
                     "bad_record_fn: nothing left to train on")
         for k in bad:
             self._quarantined += 1
+            self._g_quarantined.inc()
+            self.ring.append("data_sample_quarantined",
+                             index=int(idx[k]), replaced_with=sub,
+                             shard=self.shard_id, epoch=self._epoch,
+                             batch=self._batch_index)
             idx[k] = sub
         return idx
 
@@ -232,33 +264,34 @@ class DataLoader:
         t0 = time.perf_counter()
         out = self._next_native() if self.native else self._next_python()
         dt = time.perf_counter() - t0
-        self._batches += 1
-        self._wait_sum += dt
-        self._wait_max = max(self._wait_max, dt)
+        self._m_wait.observe(dt)
+        self._m_batches.inc()
+        self._g_wait.observe(dt)
+        self._g_batches.inc()
+        self._g_consumed.set(float(self._census()["samples_consumed"]))
         return out
 
     def _census(self) -> dict:
         """Samples consumed, epoch and cursor; the native path derives them
         from its count of delivered batches."""
         if self.native:
-            epoch, i = divmod(self._batches, self.batches_per_epoch)
-            return {"samples_consumed": self._batches * self.global_batch,
+            b = int(self._m_batches.value)
+            epoch, i = divmod(b, self.batches_per_epoch)
+            return {"samples_consumed": b * self.global_batch,
                     "epoch": epoch, "cursor": i * self.global_batch}
         return {"samples_consumed": self._samples_consumed,
                 "epoch": self._epoch, "cursor": self._cursor}
 
     def stats(self) -> dict:
         """Batches delivered, the consumed-sample census, the shard, the
-        quarantine count and the wait in ``next_batch`` (seconds)."""
-        out = {"batches": self._batches,
+        quarantine count and the wait in ``next_batch`` (a histogram
+        summary in seconds: count, sum, mean, p50, p99)."""
+        out = {"batches": int(self._m_batches.value),
                "native": self.native,
                "shard_id": self.shard_id,
                "num_shards": self.num_shards,
                "samples_quarantined": self._quarantined,
-               "load_wait": {"count": self._batches, "sum": self._wait_sum,
-                             "mean": (self._wait_sum / self._batches
-                                      if self._batches else None),
-                             "max": self._wait_max}}
+               "load_wait": self._m_wait.summary()}
         out.update(self._census())
         return out
 

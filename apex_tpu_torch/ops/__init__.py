@@ -13,7 +13,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import adam, flash_attention, lamb, layer_norm, multi_tensor, syncbn
+from . import (_launches, adam, flash_attention, lamb, layer_norm,
+               multi_tensor, syncbn)
 from .adam import fused_adam
 from .flash_attention import flash_dkv, flash_dq, flash_fwd
 from .lamb import lamb_stage1, lamb_stage2
@@ -47,17 +48,21 @@ def launch_counts() -> Dict[str, int]:
     counts on the host when it launches; a step captured in a CUDA graph
     (``parallel.make_step``) takes its capture's launches back and adds
     them again at each replay, so the counts are those of the kernels
-    that ran."""
-    return {name: f.launches for name, f in WRAPPERS.items()}
+    that ran.  Every update takes ``_launches.LOCK``, so counts from
+    several threads (a fleet's step pool) are exact."""
+    with _launches.LOCK:
+        return {name: f.launches for name, f in WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for f in WRAPPERS.values():
-        f.launches = 0
+    with _launches.LOCK:
+        for f in WRAPPERS.values():
+            f.launches = 0
 
 
 def add_launches(counts: Dict[str, int], times: int = 1) -> None:
     """Add ``times`` x ``counts`` (wrapper name -> launches) to the
     counts: what a graph replay of recorded launches does."""
-    for name, n in counts.items():
-        WRAPPERS[name].launches += times * n
+    with _launches.LOCK:
+        for name, n in counts.items():
+            WRAPPERS[name].launches += times * n

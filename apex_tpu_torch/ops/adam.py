@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _launches
 
 __all__ = ["fused_adam"]
 
@@ -109,7 +109,7 @@ def fused_adam(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         *_vector_plan(p, m, v, g, half),
         _build.grid_blocks(n), _build.stream_ptr(p))
     _build.check(err, "apex_adam")
-    fused_adam.launches += 1
+    _launches.count(fused_adam)
 
 
 fused_adam.launches = 0

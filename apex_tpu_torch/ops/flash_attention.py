@@ -43,7 +43,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _launches
 
 __all__ = ["flash_attention", "flash_fwd", "flash_dq", "flash_dkv",
            "fits", "keep_unit"]
@@ -245,7 +245,7 @@ def flash_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, H: int,
             _ptr(seed) if rate else None, BH, H, T, D, int(bool(causal)),
             float(scale), float(rate), _inv_keep(rate), _KIND[q3.dtype],
             _build.stream_ptr(q3)), "apex_flash_fwd")
-        flash_fwd.launches += 1
+        _launches.count(flash_fwd)
     return o, lse
 
 
@@ -282,7 +282,7 @@ def flash_dq(q3, k3, v3, do3, lse, delta, H: int, scale: float,
             _ptr(segment_ids), _ptr(seed) if rate else None, BH, H, T, D,
             int(bool(causal)), float(scale), float(rate), _inv_keep(rate),
             _KIND[q3.dtype], _build.stream_ptr(q3)), "apex_flash_dq")
-        flash_dq.launches += 1
+        _launches.count(flash_dq)
     return dq
 
 
@@ -308,7 +308,7 @@ def flash_dkv(q3, k3, v3, do3, lse, delta, H: int, scale: float,
             BH, H, T, D, int(bool(causal)), float(scale), float(rate),
             _inv_keep(rate), _KIND[q3.dtype], _build.stream_ptr(q3)),
             "apex_flash_dkv")
-        flash_dkv.launches += 1
+        _launches.count(flash_dkv)
     return dk, dv
 
 

@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _launches
 from .multi_tensor import ChunkTable, as_scalar
 
 __all__ = ["lamb_stage1", "lamb_stage2"]
@@ -99,7 +99,7 @@ def lamb_stage1(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
         float(weight_decay), int(bool(adam_w_mode)), _build.grid_blocks(n),
         _build.stream_ptr(p))
     _build.check(err, "apex_lamb_stage1")
-    lamb_stage1.launches += 1
+    _launches.count(lamb_stage1)
     return upd
 
 
@@ -156,7 +156,7 @@ def lamb_stage2(p: torch.Tensor, upd: torch.Tensor, ratio: torch.Tensor,
         0 if half is None else _HALF_KIND[half.dtype],
         None if noop is None else noop.data_ptr(), _build.stream_ptr(p))
     _build.check(err, "apex_lamb_stage2")
-    lamb_stage2.launches += 1
+    _launches.count(lamb_stage2)
 
 
 lamb_stage2.launches = 0

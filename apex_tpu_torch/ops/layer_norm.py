@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _launches
 
 __all__ = ["layer_norm_fwd", "layer_norm_bwd"]
 
@@ -131,7 +131,7 @@ def layer_norm_fwd(x2: torch.Tensor, w: Optional[torch.Tensor],
     if n1 and n2:
         plan = _fwd_plan(n1, n2, x2.element_size(), _aligned(x2, w, b, y))
         _launch_fwd(x2, w, b, eps, y, mean, inv, plan)
-        layer_norm_fwd.launches += 1
+        _launches.count(layer_norm_fwd)
     return y, mean, inv
 
 
@@ -232,7 +232,7 @@ def layer_norm_bwd(dy: torch.Tensor, x2: torch.Tensor,
         return dx, torch.zeros(n2, **f32), torch.zeros(n2, **f32)
     plan = _bwd_plan(n1, n2, x2.element_size(), _aligned(dy, x2, w, dx))
     dw, db = _launch_bwd(dy, x2, w, mean, inv, dx, plan)
-    layer_norm_bwd.launches += 1
+    _launches.count(layer_norm_bwd)
     return dx, dw, db
 
 

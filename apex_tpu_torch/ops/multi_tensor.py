@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _launches
 
 __all__ = ["multi_tensor_scale", "multi_tensor_axpby", "multi_tensor_l2norm",
            "multi_tensor_l2norm_per_tensor", "ChunkTable", "as_scalar"]
@@ -82,7 +82,7 @@ def multi_tensor_scale(x: torch.Tensor, scale: Scalar,
                                     scale.data_ptr(), flag.data_ptr(),
                                     _build.grid_blocks(n),
                                     _build.stream_ptr(x)), "apex_scale")
-        multi_tensor_scale.launches += 1
+        _launches.count(multi_tensor_scale)
     return out, flag
 
 
@@ -129,7 +129,7 @@ def multi_tensor_axpby(a: Scalar, b: Scalar, x: torch.Tensor,
                                     b.data_ptr(), int(arg_to_check),
                                     flag.data_ptr(), _build.stream_ptr(x)),
                      "apex_axpby")
-        multi_tensor_axpby.launches += 1
+        _launches.count(multi_tensor_axpby)
     return out, flag
 
 
@@ -158,7 +158,7 @@ def multi_tensor_l2norm(x: torch.Tensor) -> torch.Tensor:
         _build.check(lib.apex_l2norm(x.data_ptr(), n, partials.data_ptr(),
                                      blocks, out.data_ptr(),
                                      _build.stream_ptr(x)), "apex_l2norm")
-        multi_tensor_l2norm.launches += 1
+        _launches.count(multi_tensor_l2norm)
     return out
 
 
@@ -243,7 +243,7 @@ def multi_tensor_l2norm_per_tensor(x: torch.Tensor,
             x.data_ptr(), table.chunks.data_ptr(), nchunks,
             table.bounds.data_ptr(), table.num_tensors, partials.data_ptr(),
             out.data_ptr(), _build.stream_ptr(x)), "apex_l2norm_per_tensor")
-        multi_tensor_l2norm_per_tensor.launches += 1
+        _launches.count(multi_tensor_l2norm_per_tensor)
     return out
 
 

@@ -27,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, _launches
 
 __all__ = ["syncbn_fwd", "syncbn_bwd", "batch_norm_apply_fused"]
 
@@ -73,7 +73,7 @@ def syncbn_fwd(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
             x.data_ptr(), y.data_ptr(), mean.data_ptr(), inv.data_ptr(),
             w.data_ptr(), b.data_ptr(), n, H * W, C, _KIND[x.dtype],
             _build.stream_ptr(x)), "apex_bn_fwd")
-        syncbn_fwd.launches += 1
+        _launches.count(syncbn_fwd)
     return y
 
 
@@ -113,7 +113,7 @@ def syncbn_bwd(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
             inv.data_ptr(), w.data_ptr(), sums[0].data_ptr(),
             sums[1].data_ptr(), N * C, H * W, C, _KIND[x.dtype],
             _build.stream_ptr(x)), "apex_bn_bwd")
-        syncbn_bwd.launches += 1
+        _launches.count(syncbn_bwd)
     else:
         sums.zero_()
     return dx, sums[0], sums[1]

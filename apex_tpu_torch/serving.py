@@ -6,7 +6,9 @@ Counterpart of ``apex_tpu/serving.py``, with the same request lifecycle
 and public surface: ``submit`` (queues) or ``add_request`` (claims a free
 slot), ``step()`` until ``is_finished(rid)``, then ``result(rid)``;
 ``cancel``, ``preempt``, ``take_waiting``, ``warmup``, ``compile_census``,
-``stats()`` and the KV fragmentation ledger.  Requests arrive and finish
+``stats()`` and the KV fragmentation ledger; ``uncaptured()`` names the
+graphs a later step may still capture (a fleet steps such a replica
+alone).  Requests arrive and finish
 at different times; every ``step()`` decodes the whole slot batch for a
 WINDOW of ``window`` ticks, and the host reads the window's ``[slots,
 window]`` token and validity buffers once.  A slot that hits its EOS or
@@ -340,6 +342,17 @@ class _SlotScheduler:
             if g.graph is not None:
                 out[name] = out.get(name, 0) + 1
         return out
+
+    def uncaptured(self) -> List[str]:
+        """Census names of the graphs a ``step()`` may still capture (none
+        on the CPU): those not captured yet, less the prefix pool's
+        seeding, which only ``register_prefix`` runs.  A capture must
+        meet no other thread's CUDA work, so a fleet steps a replica that
+        names one alone, never on its step pool beside another replica."""
+        census = self.compile_census()
+        return sorted({name for g, name in self._graphs.items()
+                       if g.may_capture
+                       and census.get(name) != "register_prefix"})
 
     def _to_device(self, dst: torch.Tensor, values) -> None:
         """``dst`` from host ``values`` in one copy: pinned and

@@ -10,12 +10,14 @@
     python3 chip_smoke.py --mp
     python3 chip_smoke.py --sp-pp
     python3 chip_smoke.py --legacy
+    python3 chip_smoke.py --fleet
     python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
 
 The second form runs phases 1, 2 and 15 alone, the third phases 1, 2 and
 16 (with 16's launch-count checks), the fourth phases 1, 2 and 17, the
 fifth 1, 2 and 18, the sixth 1, 2 and 19, the seventh 1, 2 and 20, the
-eighth 1, 2 and 21, the ninth 1, 2 and 22.  The last builds the
+eighth 1, 2 and 21, the ninth 1, 2 and 22, the tenth 1, 2 and 23.  The
+last builds the
 kernels and times the LayerNorm backward of this checkout against the one
 in PARENT_CHECKOUT (another tree of this repository), at BERT-base's and
 BERT-large's shapes, by graph replay in the order parent, change, change,
@@ -305,6 +307,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
             D's lengths, scale, l2norm and Adam (fp16 copy) at the mLSTM's,
             the syncbn forward and backward at DCGAN's 7 BatchNorm shapes
             in bf16 and fp32.
+23. fleet   the serving fleet (apex_tpu_torch.fleet) over two GPT-2 small
+            Engines on the one card (12 layers, width 768, vocab 50,257,
+            bf16, random from SEED; 16 slots, window 8, buf_len 1,024),
+            warmed once by Fleet.warmup(), on phase 18's traffic
+            generator: 96 requests in three waves of 32, prompts of 32-768
+            tokens, 32-256 new, greedy.  (aa) a one-replica fleet (the
+            reference), then the fleet of two, least_loaded, with
+            step_workers 1 and 2: every result the reference's, no
+            failover, failure or shed, no capture after warmup(), exact
+            flash and LayerNorm launches equal in both; tok/s, TTFT, the
+            fleet's own host ms a tick, the device idle share of three
+            profiled ticks.  (ab) replica 1 inside a FaultyReplica raising
+            from its 20th step: every result the reference's, dead, the
+            survivor capturing nothing, the flight ring dumped with the
+            failover, MTTR, the fleet and trace records valid.  (ac) two
+            QoS classes (interactive over preemptible batch) with a
+            SloController ticked every tick: every finished request its
+            no-QoS reference's, preemptions, the controller's actions
+            valid; TTFT by class, goodput, SLO attainment.  (ad) a prefix
+            registered after warmup on a third engine, its splice graphs
+            capturing during traffic under prefix_affinity with
+            step_workers 2; the tokens those of a step_workers 1 run.
+            Peak memory and each engine's graph pool.  The kernel rows
+            print as the "kernels_fleet" line: the flash forward at (1,
+            12, 1024, 64) bf16 causal, the LayerNorm forward at (16, 768),
+            (1024, 768) and (32, 768) bf16, with phase 23's launches.
 
 Phase 3 also times the variants the O1 paths run: Adam without the half
 copy at N = 25,557,032, the LayerNorm forward and backward in fp32 at
@@ -7030,6 +7058,528 @@ def phase_legacy(smi):
     return rows, results
 
 
+# -- phase 23: the serving fleet ----------------------------------------------
+
+FLEET_REQUESTS = 96                 # three waves of 32: both replicas full
+FLEET_WAVE = 32
+FLEET_WAVE_AT = 12                  # fleet ticks between two waves
+FLEET_PLEN, FLEET_NEW = (32, 768), (32, 256)   # all within 1,024 positions
+FLEET_I = 32                        # (ac)'s interactive requests
+FLEET_I_PLEN, FLEET_I_NEW = (32, 128), 32
+FLEET_I_DEADLINE = 60.0             # s: generous, the attainment is read
+FLEET_I_WAVE, FLEET_I_AT = 8, 4     # (ac): 8 interactive every 4 ticks
+FLEET_FAULT_AT = 20                 # (ab): replica 1 raises from its 20th
+FLEET_PROFILE_AT = 4                # (aa)'s profiled ticks: the first
+                                    # wave decoding, no admission
+FLEET_PREFIX_REQUESTS = 32          # (ad): half of them with the prefix
+
+
+class _Timed:
+    """A replica whose ``step()`` wall time is summed: a serial tick's
+    wall time less its replicas' steps is the fleet's own cost."""
+
+    def __init__(self, rep):
+        self._rep = rep
+        self.step_s = 0.0
+
+    def step(self):
+        t = time.perf_counter()
+        try:
+            return self._rep.step()
+        finally:
+            self.step_s += time.perf_counter() - t
+
+    def __getattr__(self, name):
+        return getattr(self._rep, name)
+
+
+def _fleet_schedule(n, wave, every, first=0):
+    """Waves of ``wave`` traffic indices, one every ``every`` ticks."""
+    return [(first + k * every, list(range(i, min(i + wave, n))))
+            for k, i in enumerate(range(0, n, wave))]
+
+
+def _fleet_run(fl, traffic, tag, schedule, profile=False, on_tick=None):
+    """``traffic`` (prompt, max_new, kwargs) through the fleet ``fl``, each
+    index submitted at its tick of ``schedule`` (a shed one again at the
+    next tick): the results by index (None where not finished), tok/s
+    over the timed ticks, TTFT by index (a wave's release to the request's
+    first emitted token), each tick's wall ms, the sheds, and with
+    ``profile`` the device time by category of three profiled ticks (left
+    out of the timing, not of the schedule).  ``on_tick()`` runs after
+    every tick."""
+    from apex_tpu_torch.fleet import FleetOverloaded
+    rid_of, arrive, first, pending = {}, {}, {}, []
+    tick_ms, counted = [], {"tokens": 0, "ticks": 0, "shed": 0}
+    waves = sorted(schedule)
+
+    def tick(timed=True):
+        while waves and waves[0][0] <= counted["ticks"]:
+            now = time.perf_counter()
+            for i in waves.pop(0)[1]:
+                arrive[i] = now
+                pending.append(i)
+        still = []
+        for i in pending:
+            p, n, kw = traffic[i]
+            try:
+                rid_of[fl.submit(p, n, **kw)] = i
+            except FleetOverloaded:
+                counted["shed"] += 1
+                still.append(i)
+        pending[:] = still
+        counted["ticks"] += 1
+        if not fl.live():
+            return                      # idle until the next wave
+        ts = time.perf_counter()
+        out = fl.step()
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if timed:
+            tick_ms.append((now - ts) * 1e3)
+        for rid, toks in out.items():
+            first.setdefault(rid_of[rid], now)
+            if timed:
+                counted["tokens"] += len(toks)
+        if on_tick is not None:
+            on_tick()
+
+    prof, excl_s, profiled = None, 0.0, not profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while waves or pending or fl.live():
+        if not profiled and counted["ticks"] >= FLEET_PROFILE_AT \
+                and tick_ms:
+            profiled = True
+            tp = time.perf_counter()
+            prof = phase_profile(lambda: tick(False),
+                                 statistics.median(tick_ms),
+                                 f"{tag}-profile", steps=3)
+            excl_s += time.perf_counter() - tp
+            continue
+        tick()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - excl_s
+    by_index = {i: r for r, i in rid_of.items()}
+    results = [fl.result(by_index[i])
+               if i in by_index and fl.status(by_index[i]) == "finished"
+               else None for i in range(len(traffic))]
+    median = statistics.median(tick_ms)
+    return {"results": results, "tokens": sum(len(r) for r in results
+                                              if r is not None),
+            "tok_s": counted["tokens"] / wall, "wall_s": wall,
+            "ticks": len(tick_ms), "tick_ms": tick_ms,
+            "tick_ms_median": median, "shed": counted["shed"],
+            "ttft": {i: first[i] - arrive[i] for i in first},
+            "profile": prof,
+            "profile_idle_share": (1 - sum(prof.values()) / median
+                                   if prof else None)}
+
+
+def _fleet_expect(engines, before, chunks=0):
+    """The flash and LayerNorm launches the engines made since ``before``
+    (their ``stats()``), summed over replicas: a full-buffer prefill a
+    fresh admission (flash and two LayerNorms a block), GPT-2's 25
+    LayerNorms a decode tick, SRV_WINDOW ticks a window, 25 a splice
+    chunk; and the LayerNorms by shape."""
+    from apex_tpu_torch import models
+    n_l = models.gpt2_small().n_layer
+    fresh = windows = 0
+    for e, b in zip(engines, before):
+        s = e.stats()
+        fresh += ((s["admitted"] - b["admitted"])
+                  - (s.get("prefix_hits", 0) - b.get("prefix_hits", 0)))
+        windows += s["decode_steps"] - b["decode_steps"]
+    ln = {"fleet": windows * SRV_WINDOW * (2 * n_l + 1),
+          "fleet-prefill": fresh * 2 * n_l,
+          "fleet-chunk": chunks * (2 * n_l + 1)}
+    return {"flash_fwd": fresh * n_l,
+            "layer_norm_fwd": sum(ln.values())}, ln
+
+
+def _fleet_pools(engines):
+    """Each engine's graph pool held on the card (the segments of its pool
+    in the allocator's snapshot), or None where the snapshot names no
+    pools."""
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return [sum(s["total_size"] for s in segs
+                if tuple(s["segment_pool_id"]) == tuple(e._pool))
+            for e in engines]
+
+
+def _ttft_pcts(ttft, idx):
+    vals = [ttft[i] for i in idx if i in ttft]
+    return ({"p50_s": float(np.percentile(vals, 50)),
+             "p99_s": float(np.percentile(vals, 99))} if vals else None)
+
+
+def _fleet_aa(engines, traffic, totals, ln_at):
+    """(aa): the reference (one warmed replica alone, a one-replica
+    fleet), then the fleet of two, least_loaded, with step_workers 1 and
+    2: every result the reference's, no failover, failure or shed, no
+    capture after warmup(), exact launches equal in both runs."""
+    from apex_tpu_torch.fleet import Fleet
+    sched = _fleet_schedule(len(traffic), FLEET_WAVE, FLEET_WAVE_AT)
+    caps = [dict(e.captures) for e in engines]
+    before = [engines[0].stats()]
+    ref, c_ref = _counted(lambda: _fleet_run(
+        Fleet([engines[0]], max_queue=FLEET_REQUESTS, step_workers=1),
+        traffic, "fleet-aa-ref", sched))
+    want, ln = _fleet_expect(engines[:1], before)
+    _check_counts("fleet-aa-ref", c_ref, want)
+    _add(totals, c_ref)
+    _fleet_add_ln(ln_at, ln)
+    assert all(r is not None for r in ref["results"]), "fleet-aa-ref"
+    out = {"ref": {k: ref[k] for k in ("tokens", "tok_s", "wall_s", "ticks",
+                                       "tick_ms_median")},
+           "ref_ttft": _ttft_pcts(ref["ttft"], range(len(traffic)))}
+    counts = {}
+    for workers in (1, 2):
+        tag = f"fleet-aa-w{workers}"
+        reps = [_Timed(e) for e in engines]
+        fl = Fleet(reps, policy="least_loaded", max_queue=FLEET_REQUESTS,
+                   step_workers=workers)
+        before = [e.stats() for e in engines]
+        run, counts[workers] = _counted(lambda: _fleet_run(
+            fl, traffic, tag, sched, profile=(workers == 2)))
+        fl.close()
+        s = fl.stats()
+        assert (s["failovers"], s["failed"], s["shed"], run["shed"]) \
+            == (0, 0, 0, 0), (tag, s["failovers"], s["failed"], s["shed"])
+        assert run["results"] == ref["results"], \
+            f"[{tag}] a result differs from the one-replica reference"
+        assert [dict(e.captures) for e in engines] == caps, \
+            (tag, [e.captures for e in engines], caps)
+        want, ln = _fleet_expect(engines, before)
+        _check_counts(tag, counts[workers], want)
+        _add(totals, counts[workers])
+        _fleet_add_ln(ln_at, ln)
+        step_s = sum(r.step_s for r in reps)
+        res = {k: run[k] for k in ("tokens", "tok_s", "wall_s", "ticks",
+                                   "tick_ms_median", "profile_idle_share")}
+        res.update(ttft=_ttft_pcts(run["ttft"], range(len(traffic))),
+                   replica_step_ms_per_tick=step_s * 1e3 / run["ticks"],
+                   launches=counts[workers])
+        if workers == 1:
+            # serial: the tick's wall time less its replicas' steps; the
+            # goodput window (the fleet's clock) has no profile in it
+            res["fleet_host_ms_per_tick"] = (
+                sum(run["tick_ms"]) - step_s * 1e3) / run["ticks"]
+            res["goodput_tokens_per_s"] = s["goodput_tokens_per_s"]
+        out[f"w{workers}"] = res
+        log(f"[{tag}] {run['tokens']} tokens, {run['tok_s']:.1f} tok/s "
+            f"(one replica alone: {ref['tok_s']:.1f}), {run['ticks']} "
+            f"ticks, tick median {run['tick_ms_median']:.3f} ms, replica "
+            f"steps {res['replica_step_ms_per_tick']:.3f} ms a tick"
+            + (f", the fleet's own {res['fleet_host_ms_per_tick']:.3f} ms a"
+               f" tick" if workers == 1 else
+               f", device idle share {run['profile_idle_share']}")
+            + f"; every result the reference's; launches {counts[workers]}")
+    assert counts[1] == counts[2], counts
+    return out, ref["results"]
+
+
+def _fleet_add_ln(ln_at, ln):
+    for k, v in ln.items():
+        ln_at[k] = ln_at.get(k, 0) + v
+
+
+def _fleet_ab(engines, traffic, ref, totals, ln_at):
+    """(ab): (aa)'s traffic with replica 1 raising from its FLEET_FAULT_AT-th
+    step: every result the reference's, failed over and dead, the
+    survivor capturing nothing, the ring dumped with the failover, MTTR,
+    the fleet and trace records valid."""
+    import tempfile
+    from apex_tpu_torch import observability as obs
+    from apex_tpu_torch.fleet import (FaultyReplica, Fleet, HealthConfig,
+                                      RetryPolicy)
+    from apex_tpu_torch.observability.exporters import (
+        JsonlExporter, validate_fleet_record, validate_trace_record)
+    sched = _fleet_schedule(len(traffic), FLEET_WAVE, FLEET_WAVE_AT)
+    caps = dict(engines[0].captures)
+    bad = FaultyReplica(engines[1])
+    bad.arm(raise_on_step=(FLEET_FAULT_AT, None))
+    ring = obs.EventRing(capacity=256)
+    rec = obs.SpanRecorder()
+    prev = obs.set_recorder(rec)
+    before = [e.stats() for e in engines]
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            dump = os.path.join(tmp, "flight.jsonl")
+            fl = Fleet([engines[0], bad], policy="least_loaded",
+                       max_queue=FLEET_REQUESTS, step_workers=2,
+                       health=HealthConfig(dead_consecutive=2,
+                                           cooldown_steps=50),
+                       retry=RetryPolicy(max_attempts=6, jitter=0.0),
+                       ring=ring, flight_dump_path=dump)
+            run, counts = _counted(lambda: _fleet_run(fl, traffic,
+                                                      "fleet-ab", sched))
+            fl.close()
+            with open(dump) as f:
+                dumped = [json.loads(ln) for ln in f]
+        s = fl.stats()
+        assert run["results"] == ref, \
+            "[fleet-ab] a failed-over result differs from the reference"
+        assert s["failovers"] >= 1 and s["failed"] == 0 and s["dead"] == 1, \
+            (s["failovers"], s["failed"], s["dead"])
+        fo = ring.snapshot("failover")
+        assert fo and all(e["replica"] == 1
+                          and "injected step fault" in e["reason"]
+                          for e in fo), fo
+        assert dict(engines[0].captures) == caps, "[fleet-ab] survivor"
+        assert any(e["kind"] == "failover" for e in dumped[1:])
+        mttr = fl.mttr()
+        assert mttr["count"] >= 1 and mttr["last"] > 0, mttr
+        frec = JsonlExporter.enrich(fl.record())
+        assert validate_fleet_record(frec) == [], \
+            validate_fleet_record(frec)
+        moved = [r for r in range(fl._next_rid)
+                 if fl._results[r].restarts > 0]
+        trec = JsonlExporter.enrich(fl.trace_record(moved[0]))
+        assert validate_trace_record(trec) == [], validate_trace_record(trec)
+        names = [e["name"] for e in rec.trace(fl.request_trace_id(moved[0]))]
+        assert "fleet_fault" in names and "fleet_reclaim" in names, names
+    finally:
+        obs.set_recorder(prev)
+    want, ln = _fleet_expect(engines, before)
+    _check_counts("fleet-ab", counts, want)
+    _add(totals, counts)
+    _fleet_add_ln(ln_at, ln)
+    out = {"tok_s": run["tok_s"], "ticks": run["ticks"],
+           "failovers": s["failovers"], "restarted": len(moved),
+           "mttr_s": mttr["last"], "mttr": mttr,
+           "ttft": _ttft_pcts(run["ttft"], range(len(traffic))),
+           "ring_events": len(dumped) - 1, "launches": counts}
+    log(f"[fleet-ab] replica 1 raised from its step {FLEET_FAULT_AT}: "
+        f"{s['failovers']} requests failed over ({len(moved)} restarted), "
+        f"every result the reference's, MTTR {mttr['last']:.4f} s, "
+        f"{run['tok_s']:.1f} tok/s; dump {len(dumped) - 1} events with the "
+        f"failover; fleet and trace records valid")
+    return out
+
+
+def _fleet_ac(engines, traffic, ref, totals, ln_at):
+    """(ac): QoS and SLO.  interactive (weight 4, not preemptible, short
+    prompts, FLEET_I_NEW new tokens, a deadline) over batch (weight 1,
+    preemptible: (aa)'s first wave), preemption on, a SloController
+    ticked once a fleet tick: every finished request, preempted ones
+    included, the one-replica fleet's tokens with no QoS policy; the
+    controller's actions of RECOVERY_ACTION_KINDS and within its bound;
+    its record valid."""
+    from apex_tpu_torch.fleet import (AutoscaleConfig, Fleet, QosClass,
+                                      QosPolicy, SloController)
+    from apex_tpu_torch.fleet.recovery import RECOVERY_ACTION_KINDS
+    from apex_tpu_torch.observability.exporters import (
+        JsonlExporter, validate_fleet_record, validate_recovery_record)
+    inter = _srv_traffic(SEED + 231, FLEET_I, FLEET_I_PLEN,
+                         (FLEET_I_NEW, FLEET_I_NEW), 50257)
+    batch = [(p, n, {"tenant": "bob"}) for p, n, _ in traffic[:FLEET_WAVE]]
+    inter = [(p, n, {"tenant": "alice", "deadline": FLEET_I_DEADLINE})
+             for p, n, _ in inter]
+    mixed = batch + inter
+    nb = len(batch)
+    # the first interactive wave one tick after the batch wave filled
+    # every slot: no batch request has finished yet, so it preempts
+    sched = [(0, list(range(nb)))] + _fleet_schedule(
+        len(inter), FLEET_I_WAVE, FLEET_I_AT, first=1)
+    sched = [(t, [nb + i for i in idx]) if k else (t, idx)
+             for k, (t, idx) in enumerate(sched)]
+    # the interactive requests' reference: a one-replica fleet, no QoS
+    before = [engines[0].stats()]
+    iref, c = _counted(lambda: _fleet_run(
+        Fleet([engines[0]], max_queue=FLEET_REQUESTS, step_workers=1),
+        inter, "fleet-ac-ref", _fleet_schedule(len(inter), FLEET_WAVE, 1)))
+    want, ln = _fleet_expect(engines[:1], before)
+    _check_counts("fleet-ac-ref", c, want)
+    _add(totals, c)
+    _fleet_add_ln(ln_at, ln)
+    expect = ref[:nb] + iref["results"]
+    pol = QosPolicy([QosClass("interactive", weight=4, preemptible=False),
+                     QosClass("batch", weight=1, preemptible=True)],
+                    tenant_class={"alice": "interactive", "bob": "batch"})
+    fl = Fleet(engines, policy="least_loaded", max_queue=FLEET_REQUESTS,
+               step_workers=2, qos=pol)
+    cfg = AutoscaleConfig()
+    ctrl = SloController(fl, cfg)
+    acts = []
+    before = [e.stats() for e in engines]
+    run, counts = _counted(lambda: _fleet_run(
+        fl, mixed, "fleet-ac", sched, on_tick=lambda: acts.extend(
+            ctrl.tick())))
+    fl.close()
+    s = fl.stats()
+    done = [i for i, r in enumerate(run["results"]) if r is not None]
+    assert all(run["results"][i] == expect[i] for i in done), \
+        "[fleet-ac] a finished request differs from its reference"
+    assert s["preemptions"] >= 1 and s["failed"] == 0, \
+        (s["preemptions"], s["failed"])
+    assert all(a["kind"] in RECOVERY_ACTION_KINDS for a in acts), acts
+    crec = JsonlExporter.enrich(ctrl.record())
+    assert validate_recovery_record(crec) == [], \
+        validate_recovery_record(crec)
+    assert crec["max_actions_in_episode"] <= cfg.max_actions_per_episode
+    frec = JsonlExporter.enrich(fl.record())
+    assert validate_fleet_record(frec) == [], validate_fleet_record(frec)
+    want, ln = _fleet_expect(engines, before)
+    _check_counts("fleet-ac", counts, want)
+    _add(totals, counts)
+    _fleet_add_ln(ln_at, ln)
+    out = {"tok_s": run["tok_s"], "ticks": run["ticks"],
+           "finished": len(done), "preemptions": s["preemptions"],
+           "shed": run["shed"],
+           "ttft_interactive": _ttft_pcts(run["ttft"], range(nb, len(mixed))),
+           "ttft_batch": _ttft_pcts(run["ttft"], range(nb)),
+           "goodput_tokens_per_s": s["goodput_tokens_per_s"],
+           "slo_attainment": s["slo"]["slo_attainment"],
+           "classes": {c: {k: b[k] for k in ("finished", "preempted",
+                                             "slo_attainment",
+                                             "goodput_tokens")}
+                       for c, b in s["classes"].items()},
+           "actions": [a["kind"] for a in acts], "launches": counts}
+    log(f"[fleet-ac] {len(done)} of {len(mixed)} finished, each its "
+        f"reference's tokens; {s['preemptions']} preemptions, "
+        f"{run['shed']} sheds; TTFT p50/p99 interactive "
+        f"{out['ttft_interactive']}, batch {out['ttft_batch']}; goodput "
+        f"{s['goodput_tokens_per_s']:.1f} tok/s, SLO attainment "
+        f"{s['slo']['slo_attainment']}; controller actions "
+        f"{out['actions']}")
+    return out
+
+
+def _fleet_ad(pre, other, totals, ln_at):
+    """(ad): a prefix registered on replica 0 after warmup, so its prefix
+    graphs first capture during traffic, stepped with step_workers=2
+    under prefix_affinity while replica 1 serves; then the same traffic
+    with step_workers=1 (the prefix registered again: its seeding graph
+    captures there).  The tokens of the two runs equal."""
+    from apex_tpu_torch.fleet import Fleet
+    rs = np.random.RandomState(SEED + 232)
+    prefix = [int(t) for t in rs.randint(0, 50257, GPT2_PREFIX)]
+    fresh = _srv_traffic(SEED + 233, FLEET_PREFIX_REQUESTS, GPT2_PLEN,
+                         GPT2_NEW, 50257)
+    tr = [((prefix + p) if i % 2 == 0 else p, n, kw)
+          for i, (p, n, kw) in enumerate(fresh)]
+    sched = _fleet_schedule(len(tr), FLEET_WAVE, FLEET_WAVE_AT)
+    engines = [pre, other]
+    results, out = [], {}
+    for workers in (2, 1):
+        tag = f"fleet-ad-w{workers}"
+        fl = Fleet(engines, policy="prefix_affinity",
+                   max_queue=FLEET_REQUESTS, step_workers=workers)
+        assert fl.register_prefix(prefix, replica=0) == 0
+        caps, lazy = dict(pre.captures), pre.uncaptured()
+        before = [e.stats() for e in engines]
+        run, counts = _counted(lambda: _fleet_run(fl, tr, tag, sched))
+        fl.close()
+        s = fl.stats()
+        assert s["failed"] == 0 and s["failovers"] == 0, tag
+        assert all(r is not None for r in run["results"]), tag
+        spliced = [fl._results[r].prompt for r in range(fl._next_rid)
+                   if fl._results[r].assigned[0] == 0
+                   and fl._results[r].prompt[:GPT2_PREFIX] == prefix]
+        chunks = sum(_srv_chunks(len(p), GPT2_PREFIX, GPT2_CHUNK,
+                                 GPT2_SRV_BUF) for p in spliced)
+        want, ln = _fleet_expect(engines, before, chunks)
+        _check_counts(tag, counts, want)
+        _add(totals, counts)
+        _fleet_add_ln(ln_at, ln)
+        new = sorted(set(pre.captures) - set(caps))
+        if workers == 2:
+            assert lazy and set(lazy) <= set(new), (lazy, new)
+        out[f"w{workers}"] = {"tok_s": run["tok_s"], "ticks": run["ticks"],
+                              "prefix_hits": len(spliced),
+                              "captured_in_traffic": new,
+                              "uncaptured_before": lazy,
+                              "launches": counts}
+        results.append(run["results"])
+        log(f"[{tag}] {run['tokens']} tokens, {run['tok_s']:.1f} tok/s, "
+            f"{len(spliced)} spliced on replica 0; graphs uncaptured before "
+            f"the traffic {lazy}, captured during it {new}")
+    assert results[0] == results[1], \
+        "[fleet-ad] step_workers=2 tokens differ from step_workers=1"
+    return out
+
+
+def phase_fleet(smi):
+    """Phase 23: the serving fleet over the port's engines on the card.
+    Two GPT-2 small Engines (12 layers, width 768, bf16, random from
+    SEED; 16 slots, window 8, buf_len 1,024) and a third with a prefix
+    pool, warmed by one Fleet.warmup(); (aa) fault-free, (ab) failover,
+    (ac) QoS with preemption and the SLO controller, (ad) lazy capture
+    under the step pool; the flash and LayerNorm forward at the fleet's
+    shapes against their plain versions."""
+    from apex_tpu_torch import serving
+    from apex_tpu_torch.fleet import Fleet
+    t0 = time.time()
+    dev = torch.device(DEVICE)
+    rows = {}
+    rows.update(_srv_flash_row((1, 12, GPT2_SRV_BUF, 64), "fleet-gpt2"))
+    for tag, n, calls in (("fleet", SRV_SLOTS, "25 calls a decode tick"),
+                          ("fleet-prefill", GPT2_SRV_BUF,
+                           "24 calls a prefill"),
+                          ("fleet-chunk", GPT2_CHUNK,
+                           "25 calls a splice chunk")):
+        rows.update(_tail_ln_rows(n, tag, calls))
+    log(f"[time] fleet kernel rows in {time.time() - t0:.1f} s")
+    floor = _mem_floor()
+    torch.cuda.reset_peak_memory_stats()
+    t16 = _gpt2_small(dev).to(torch.bfloat16)
+
+    def engine(**kw):
+        return serving.Engine(t16, slots=SRV_SLOTS, buf_len=GPT2_SRV_BUF,
+                              window=SRV_WINDOW, **kw)
+
+    engines = [engine(), engine()]
+    pre = engine(prefix_pool=2, prefix_chunk=GPT2_CHUNK)
+    tw = time.perf_counter()
+    Fleet(engines + [pre]).warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - tw
+    for e in engines:
+        assert e.uncaptured() == [], (e.captures, e.uncaptured())
+    # the prefix pool's splice graphs wait for their first prefix hit
+    assert pre.uncaptured() == sorted(
+        k for k, st in pre.compile_census().items()
+        if st == "prefix_admission"), pre.uncaptured()
+    traffic = _srv_traffic(SEED + 230, FLEET_REQUESTS, FLEET_PLEN,
+                           FLEET_NEW, 50257)
+    totals, ln_at, summary = {}, {}, {"card": smi, "warmup_s": warm_s}
+    summary["aa"], ref = _fleet_aa(engines, traffic, totals, ln_at)
+    log(f"[time] fleet (aa) in {time.time() - t0:.1f} s")
+    summary["ab"] = _fleet_ab(engines, traffic, ref, totals, ln_at)
+    log(f"[time] fleet (ab) in {time.time() - t0:.1f} s")
+    summary["ac"] = _fleet_ac(engines, traffic, ref, totals, ln_at)
+    log(f"[time] fleet (ac) in {time.time() - t0:.1f} s")
+    summary["ad"] = _fleet_ad(pre, engines[0], totals, ln_at)
+    log(f"[time] fleet (ad) in {time.time() - t0:.1f} s")
+    summary["peak_gib"] = (torch.cuda.max_memory_allocated()
+                           - floor) / 2 ** 30
+    pools = _fleet_pools(engines + [pre])
+    summary["graph_pool_held_bytes"] = pools
+    summary["kv_cache_bytes"] = [e.kv_cache_bytes()
+                                 for e in engines + [pre]]
+    # each row's launches: those of phase 23's runs at its shape
+    rows["flash_fwd:fleet-gpt2"]["launches"] = totals["flash_fwd"]
+    assert sum(ln_at.values()) == totals["layer_norm_fwd"], (ln_at, totals)
+    for tag, n in ln_at.items():
+        rows[f"layer_norm_fwd:{tag}"]["launches"] = n
+    for key, row in rows.items():
+        row["variant"] = key
+    summary["launches"] = totals
+    log(f"[fleet] peak {summary['peak_gib']:.3f} GiB above what the phase "
+        f"found, graph pools held {pools} B (per engine; None: not "
+        f"measured), KV {summary['kv_cache_bytes']} B, warmup "
+        f"{warm_s:.2f} s, launches {totals}, LayerNorm by shape {ln_at}")
+    del engines, pre, t16
+    _mem_floor()
+    summary["seconds"] = time.time() - t0
+    log(f"[time] phase 23 in {summary['seconds']:.1f} s")
+    log("fleet " + json.dumps(summary, default=str))
+    return list(rows.values()), summary
+
+
 def _check_counts(tag: str, counts, expect) -> None:
     """Each wrapper launched exactly as often as the path needs it, and the
     wrappers of other paths not at all."""
@@ -7200,6 +7750,8 @@ def main():
     log(f"[time] phase 21 done at {time.time() - t0:.1f} s")
     legacy_rows, _ = phase_legacy(smi)
     log(f"[time] phase 22 done at {time.time() - t0:.1f} s")
+    fleet_rows, _ = phase_fleet(smi)
+    log(f"[time] phase 23 done at {time.time() - t0:.1f} s")
 
     _check_counts("train", counts_train, RESNET_COUNTS)
     _check_counts("ddp", counts_ddp, RESNET_COUNTS)
@@ -7242,6 +7794,7 @@ def main():
     log("kernels_mp " + json.dumps({"kernels": mp_rows}))
     log("kernels_sp " + json.dumps({"kernels": sp_rows}))
     log("kernels_legacy " + json.dumps({"kernels": legacy_rows}))
+    log("kernels_fleet " + json.dumps({"kernels": fleet_rows}))
     log(json.dumps({"kernels": [rows[k] for k in REPLACES]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
@@ -7302,6 +7855,12 @@ if __name__ == "__main__":
         phase_build()
         legacy_rows, _ = phase_legacy(smi)
         log("kernels_legacy " + json.dumps({"kernels": legacy_rows}))
+    elif sys.argv[1:2] == ["--fleet"]:
+        # python3 chip_smoke.py --fleet: phases 1, 2 and 23 alone
+        _, smi = phase_device()
+        phase_build()
+        fleet_rows, _ = phase_fleet(smi)
+        log("kernels_fleet " + json.dumps({"kernels": fleet_rows}))
     elif sys.argv[1:2] == ["--layer-norm-ab"]:
         # python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
         phase_device()

@@ -1597,6 +1597,76 @@ def test_serving_paged_equals_fixed_on_the_card(cuda):
                                                             tr)
 
 
+@pytest.mark.cuda
+def test_fleet_failover_exact_on_the_card(cuda):
+    """A fleet of two captured engines on the card, replica 1 raising from
+    its third step: every result the single warmed engine's, the survivor
+    capturing nothing after warmup()."""
+    from apex_tpu_torch import serving
+    from apex_tpu_torch.fleet import (FaultyReplica, Fleet, HealthConfig,
+                                      RetryPolicy)
+    model = _tiny_decoder(cuda)
+    traffic = _serving_traffic(21, 12, 97)
+    want = _serve_all(serving.Engine(model, slots=3, buf_len=64,
+                                     window=4).warmup(), traffic)
+    engines = [serving.Engine(model, slots=3, buf_len=64, window=4)
+               for _ in range(2)]
+    Fleet(engines).warmup()
+    caps = dict(engines[0].captures)
+    bad = FaultyReplica(engines[1])
+    bad.arm(raise_on_step=(3, None))
+    with Fleet([engines[0], bad], policy="round_robin", step_workers=2,
+               health=HealthConfig(dead_consecutive=2, cooldown_steps=50),
+               retry=RetryPolicy(max_attempts=6, jitter=0.0)) as fl:
+        rids = [fl.submit(p, n, **kw) for p, n, kw in traffic]
+        while fl.live():
+            fl.step()
+        s = fl.stats()
+        assert s["failovers"] >= 1 and s["failed"] == 0 and s["dead"] == 1
+        assert [fl.result(r) for r in rids] == want
+    assert engines[0].captures == caps
+
+
+@pytest.mark.cuda
+def test_fleet_lazy_capture_under_the_step_pool(cuda):
+    """A prefix registered after warmup() on one replica: its splice graphs
+    capture during traffic while the fleet steps with step_workers=2 (a
+    replica that may capture steps alone, never beside a pool worker);
+    the tokens equal a step_workers=1 run's, and the launch counts of the
+    two runs are equal."""
+    from apex_tpu_torch import serving
+    from apex_tpu_torch.fleet import Fleet
+    model = _tiny_decoder(cuda)
+    rs = np.random.RandomState(22)
+    prefix = [int(t) for t in rs.randint(0, 97, 12)]
+    traffic = [((prefix + p) if i % 2 == 0 else p, n, kw) for i, (p, n, kw)
+               in enumerate(_serving_traffic(23, 12, 97, plen=(3, 20)))]
+    pre = serving.Engine(model, slots=3, buf_len=64, window=4,
+                         prefix_pool=2, prefix_chunk=8)
+    other = serving.Engine(model, slots=3, buf_len=64, window=4)
+    Fleet([pre, other]).warmup()
+    results, counts = [], []
+    for workers in (2, 1):
+        with Fleet([pre, other], policy="prefix_affinity",
+                   step_workers=workers) as fl:
+            fl.register_prefix(prefix, replica=0)
+            lazy = pre.uncaptured()
+            assert bool(lazy) == (workers == 2)
+            ops.reset_launch_counts()
+            rids = [fl.submit(p, n, **kw) for p, n, kw in traffic]
+            while fl.live():
+                fl.step()
+            torch.cuda.synchronize()
+            counts.append(ops.launch_counts())
+            assert fl.stats()["failed"] == 0
+            results.append([fl.result(r) for r in rids])
+        assert pre.uncaptured() == []
+        assert set(lazy) <= set(pre.captures)
+    assert pre.prefix_hits > 0
+    assert results[0] == results[1]
+    assert counts[0] == counts[1]
+
+
 # -- the wider data-parallel stack at world 1 over NCCL -----------------------
 
 @pytest.fixture(scope="module")

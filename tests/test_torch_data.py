@@ -185,12 +185,61 @@ def test_native_normalize_matches_jax(monkeypatch):
 
 
 def test_observability_arguments_are_not_ported():
+    # the name is historical: ``metrics=`` and ``ring=`` are ported now,
+    # and a loader given them reports into them (held against the JAX
+    # loader in test_metrics_and_ring_match_jax)
+    from apex_tpu_torch.observability import EventRing, MetricsRegistry
     images, labels = _data()
-    for kw in (dict(metrics=object()), dict(ring=object())):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            DataLoader(images, labels, batch_size=8, **kw)
+    reg, ring = MetricsRegistry(), EventRing(capacity=16)
+    loader = DataLoader(images, labels, batch_size=8, native=False,
+                        metrics=reg, ring=ring,
+                        bad_record_fn=lambda i: i == 0)
+    _stream(loader, 5)                     # one epoch: record 0 is in it
+    assert reg.counter("data_batches_total").value == 5.0
+    assert reg.counter("data_samples_quarantined_total").value == 1.0
+    assert [e["kind"] for e in ring.snapshot()] == \
+        ["data_sample_quarantined"]
+    assert loader.ring is ring
     with pytest.raises(TypeError, match="uint8"):
         DataLoader(images.astype(np.float32), labels, batch_size=8)
+
+
+def _metric_values(reg):
+    """name -> (kind, value or histogram count) of a registry."""
+    out = {}
+    for m in reg.collect():
+        val = m.summary()["count"] if hasattr(m, "summary") else m.value
+        out[m.name] = (type(m).__name__, val)
+    return out
+
+
+def test_metrics_and_ring_match_jax(numpy_route):
+    """The loader's ``metrics=`` and ``ring=`` against the JAX loader's on
+    the same data and ``bad_record_fn``: ``stats()`` keys and counts, the
+    registry's metrics, and the ring's ``data_sample_quarantined`` events
+    field for field (the timestamps aside)."""
+    from apex_tpu import observability as jobs
+    from apex_tpu_torch import observability as obs
+    images, labels = _data()
+    bad = {3, 7, 11, 12, 30}
+    got = []
+    for mk, reg, ring in (
+            (DataLoader, obs.MetricsRegistry(), obs.EventRing(64)),
+            (JLoader, jobs.MetricsRegistry(), jobs.EventRing(64))):
+        loader = mk(images, labels, batch_size=8, seed=2, metrics=reg,
+                    ring=ring, bad_record_fn=lambda i: i in bad)
+        _stream(loader, 9)                 # into the second epoch
+        st = loader.stats()
+        wait = st.pop("load_wait")
+        evs = [{k: v for k, v in e.items() if k != "t"}
+               for e in ring.snapshot()]
+        got.append((st, sorted(wait), wait["count"], _metric_values(reg),
+                    evs))
+    assert got[0] == got[1]
+    st, _, count, metrics, evs = got[0]
+    assert count == 9 and st["samples_quarantined"] == len(evs) > 0
+    assert metrics["data_samples_consumed"] == ("Gauge", 72.0)
+    assert {e["kind"] for e in evs} == {"data_sample_quarantined"}
 
 
 _BUILDER = """
