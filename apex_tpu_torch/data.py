@@ -345,6 +345,7 @@ class DataLoader:
         self._batch_index = int(sd.get("batch_index", 0))
         self._quarantined = int(sd.get("samples_quarantined", 0))
         self._perm_epoch = -1            # re-derive the permutation
+        self._g_consumed.set(float(self._samples_consumed))
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         for _ in range(self.batches_per_epoch):

@@ -322,10 +322,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
             from its 20th step: every result the reference's, dead, the
             survivor capturing nothing, the flight ring dumped with the
             failover, MTTR, the fleet and trace records valid.  (ac) two
-            QoS classes (interactive over preemptible batch) with a
-            SloController ticked every tick: every finished request its
-            no-QoS reference's, preemptions, the controller's actions
-            valid; TTFT by class, goodput, SLO attainment.  (ad) a prefix
+            QoS classes (interactive, with a deadline in ticks of a tick
+            clock, over preemptible batch) with a SloController ticked
+            every tick: every finished request its no-QoS reference's,
+            preemptions each an engine's, no failover, some deadlines
+            missed and the controller acting on them within its bound;
+            TTFT by class, goodput, SLO attainment.  (ad) a prefix
             registered after warmup on a third engine, its splice graphs
             capturing during traffic under prefix_affinity with
             step_workers 2; the tokens those of a step_workers 1 run.
@@ -7066,7 +7068,9 @@ FLEET_WAVE_AT = 12                  # fleet ticks between two waves
 FLEET_PLEN, FLEET_NEW = (32, 768), (32, 256)   # all within 1,024 positions
 FLEET_I = 32                        # (ac)'s interactive requests
 FLEET_I_PLEN, FLEET_I_NEW = (32, 128), 32
-FLEET_I_DEADLINE = 60.0             # s: generous, the attainment is read
+FLEET_I_DEADLINE = 3.0              # (ac): ticks of its tick clock; one
+                                    # dispatched at once finishes in its
+                                    # 4th step, one that waits misses
 FLEET_I_WAVE, FLEET_I_AT = 8, 4     # (ac): 8 interactive every 4 ticks
 FLEET_FAULT_AT = 20                 # (ab): replica 1 raises from its 20th
 FLEET_PROFILE_AT = 4                # (aa)'s profiled ticks: the first
@@ -7360,14 +7364,31 @@ def _fleet_ab(engines, traffic, ref, totals, ln_at):
     return out
 
 
+class _TickClock:
+    """(ac)'s fleet clock: one unit a fleet tick, so a deadline is a
+    count of ticks and the requests that miss it are the same on every
+    card (the tick schedule is request-intrinsic)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
 def _fleet_ac(engines, traffic, ref, totals, ln_at):
     """(ac): QoS and SLO.  interactive (weight 4, not preemptible, short
-    prompts, FLEET_I_NEW new tokens, a deadline) over batch (weight 1,
-    preemptible: (aa)'s first wave), preemption on, a SloController
-    ticked once a fleet tick: every finished request, preempted ones
-    included, the one-replica fleet's tokens with no QoS policy; the
-    controller's actions of RECOVERY_ACTION_KINDS and within its bound;
-    its record valid."""
+    prompts, FLEET_I_NEW new tokens, a deadline of FLEET_I_DEADLINE
+    ticks) over batch (weight 1, preemptible: (aa)'s first wave),
+    preemption on, a SloController ticked once a fleet tick, the fleet
+    on a tick clock: every finished request, preempted ones included,
+    the one-replica fleet's tokens with no QoS policy; every batch
+    request finished; no failover, no dead replica, and no failure but
+    a missed deadline; each preemption the fleet counts one that an
+    engine made; attainment below 1 when the controller first acts; its
+    actions of RECOVERY_ACTION_KINDS and within its bound; its record
+    valid."""
+    from apex_tpu_torch import observability as obs
     from apex_tpu_torch.fleet import (AutoscaleConfig, Fleet, QosClass,
                                       QosPolicy, SloController)
     from apex_tpu_torch.fleet.recovery import RECOVERY_ACTION_KINDS
@@ -7387,10 +7408,12 @@ def _fleet_ac(engines, traffic, ref, totals, ln_at):
     sched = [(t, [nb + i for i in idx]) if k else (t, idx)
              for k, (t, idx) in enumerate(sched)]
     # the interactive requests' reference: a one-replica fleet, no QoS
+    # and no deadline
     before = [engines[0].stats()]
     iref, c = _counted(lambda: _fleet_run(
         Fleet([engines[0]], max_queue=FLEET_REQUESTS, step_workers=1),
-        inter, "fleet-ac-ref", _fleet_schedule(len(inter), FLEET_WAVE, 1)))
+        [(p, n, {}) for p, n, _ in inter], "fleet-ac-ref",
+        _fleet_schedule(len(inter), FLEET_WAVE, 1)))
     want, ln = _fleet_expect(engines[:1], before)
     _check_counts("fleet-ac-ref", c, want)
     _add(totals, c)
@@ -7399,52 +7422,88 @@ def _fleet_ac(engines, traffic, ref, totals, ln_at):
     pol = QosPolicy([QosClass("interactive", weight=4, preemptible=False),
                      QosClass("batch", weight=1, preemptible=True)],
                     tenant_class={"alice": "interactive", "bob": "batch"})
+    clock, ring = _TickClock(), obs.EventRing(capacity=1024)
     fl = Fleet(engines, policy="least_loaded", max_queue=FLEET_REQUESTS,
-               step_workers=2, qos=pol)
+               step_workers=2, qos=pol, clock=clock, ring=ring)
     cfg = AutoscaleConfig()
     ctrl = SloController(fl, cfg)
-    acts = []
+    acts, acted_at = [], []
+
+    def on_tick():
+        clock.t += 1.0
+        got = ctrl.tick()
+        if got and not acted_at:
+            acted_at.append({"tick": clock.t,
+                             "slo_attainment": fl.slo.slo_attainment,
+                             "signal": dict(ctrl.last_signal)})
+        acts.extend(got)
+
     before = [e.stats() for e in engines]
     run, counts = _counted(lambda: _fleet_run(
-        fl, mixed, "fleet-ac", sched, on_tick=lambda: acts.extend(
-            ctrl.tick())))
+        fl, mixed, "fleet-ac", sched, on_tick=on_tick))
     fl.close()
     s = fl.stats()
     done = [i for i, r in enumerate(run["results"]) if r is not None]
     assert all(run["results"][i] == expect[i] for i in done), \
         "[fleet-ac] a finished request differs from its reference"
-    assert s["preemptions"] >= 1 and s["failed"] == 0, \
-        (s["preemptions"], s["failed"])
+    assert all(run["results"][i] is not None for i in range(nb)), \
+        "[fleet-ac] a batch request did not finish"
+    # the fleet turns a replica's exception into a failover, and drops
+    # one from a replica's preempt(): neither may hide here
+    assert (s["failovers"], s["dead"]) == (0, 0), \
+        (s["failovers"], s["dead"])
+    assert not ring.snapshot("failover"), ring.snapshot("failover")
+    assert s["failed"] == s["deadline_exceeded"] == len(mixed) - len(done), \
+        (s["failed"], s["deadline_exceeded"], len(mixed) - len(done))
+    evicted = sum(e.stats()["preempted"] - b["preempted"]
+                  for e, b in zip(engines, before))
+    assert s["preemptions"] >= 1 and evicted == s["preemptions"], \
+        (s["preemptions"], evicted)
+    missed = s["deadline_exceeded"]
+    assert 0 < missed < len(inter), (missed, len(inter))
+    assert acts and acted_at, "[fleet-ac] the controller never acted"
+    assert acted_at[0]["slo_attainment"] is not None \
+        and acted_at[0]["slo_attainment"] < 1.0, acted_at[0]
     assert all(a["kind"] in RECOVERY_ACTION_KINDS for a in acts), acts
     crec = JsonlExporter.enrich(ctrl.record())
     assert validate_recovery_record(crec) == [], \
         validate_recovery_record(crec)
-    assert crec["max_actions_in_episode"] <= cfg.max_actions_per_episode
+    assert 1 <= crec["max_actions_in_episode"] \
+        <= cfg.max_actions_per_episode, crec["max_actions_in_episode"]
     frec = JsonlExporter.enrich(fl.record())
     assert validate_fleet_record(frec) == [], validate_fleet_record(frec)
     want, ln = _fleet_expect(engines, before)
     _check_counts("fleet-ac", counts, want)
     _add(totals, counts)
     _fleet_add_ln(ln_at, ln)
+    good = s["slo"]["goodput_tokens"]
     out = {"tok_s": run["tok_s"], "ticks": run["ticks"],
            "finished": len(done), "preemptions": s["preemptions"],
+           "deadline_ticks": FLEET_I_DEADLINE, "deadline_missed": missed,
            "shed": run["shed"],
            "ttft_interactive": _ttft_pcts(run["ttft"], range(nb, len(mixed))),
            "ttft_batch": _ttft_pcts(run["ttft"], range(nb)),
-           "goodput_tokens_per_s": s["goodput_tokens_per_s"],
+           "goodput_tokens": good,
+           "goodput_tokens_per_s": good / run["wall_s"],
            "slo_attainment": s["slo"]["slo_attainment"],
            "classes": {c: {k: b[k] for k in ("finished", "preempted",
                                              "slo_attainment",
                                              "goodput_tokens")}
                        for c, b in s["classes"].items()},
-           "actions": [a["kind"] for a in acts], "launches": counts}
+           "first_action": acted_at[0],
+           "actions": [a["kind"] for a in acts],
+           "episodes": crec["episodes"],
+           "max_actions_in_episode": crec["max_actions_in_episode"],
+           "launches": counts}
     log(f"[fleet-ac] {len(done)} of {len(mixed)} finished, each its "
-        f"reference's tokens; {s['preemptions']} preemptions, "
-        f"{run['shed']} sheds; TTFT p50/p99 interactive "
+        f"reference's tokens; {s['preemptions']} preemptions, each an "
+        f"engine's; {missed} interactive missed the {FLEET_I_DEADLINE:g}-"
+        f"tick deadline, {run['shed']} sheds; TTFT p50/p99 interactive "
         f"{out['ttft_interactive']}, batch {out['ttft_batch']}; goodput "
-        f"{s['goodput_tokens_per_s']:.1f} tok/s, SLO attainment "
-        f"{s['slo']['slo_attainment']}; controller actions "
-        f"{out['actions']}")
+        f"{out['goodput_tokens_per_s']:.1f} tok/s, SLO attainment "
+        f"{s['slo']['slo_attainment']}; controller first acted at tick "
+        f"{acted_at[0]['tick']:g} with attainment "
+        f"{acted_at[0]['slo_attainment']}, actions {out['actions']}")
     return out
 
 

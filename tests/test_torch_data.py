@@ -106,6 +106,9 @@ def test_shards_match_jax(numpy_route):
                                                 12))
     with pytest.raises(ValueError, match="shard_id"):
         DataLoader(images, labels, batch_size=4, shard_id=2, num_shards=2)
+    for mk in (DataLoader, JLoader):
+        with pytest.raises(TypeError, match="uint8"):
+            mk(images.astype(np.float32), labels, batch_size=4)
 
 
 def test_quarantine_matches_jax(numpy_route):
@@ -184,26 +187,6 @@ def test_native_normalize_matches_jax(monkeypatch):
         np.testing.assert_allclose(got, want, **TOL)
 
 
-def test_observability_arguments_are_not_ported():
-    # the name is historical: ``metrics=`` and ``ring=`` are ported now,
-    # and a loader given them reports into them (held against the JAX
-    # loader in test_metrics_and_ring_match_jax)
-    from apex_tpu_torch.observability import EventRing, MetricsRegistry
-    images, labels = _data()
-    reg, ring = MetricsRegistry(), EventRing(capacity=16)
-    loader = DataLoader(images, labels, batch_size=8, native=False,
-                        metrics=reg, ring=ring,
-                        bad_record_fn=lambda i: i == 0)
-    _stream(loader, 5)                     # one epoch: record 0 is in it
-    assert reg.counter("data_batches_total").value == 5.0
-    assert reg.counter("data_samples_quarantined_total").value == 1.0
-    assert [e["kind"] for e in ring.snapshot()] == \
-        ["data_sample_quarantined"]
-    assert loader.ring is ring
-    with pytest.raises(TypeError, match="uint8"):
-        DataLoader(images.astype(np.float32), labels, batch_size=8)
-
-
 def _metric_values(reg):
     """name -> (kind, value or histogram count) of a registry."""
     out = {}
@@ -217,7 +200,8 @@ def test_metrics_and_ring_match_jax(numpy_route):
     """The loader's ``metrics=`` and ``ring=`` against the JAX loader's on
     the same data and ``bad_record_fn``: ``stats()`` keys and counts, the
     registry's metrics, and the ring's ``data_sample_quarantined`` events
-    field for field (the timestamps aside)."""
+    field for field (the timestamps aside); and the registry of a loader
+    resumed from the first one's ``state_dict()``."""
     from apex_tpu import observability as jobs
     from apex_tpu_torch import observability as obs
     images, labels = _data()
@@ -228,17 +212,22 @@ def test_metrics_and_ring_match_jax(numpy_route):
             (JLoader, jobs.MetricsRegistry(), jobs.EventRing(64))):
         loader = mk(images, labels, batch_size=8, seed=2, metrics=reg,
                     ring=ring, bad_record_fn=lambda i: i in bad)
+        assert loader.ring is ring
         _stream(loader, 9)                 # into the second epoch
         st = loader.stats()
         wait = st.pop("load_wait")
         evs = [{k: v for k, v in e.items() if k != "t"}
                for e in ring.snapshot()]
+        resumed = mk(images, labels, batch_size=8, seed=2,
+                     metrics=type(reg)(), bad_record_fn=lambda i: i in bad)
+        resumed.load_state_dict(loader.state_dict())
         got.append((st, sorted(wait), wait["count"], _metric_values(reg),
-                    evs))
+                    evs, _metric_values(resumed._metrics)))
     assert got[0] == got[1]
-    st, _, count, metrics, evs = got[0]
+    st, _, count, metrics, evs, after = got[0]
     assert count == 9 and st["samples_quarantined"] == len(evs) > 0
     assert metrics["data_samples_consumed"] == ("Gauge", 72.0)
+    assert after["data_samples_consumed"] == ("Gauge", 72.0)
     assert {e["kind"] for e in evs} == {"data_sample_quarantined"}
 
 
