@@ -17,7 +17,15 @@ keeps call ``i`` exactly step ``i``:
 - every later call copies its batch into the static buffers and replays.
 
 Every call returns copies of the step's outputs, which the next call
-leaves alone.
+leaves alone.  A graph is shape-static: a batch of other shapes or dtypes
+is refused, naming the culprit argument as the compilation ledger's
+retrace differ names it.
+
+The compilation ledger (``observability.compilation``): a step or a
+function instrumented under an entry label (``instrument``) records its
+capture there, timed, as the JAX package records a jit trace; on the CPU,
+or eagerly, its first call.  A refused batch is recorded through the
+differ before the ``ValueError``.
 
 A capture that fails raises; nothing falls back to the eager step.  The
 step may only touch state in place (the amp optimizer, its scalers and
@@ -43,11 +51,13 @@ one after another on one stream.
 from __future__ import annotations
 
 import gc
+import time
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
 
 from . import ops
+from .utils.profiler import launch_guard
 
 __all__ = ["CapturedStep", "CapturedFn", "run_steps", "tree_map",
            "leaves", "cuda_generators"]
@@ -138,26 +148,38 @@ class CapturedStep:
         self.static_out = None
         # the kernel launches of one replay, recorded at capture
         self.launches: Dict[str, int] = {}
+        # the allocator's counts around the capture (memory.memory_plan)
+        self.memory: Dict[str, int] = {}
+        # the compilation ledger's closure (``instrument``) and the
+        # signature the graph was captured at
+        self.closure = None
+        self.signature: Optional[Dict[str, Any]] = None
+
+    def instrument(self, closure) -> None:
+        """Record the capture in the ledger under ``closure`` (an
+        ``observability.compilation.Closure``)."""
+        self.closure = closure
 
     def _run(self, batch: Any) -> Any:
         return run_steps(self.step_fn, batch, self.steps_per_call)
 
     def __call__(self, batch: Any) -> Any:
-        batch = tree_map(self._on_device, batch)
-        if self.calls == 0:
-            out = self._warm_up(batch)
-        else:
-            if self.graph is None:
-                self._capture(batch)
+        with launch_guard():
+            batch = tree_map(self._on_device, batch)
+            if self.calls == 0:
+                out = self._warm_up(batch)
             else:
-                self._feed(batch)
-            self.graph.replay()
-            ops.add_launches(self.launches)
-            self.replays += 1
-            # the graph's outputs are overwritten by the next replay
-            out = tree_map(torch.clone, self.static_out)
-        self.calls += 1
-        return out
+                if self.graph is None:
+                    self._capture(batch)
+                else:
+                    self._feed(batch)
+                self.graph.replay()
+                ops.add_launches(self.launches)
+                self.replays += 1
+                # the graph's outputs are overwritten by the next replay
+                out = tree_map(torch.clone, self.static_out)
+            self.calls += 1
+            return out
 
     def _on_device(self, t: torch.Tensor) -> torch.Tensor:
         if t.device.type == "cuda":
@@ -175,22 +197,37 @@ class CapturedStep:
         if len(new) != len(static) or any(
                 a.shape != b.shape or a.dtype != b.dtype
                 for a, b in zip(new, static)):
+            from .observability import compilation
+            sig = _batch_signature(batch)
+            if self.closure is not None:
+                culprits = self.closure.refuse(sig)
+            else:
+                culprits = compilation.diff_signatures(self.signature, sig)
             raise ValueError(
                 "a captured step takes batches of the shapes and dtypes it "
-                "was captured with: "
-                f"{[(tuple(b.shape), b.dtype) for b in static]}, got "
-                f"{[(tuple(a.shape), a.dtype) for a in new]}")
+                "was captured with; "
+                f"{compilation.culprit_text(culprits)}")
         for s, b in zip(static, new):
             s.copy_(b, non_blocking=True)
 
     def _capture(self, batch: Any) -> None:
         self.static_batch = tree_map(torch.clone, batch)
+        self.signature = _batch_signature(batch)
         out: List[Any] = []
+        t0 = time.perf_counter()
         # a private memory pool (the default of torch.cuda.graph)
-        self.graph, self.launches = _capture(
+        self.graph, self.launches, self.memory = _capture(
             lambda: out.append(self._run(self.static_batch)),
             self.generators)
         self.static_out = out[0]
+        if self.closure is not None:
+            self.closure.record(self.signature, time.perf_counter() - t0)
+
+
+def _batch_signature(batch: Any) -> Dict[str, Any]:
+    """A step's abstract signature: its one argument, the batch."""
+    from .observability import compilation
+    return compilation.abstract_signature((batch,), arg_names=("batch",))
 
 
 def _on_side_stream(fn: Callable, device: torch.device) -> Any:
@@ -211,9 +248,12 @@ def _on_side_stream(fn: Callable, device: torch.device) -> Any:
 def _capture(fn: Callable, generators: Iterable[torch.Generator] = (),
              pool=None):
     """``fn()`` captured into a new CUDA graph (in ``pool``, else a
-    private one), the CUDA generators registered; returns the graph and
-    the kernel launches of one replay.  The capture's own launches are
-    taken back from the counts."""
+    private one), the CUDA generators registered; returns the graph, the
+    kernel launches of one replay and the allocator's counts around the
+    capture (``allocated_before``, ``reserved_before``,
+    ``reserved_after``: what ``observability.memory.memory_plan``
+    reads).  The capture's own launches are taken back from the
+    counts."""
     graph = torch.cuda.CUDAGraph()
     generators = list(generators)
     if generators:
@@ -226,13 +266,19 @@ def _capture(fn: Callable, generators: Iterable[torch.Generator] = (),
         for g in generators:
             graph.register_generator_state(g)
     before = ops.launch_counts()
+    # torch.cuda.graph releases the allocator's cache before it captures:
+    # release it first, so the reservation around the capture is the pool's
+    torch.cuda.empty_cache()
+    dev = torch.cuda.current_device()
+    mem = {"allocated_before": torch.cuda.memory_allocated(dev),
+           "reserved_before": torch.cuda.memory_reserved(dev)}
     # no garbage collection during the capture: a collection may free a
     # dead cycle holding another CUDA graph, and destroying a graph while a
     # stream captures invalidates the capture
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, pool=pool):
+        with launch_guard(), torch.cuda.graph(graph, pool=pool):
             fn()
     finally:
         if collecting:
@@ -243,7 +289,8 @@ def _capture(fn: Callable, generators: Iterable[torch.Generator] = (),
         # a capture launches nothing: its counts come back with each
         # replay
         ops.add_launches(launches, -1)
-    return graph, launches
+    mem["reserved_after"] = torch.cuda.memory_reserved(dev)
+    return graph, launches, mem
 
 
 class CapturedFn:
@@ -263,6 +310,25 @@ class CapturedFn:
         self.replays = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
+        self.memory: Dict[str, int] = {}
+        self.closure = None
+
+    def instrument(self, closure) -> None:
+        """Record the capture (on the CPU or eagerly, the first call) in
+        the ledger under ``closure`` (an
+        ``observability.compilation.Closure``), at the empty signature: the
+        function takes no arguments."""
+        self.closure = closure
+
+    def _timed(self, fn: Callable[[], Any]) -> Any:
+        """``fn()``, recorded in the ledger with its wall time when the
+        function is instrumented."""
+        if self.closure is None:
+            return fn()
+        t0 = time.perf_counter()
+        out = fn()
+        self.closure.record({}, time.perf_counter() - t0)
+        return out
 
     @property
     def may_capture(self) -> bool:
@@ -272,15 +338,19 @@ class CapturedFn:
                 and self.graph is None)
 
     def __call__(self) -> None:
-        if self.device.type != "cuda" or self.eager:
-            self.fn()
-        elif self.calls == 0:
-            _on_side_stream(self.fn, self.device)
-        else:
-            if self.graph is None:
-                self.graph, self.launches = _capture(self.fn,
-                                                     pool=self.pool)
-            self.graph.replay()
-            ops.add_launches(self.launches)
-            self.replays += 1
-        self.calls += 1
+        with launch_guard():
+            if self.device.type != "cuda" or self.eager:
+                if self.calls == 0:
+                    self._timed(self.fn)
+                else:
+                    self.fn()
+            elif self.calls == 0:
+                _on_side_stream(self.fn, self.device)
+            else:
+                if self.graph is None:
+                    self.graph, self.launches, self.memory = self._timed(
+                        lambda: _capture(self.fn, pool=self.pool))
+                self.graph.replay()
+                ops.add_launches(self.launches)
+                self.replays += 1
+            self.calls += 1

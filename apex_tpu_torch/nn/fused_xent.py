@@ -21,11 +21,26 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import _launches
+
 __all__ = ["linear_cross_entropy"]
 
 _HALF = (torch.bfloat16, torch.float16)
 
 
+def _dot_f32_cost(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """The cost model's count of the JAX package's ``dot_general`` with
+    ``preferred_element_type=float32``: a matmul in the operands' dtype
+    (the widening on the CPU is this function's own, hidden from the
+    count, so the CPU and the card count alike)."""
+    M, K = a.shape
+    N = b.shape[1]
+    return {"prim": "mm", "flops": 2 * M * N * K, "transcendentals": 0,
+            "matmul_flops": 2 * M * N * K, "matmul_dtype": a.dtype,
+            "bytes": a.element_size() * (M * K + K * N) + 4 * M * N}
+
+
+@_launches.priced(_dot_f32_cost)
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with an fp32 result from fp32 sums, whatever the operands'
     dtype."""

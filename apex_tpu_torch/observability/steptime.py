@@ -29,10 +29,11 @@ bucket by its ``ici_wire_bytes`` / ``dcn_wire_bytes``.  Pass
 ``ici_step=`` (a callable running only the in-node collectives) to
 replace the byte-proportional level split with a measured one.
 
-``attribute_step(..., capture_timeline=True)`` (the JAX package's
-measured device-timeline split) waits for the port's ``timeline.py``,
-ROADMAP.md queue 1 item 9: it raises ``NotImplementedError``.
-:func:`timeline_consistency` is host math and is ported.
+``attribute_step(..., capture_timeline=True)`` also captures the full
+step's device timeline (``observability.timeline.capture``: the card's
+kernels under ``torch.profiler``) and carries the measured split, its
+``measured_overlap_fraction`` and the :func:`timeline_consistency`
+verdict against the differenced one.
 """
 
 from __future__ import annotations
@@ -184,11 +185,13 @@ def attribute_step(full_step: Callable, compute_step: Callable,
     reduce-after-backward shape — every attribution record carries
     the fields either way (schema v9).
 
-    ``capture_timeline=True`` (the JAX package's measured device
-    timeline, with ``capture_dir``, ``capture_iters``,
-    ``timeline_modules`` and ``consistency_tol``) raises
-    ``NotImplementedError``: the port's ``timeline.py`` is ROADMAP.md
-    queue 1 item 9.
+    ``capture_timeline=True`` additionally captures ``capture_iters``
+    (default ``iters``) full steps under ``torch.profiler`` into
+    ``capture_dir`` (``timeline.capture``, restricted to
+    ``timeline_modules`` when given) and returns the measured
+    attribution as ``timeline``, its ``measured_overlap_fraction``, and
+    ``consistency`` (:func:`timeline_consistency` at
+    ``consistency_tol``).
 
     Returns the attribution dict (all times in ms)::
 
@@ -196,11 +199,6 @@ def attribute_step(full_step: Callable, compute_step: Callable,
          overlap_fraction, ici_ms, dcn_ms, overlap_mode, n_stages,
          issue_order, buckets: [...], compute_twin_excess_ms?}
     """
-    if capture_timeline:
-        raise NotImplementedError(
-            "attribute_step(capture_timeline=True) needs the port's "
-            "observability.timeline, which is not ported yet (ROADMAP.md "
-            "queue 1 item 9)")
     step_ms = blocked_time(full_step, *args, iters=iters,
                            warmup=warmup) * 1e3
     compute_ms = blocked_time(compute_step, *args, iters=iters,
@@ -286,4 +284,15 @@ def attribute_step(full_step: Callable, compute_step: Callable,
     if twin_excess > 0.0:
         out["compute_twin_excess_ms"] = round(twin_excess, 4)
 
+    if capture_timeline:
+        from . import timeline as tlmod
+        n = capture_iters if capture_iters is not None else iters
+        tl = tlmod.capture(full_step, *args, iters=max(n, 1),
+                           logdir=capture_dir,
+                           modules=timeline_modules)
+        out["timeline"] = tl
+        out["measured_overlap_fraction"] = \
+            tl["measured_overlap_fraction"]
+        out["consistency"] = timeline_consistency(
+            out, tl, tol=consistency_tol)
     return out

@@ -32,9 +32,10 @@ counter carrying the volume):
   ``max_rel_dev``);
 - **recompilation_storm** — repeated signature-change retraces of one
   entry within a bounded observation window, fed by ``xla_retrace``
-  flight-ring events (the JAX package's compilation ledger writes them;
-  the port's capture ledger is ROADMAP.md queue 1 item 9, so in the port
-  they come from whatever producer appends that kind).
+  flight-ring events, which the compilation ledger
+  (``observability.compilation``) appends for every signature-change
+  retrace: a refused batch shape of a captured step, an instrumented
+  function called at a new shape.
 
 Outputs: flight-ring events (``run_stall`` / ``run_loss_spike`` /
 ``run_nan`` / ``run_throughput_regression`` /

@@ -8,7 +8,11 @@ have a plain ``extern "C"`` interface (no PyTorch headers), so a build
 takes seconds.  :func:`build_all` starts one ``nvcc`` per source, all at
 once, and waits for them together.
 
-Nothing here runs at import time: the first kernel launch builds.
+Nothing here runs at import time: the first kernel launch builds.  Each
+source loaded is recorded once in the compilation ledger
+(``observability.compilation.record_build``) as ``nvcc:<name>``: a
+``hit`` when its library was already built, a ``miss`` with its build
+seconds when ``nvcc`` ran.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -126,6 +131,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         todo = [n for n in names if n not in _LIBS]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
+        t0 = time.perf_counter()
         for n in todo:
             out = _target(n)
             if out.exists():
@@ -137,8 +143,12 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
                                          stderr=subprocess.STDOUT,
                                          text=True), tmp, out)
         failed = []
+        # each source's build seconds: from the start of all of them to
+        # when its nvcc was collected
+        seconds = {}
         for n, (proc, tmp, out) in procs.items():
             logs[n], _ = proc.communicate()
+            seconds[n] = time.perf_counter() - t0
             if proc.returncode != 0:
                 os.unlink(tmp)
                 failed.append(f"--- {n}.cu (exit {proc.returncode})\n"
@@ -149,6 +159,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         for n in todo:
             _LIBS[n] = _load(n, _target(n))
+    from ..observability import compilation
+    for n in todo:
+        compilation.record_build(n, seconds.get(n, 0.0), n not in procs)
     return logs
 
 
@@ -170,11 +183,13 @@ def check(err: int, fn: str) -> None:
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """The dispatch rule: True when every tensor is on CUDA (launch the
     kernel), False when every one is on the CPU (take the plain PyTorch
-    version).  Anything else raises: there is no fallback."""
+    version) or every one is a meta tensor (the plain version's operators
+    with nothing computed: how a cost count prices a wrapper).  Anything
+    else raises: there is no fallback."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:
         return True
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return False
     raise ValueError(f"kernel operands must all be CUDA or all be CPU "
                      f"tensors, got devices {sorted(kinds)}")

@@ -219,8 +219,78 @@ def _dkv_plain(q3, k3, v3, do3, lse, delta, H, scale, causal, kv_mask,
     return dk.to(k3.dtype), dv.to(v3.dtype)
 
 
+# -- declared costs (``_launches.priced``) --------------------------------------
+# The convention is the JAX package's dense attention path, which it runs
+# wherever the flash kernel does not (``transformer/attention.py:136-156``),
+# priced by the cost model: the full (T, S) scores whether causal or not
+# (no causal half taken off), the forward's two matmuls (4·BH·T·S·D), the
+# backward's four (8·BH·T·S·D: dP and dQ to ``flash_dq``, dV and dK to
+# ``flash_dkv``), in the dtype of q; the forward's elementwise work (two
+# converts, the scale, the softmax: 7s − r for s scores in r rows, s
+# exponentials) and the backward's (9s + r, all charged to ``flash_dq``);
+# a mask's select (s), a causal mask's construction (T + T·S), segment
+# ids' compare (s) and dropout's counter hash and scale (21s forward, 2s
+# each backward kernel).  Bytes: the dense path's operands and results,
+# operator by operator, as the cost model counts them (about 70 bytes a
+# score forward, 98 backward, 18 and 21 more under a mask).
+
+def _scores_shape(q3, k3, H):
+    BH, T, D = q3.shape
+    S = k3.shape[1]
+    return BH, T, S, D, BH * T * S, BH * T
+
+
+def _masked(causal, kv_mask, segment_ids) -> bool:
+    return bool(causal or kv_mask is not None or segment_ids is not None)
+
+
+def _mask_flops(q3, k3, causal, kv_mask, segment_ids):
+    _, T, S, _, s, _ = _scores_shape(q3, k3, 1)
+    return (s * _masked(causal, kv_mask, segment_ids)
+            + (T + T * S) * bool(causal) + s * (segment_ids is not None))
+
+
+def _fwd_cost(q3, k3, v3, H, scale, causal=False, kv_mask=None,
+              segment_ids=None, seed=None, rate=0.0):
+    BH, T, S, D, s, r = _scores_shape(q3, k3, H)
+    mm = 4 * BH * T * S * D
+    it = q3.element_size()
+    return {"flops": mm + 7 * s - r
+            + _mask_flops(q3, k3, causal, kv_mask, segment_ids)
+            + 21 * s * bool(rate),
+            "transcendentals": s, "matmul_flops": mm,
+            "matmul_dtype": q3.dtype,
+            "bytes": (70 + 18 * _masked(causal, kv_mask, segment_ids)) * s
+            + 7 * it * (q3.numel() + k3.numel())}
+
+
+def _dq_cost(q3, k3, v3, do3, lse, delta, H, scale, causal=False,
+             kv_mask=None, segment_ids=None, seed=None, rate=0.0):
+    BH, T, S, D, s, r = _scores_shape(q3, k3, H)
+    mm = 4 * BH * T * S * D
+    it = q3.element_size()
+    return {"flops": mm + 9 * s + r
+            + s * _masked(causal, kv_mask, segment_ids)
+            + 2 * s * bool(rate),
+            "transcendentals": 0, "matmul_flops": mm,
+            "matmul_dtype": q3.dtype,
+            "bytes": (60 + 21 * _masked(causal, kv_mask, segment_ids)) * s
+            + 6 * it * (q3.numel() + k3.numel()) + 8 * r}
+
+
+def _dkv_cost(q3, k3, v3, do3, lse, delta, H, scale, causal=False,
+              kv_mask=None, segment_ids=None, seed=None, rate=0.0):
+    BH, T, S, D, s, r = _scores_shape(q3, k3, H)
+    mm = 4 * BH * T * S * D
+    it = q3.element_size()
+    return {"flops": mm + 2 * s * bool(rate), "transcendentals": 0,
+            "matmul_flops": mm, "matmul_dtype": q3.dtype,
+            "bytes": 38 * s + 6 * it * (q3.numel() + k3.numel())}
+
+
 # -- kernel wrappers ----------------------------------------------------------
 
+@_launches.priced(_fwd_cost)
 def flash_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, H: int,
               scale: float, causal: bool = False,
               kv_mask: Optional[torch.Tensor] = None,
@@ -263,6 +333,7 @@ def _bwd_args(q3, k3, v3, do3, lse, delta, H, kv_mask, segment_ids, seed,
                                        segment_ids, seed if rate else None))
 
 
+@_launches.priced(_dq_cost)
 def flash_dq(q3, k3, v3, do3, lse, delta, H: int, scale: float,
              causal: bool = False, kv_mask=None, segment_ids=None, seed=None,
              rate: float = 0.0) -> torch.Tensor:
@@ -289,6 +360,7 @@ def flash_dq(q3, k3, v3, do3, lse, delta, H: int, scale: float,
 flash_dq.launches = 0
 
 
+@_launches.priced(_dkv_cost)
 def flash_dkv(q3, k3, v3, do3, lse, delta, H: int, scale: float,
               causal: bool = False, kv_mask=None, segment_ids=None, seed=None,
               rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -115,6 +115,7 @@ def _fwd_plan(n1: int, n2: int, itemsize: int, aligned: bool) -> FwdPlan:
     return FwdPlan(path, warps, 1, rows, -(-groups // warps))
 
 
+@_launches.priced()
 def layer_norm_fwd(x2: torch.Tensor, w: Optional[torch.Tensor],
                    b: Optional[torch.Tensor], eps: float
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -210,6 +211,7 @@ def _aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+@_launches.priced()
 def layer_norm_bwd(dy: torch.Tensor, x2: torch.Tensor,
                    w: Optional[torch.Tensor], mean: torch.Tensor,
                    inv: torch.Tensor

@@ -61,6 +61,7 @@ def _scale_plain(x, scale, out):
     return out, found
 
 
+@_launches.priced()
 def multi_tensor_scale(x: torch.Tensor, scale: Scalar,
                        out: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -102,6 +103,7 @@ def _axpby_plain(a, b, x, y, arg_to_check, out):
     return out, found
 
 
+@_launches.priced()
 def multi_tensor_axpby(a: Scalar, b: Scalar, x: torch.Tensor,
                        y: torch.Tensor, arg_to_check: int = -1,
                        out: Optional[torch.Tensor] = None
@@ -142,6 +144,7 @@ def _l2norm_plain(x):
     return torch.sqrt(torch.sum(x * x))
 
 
+@_launches.priced()
 def multi_tensor_l2norm(x: torch.Tensor) -> torch.Tensor:
     """fp32 global L2 norm of the flat buffer, as a 0-d tensor.  On the
     card the sum runs in a fixed order (per-block partials, then one
@@ -224,6 +227,7 @@ def _l2norm_per_tensor_plain(x, table):
             else torch.zeros(0, dtype=torch.float32, device=x.device))
 
 
+@_launches.priced()
 def multi_tensor_l2norm_per_tensor(x: torch.Tensor,
                                    table: ChunkTable) -> torch.Tensor:
     """fp32 sum of squares of each tensor of the flat buffer ``x``, as a

@@ -58,6 +58,7 @@ def _fwd_plain(x, mean, inv, w, b):
     return y.to(x.dtype)
 
 
+@_launches.priced()
 def syncbn_fwd(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
                w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The normalize-and-affine pass over NCHW ``x`` (see module doc)."""
@@ -89,6 +90,7 @@ def _bwd_plain(dy, x, mean, inv, w):
     return dx, d.sum(dim=(2, 3)), (d * xhat).sum(dim=(2, 3))
 
 
+@_launches.priced()
 def syncbn_bwd(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
                inv: torch.Tensor, w: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

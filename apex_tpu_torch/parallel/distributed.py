@@ -723,7 +723,11 @@ def make_step(step_fn: Callable, module: torch.nn.Module,
     generator) are registered with the graph.  The step's state lives in
     the model and the optimizer (a ZeRO-sharded one too) and is updated in
     place, which is what ``donate_state`` asks of the JAX package's step;
-    ``donate_state=False`` is refused."""
+    ``donate_state=False`` is refused.
+
+    The compilation ledger (``observability.compilation``) records the
+    capture under the entry ``make_step``, timed; on the CPU, the first
+    call at each batch signature."""
     K = int(steps_per_call)
     if K < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {K}")
@@ -731,12 +735,17 @@ def make_step(step_fn: Callable, module: torch.nn.Module,
         raise ValueError("donate_state=False: the port's step updates the "
                          "model and the optimizer in place, so its state "
                          "is always donated")
+    from ..observability import compilation
     device = next(module.parameters()).device
     if device.type != "cuda":
-        return lambda batch: _graph.tree_map(
-            torch.clone, _graph.run_steps(step_fn, batch, K))
-    return _graph.CapturedStep(step_fn, K, device,
-                               _graph.cuda_generators(module))
+        def train(batch):
+            return _graph.tree_map(torch.clone,
+                                   _graph.run_steps(step_fn, batch, K))
+        return compilation.instrumented_jit(train, "make_step",
+                                            arg_names=("batch",))
+    return compilation.instrumented_jit(
+        _graph.CapturedStep(step_fn, K, device,
+                            _graph.cuda_generators(module)), "make_step")
 
 
 # -- the wrapper --------------------------------------------------------------

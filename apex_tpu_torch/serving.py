@@ -61,6 +61,10 @@ output depend on its co-tenants.
 captured) and the paged engine's extra request, then rewinds the request
 ids, the totals and the metrics to where the JAX engine stands after its
 own warmup.
+
+Every method that launches on the card (``add_request``, ``cancel``,
+``step``, ``warmup``) holds ``utils.profiler.launch_guard()``, so an
+on-demand profiler window (``/profilez``) opens and closes between them.
 """
 
 from __future__ import annotations
@@ -75,8 +79,10 @@ import torch
 from ._graph import CapturedFn, leaves
 from .models.sampling import filter_logits
 from .models.speculative import _head_logits, spec_iteration
-from .observability import MetricsRegistry
+from .observability import MetricsRegistry, compilation
+from .observability import memory as obs_memory
 from .observability.tracing import maybe_event, maybe_span
+from .utils.profiler import launch_guard
 
 __all__ = ["Engine", "PagedEngine", "Seq2SeqEngine",
            "DONATION_BLOCKLIST", "STEP_K_ARG_NAMES",
@@ -323,15 +329,23 @@ class _SlotScheduler:
         engine's graphs share one pool."""
         self.device = device
         self._graphs: Dict[CapturedFn, str] = {}
+        self._closures: Dict[str, compilation.Closure] = {}
         self._pool = (torch.cuda.graph_pool_handle()
                       if device.type == "cuda" else None)
 
     def _graph(self, name: str, fn: Callable[[], None]) -> CapturedFn:
+        """A graph of census entry ``name``, under the compilation ledger:
+        its capture (on the CPU its first call) is a trace of the entry;
+        the graphs of one entry share one closure."""
         def run():
             with torch.no_grad():
                 fn()
         g = CapturedFn(run, self.device, pool=self._pool)
         self._graphs[g] = name
+        clo = self._closures.get(name)
+        if clo is None:
+            clo = self._closures[name] = compilation.Closure(name)
+        compilation.instrumented_jit(g, name, closure=clo)
         return g
 
     @property
@@ -468,6 +482,7 @@ class _SlotScheduler:
     def _can_admit_direct(self, prompt, max_new_tokens) -> bool:
         return bool(self._free)
 
+    @launch_guard()
     def add_request(self, prompt: Sequence[int], max_new_tokens: int,
                     eos_token_id: Optional[int] = None,
                     seed: Optional[int] = None,
@@ -551,6 +566,7 @@ class _SlotScheduler:
     def is_finished(self, rid: int) -> bool:
         return rid in self._finished
 
+    @launch_guard()
     def cancel(self, rid: int) -> bool:
         """Abandon a request: a waiting one leaves the queue, a live one
         frees its slot and freezes on the device (its tokens never enter
@@ -646,6 +662,7 @@ class _SlotScheduler:
         for name, fields in metrics.items():
             _set_metric_state(self.metrics._metrics[name], fields)
 
+    @launch_guard()
     def warmup(self):
         """Capture the engine's admission and decode graphs before
         traffic: the JAX package's throwaway traffic, then a second round
@@ -715,18 +732,22 @@ class _SlotScheduler:
         return frag
 
     def _memory(self) -> Dict[str, Optional[int]]:
-        """Device memory on the card: the caching allocator's allocated
-        bytes (``device_live_bytes``), what it holds from the device,
-        graph pools included (``hbm_bytes_in_use``), and the card's
-        total; None on the CPU."""
+        """Device memory on the card, through
+        ``observability.memory.record_live_arrays`` (which also sets this
+        engine's ``device_live_bytes`` / ``device_live_arrays`` /
+        ``device_bytes_in_use`` / ``device_bytes_limit`` gauges): the
+        caching allocator's allocated bytes (``device_live_bytes``), what
+        it holds from the device, graph pools included
+        (``hbm_bytes_in_use``), and the card's total; None on the CPU,
+        where the census is a walk over every live object, too slow for a
+        ``stats()`` that a fleet reads at each admission."""
         dev = getattr(self, "device", torch.device("cpu"))
         if dev.type != "cuda":
             return {"live": None, "in_use": None, "limit": None}
-        return {"live": int(torch.cuda.memory_allocated(dev)),
-                "in_use": int(torch.cuda.memory_stats(dev).get(
-                    "reserved_bytes.all.current", 0)),
-                "limit": int(torch.cuda.get_device_properties(
-                    dev).total_memory)}
+        census = obs_memory.record_live_arrays(self.metrics, device=dev)
+        hw = census["memory_stats"]
+        return {"live": census["bytes"], "in_use": hw["bytes_in_use"],
+                "limit": hw["bytes_limit"]}
 
     def stats(self) -> Dict[str, Any]:
         """Scheduler + telemetry snapshot, the JAX engines' keys: counts,
@@ -740,11 +761,6 @@ class _SlotScheduler:
             help="device bytes held by this engine's KV buffers"
         ).set(kv)
         mem = self._memory()
-        if mem["live"] is not None:
-            self.metrics.gauge(
-                "device_live_bytes",
-                help="bytes the device allocator holds for live "
-                     "tensors").set(mem["live"])
         occupancy = (mem["in_use"] / mem["limit"] if mem["limit"]
                      else None)
         return {"live": len(self._by_slot),
@@ -1156,6 +1172,7 @@ class Engine(_SlotScheduler, _Sampler):
             raise ValueError(f"prompt length {len(prompt)} not in "
                              f"[1, {self.buf_len})")
 
+    @launch_guard()
     def step(self) -> Dict[int, Any]:
         """One decode dispatch, a WINDOW of ``window`` ticks (or one
         speculative round): {request_id: [tokens]} for every live request
@@ -1595,6 +1612,7 @@ class PagedEngine(_SlotScheduler, _Sampler):
         return (bool(self._free) and self._free_top_h
                 >= self._blocks_for(prompt, max_new_tokens))
 
+    @launch_guard()
     def add_request(self, prompt, max_new_tokens, eos_token_id=None,
                     seed=None, temperature=None, tenant=None):
         if self._free and self._free_top_h < self._blocks_for(
@@ -1688,6 +1706,7 @@ class PagedEngine(_SlotScheduler, _Sampler):
             or min(r.max_new, self.buf_len - r.prompt_len)
             - len(r.generated) <= self.window for r in live)
 
+    @launch_guard()
     def step(self) -> Dict[int, Any]:
         """One decode window: stage the queue head, run the K ticks, read
         tokens, validity, the admission trace and the block headroom in
@@ -2000,6 +2019,7 @@ class Seq2SeqEngine(_SlotScheduler):
         self._by_slot[slot] = _Request(rid, slot, len(src), max_new,
                                        eos_token_id)
 
+    @launch_guard()
     def step(self) -> Dict[int, Any]:
         """One decoder window; {rid: [tokens]} for live requests."""
         if not self._by_slot and self._waiting:

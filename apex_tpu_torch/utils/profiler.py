@@ -9,6 +9,16 @@ pushes).  ``start_profile``/``stop_profile`` open and close a
 ``torch.profiler`` window, the ``--prof`` window of the imagenet example,
 and write a chrome trace (``trace.json``) into the window's own capture
 directory.
+
+A window may be opened and closed from another thread than the one that
+launches work (the introspection server's ``/profilez``).  Starting or
+stopping the profiler while another thread is inside a CUDA graph's
+replay or capture can hang the process, so the two are kept apart: code
+that launches work holds :func:`launch_guard` (the engines' ``step`` and
+``warmup``, every captured graph's capture and replay), and the window
+opens and closes only while no such hold is in flight, after draining
+the card.  A loop that launches outside those holds can take
+``launch_guard()`` itself.
 """
 
 from __future__ import annotations
@@ -25,7 +35,8 @@ import torch
 
 __all__ = ["range_push", "range_pop", "nvtx_range", "annotate",
            "start_profile", "stop_profile", "profile", "profiling_active",
-           "current_capture_dir", "last_capture_dir", "AverageMeter"]
+           "current_capture_dir", "last_capture_dir", "launch_guard",
+           "AverageMeter"]
 
 _tls = threading.local()
 
@@ -83,6 +94,82 @@ def annotate(name: Optional[str] = None):
     return deco
 
 
+class _LaunchGate:
+    """Shared holds for code that launches work, exclusive holds for a
+    profiler window's opening and closing.  A waiting exclusive hold
+    stops new shared holds, so a steady stream of launches cannot starve
+    it; a thread's shared holds nest."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._shared = 0
+        self._exclusive = False
+        self._waiting = 0
+        self._tls = threading.local()
+
+    def _depth(self) -> int:
+        return getattr(self._tls, "depth", 0)
+
+    @contextlib.contextmanager
+    def shared(self):
+        depth = self._depth()
+        if depth == 0:
+            with self._cond:
+                while self._exclusive or self._waiting:
+                    self._cond.wait()
+                self._shared += 1
+        self._tls.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._tls.depth = depth
+            if depth == 0:
+                with self._cond:
+                    self._shared -= 1
+                    if not self._shared:
+                        self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        if self._depth():
+            # this thread is inside a launch: its own work is not in flight
+            # while it runs this, and it cannot wait for itself
+            yield
+            return
+        with self._cond:
+            self._waiting += 1
+            try:
+                while self._exclusive or self._shared:
+                    self._cond.wait()
+            finally:
+                self._waiting -= 1
+            self._exclusive = True
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._exclusive = False
+                self._cond.notify_all()
+
+
+_GATE = _LaunchGate()
+
+
+def launch_guard():
+    """Context manager held around work that launches on the card (see
+    the module doc): a profiler window does not open or close inside
+    it.  Nested holds on one thread are free."""
+    return _GATE.shared()
+
+
+def _drain() -> None:
+    """Wait for every card of the process to finish what it was given
+    (nothing to do where CUDA was never initialised)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+
+
 def _default_logdir() -> str:
     return os.path.join(tempfile.gettempdir(), "apex_tpu_torch_profile")
 
@@ -102,10 +189,12 @@ def start_profile(logdir: Optional[str] = None) -> str:
     GPU).  Reentrant: a nested call joins the open window and returns its
     directory.  Returns the window's capture directory, a fresh
     subdirectory of ``logdir`` (default: ``apex_tpu_torch_profile`` in
-    the temporary directory)."""
+    the temporary directory).  It opens once no :func:`launch_guard` hold
+    is in flight and the card is drained."""
     global _trace_depth, _capture_dir, _profiler
-    with _trace_lock:
+    with _GATE.exclusive(), _trace_lock:
         if _trace_depth == 0:
+            _drain()
             cap = os.path.join(
                 logdir or _default_logdir(),
                 f"capture_{os.getpid()}_{next(_capture_seq):04d}")
@@ -127,14 +216,17 @@ def start_profile(logdir: Optional[str] = None) -> str:
 def stop_profile() -> Optional[str]:
     """Close the window: only the outermost matching call stops the
     profiler, writes ``trace.json`` and returns the capture directory; an
-    inner or unmatched call returns None."""
+    inner or unmatched call returns None.  The outermost stop waits, as
+    the start does, for the launches in flight and drains the card, so the
+    window holds all the work launched in it."""
     global _trace_depth, _profiler
-    with _trace_lock:
+    with _GATE.exclusive(), _trace_lock:
         if _trace_depth == 0:
             return None
         _trace_depth -= 1
         if _trace_depth:
             return None
+        _drain()
         prof, _profiler = _profiler, None
         prof.stop()
         prof.export_chrome_trace(os.path.join(_capture_dir, "trace.json"))

@@ -12,13 +12,19 @@
     python3 chip_smoke.py --legacy
     python3 chip_smoke.py --fleet
     python3 chip_smoke.py --elastic
+    python3 chip_smoke.py --observability
+    python3 chip_smoke.py --profilez-race guarded|raw
     python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
 
 The second form runs phases 1, 2 and 15 alone, the third phases 1, 2 and
 16 (with 16's launch-count checks), the fourth phases 1, 2 and 17, the
 fifth 1, 2 and 18, the sixth 1, 2 and 19, the seventh 1, 2 and 20, the
 eighth 1, 2 and 21, the ninth 1, 2 and 22, the tenth 1, 2 and 23, the
-eleventh 1, 2 and 24.  The last builds the
+eleventh 1, 2 and 24, the twelfth 1, 2 and 25.  The thirteenth runs
+(aj)'s engine without pause while a thread opens and closes 20 profiler
+windows: ``guarded`` through /profilez, ``raw`` with torch.profiler
+started and stopped directly (the hazard the endpoint keeps clear of);
+a hang prints every thread's stack and exits 1.  The last builds the
 kernels and times the LayerNorm backward of this checkout against the one
 in PARENT_CHECKOUT (another tree of this repository), at BERT-base's and
 BERT-large's shapes, by graph replay in the order parent, change, change,
@@ -62,24 +68,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
             list (rtol 1e-6).
 4. train    the single-card ResNet path: ResNet-50 under amp O2 + FusedAdam
             at batch 128, 3x224x224, then two steps of two micro-batches
-            (axpby); the device time of three more steps by kernel
+            (axpby); the device time of two more steps by kernel
             (torch.profiler); and a small ResNet trained on the card
             against the same run on the CPU (plain versions), in fp32.
 5. ddp      the data-parallel path on a one-rank NCCL group: ResNet-50 ->
             convert_syncbn_model -> O2 + FusedAdam -> DistributedDataParallel
             at batch 128, 12 steps and two of two micro-batches, the
-            rank-0 broadcast checked, and three steps profiled.
+            rank-0 broadcast checked, and two steps profiled.
 6. bert     the BERT path: BertForPretraining(bert_base()) -> O2 +
             FusedAdam(lr=1e-4), MLM + NSP loss in train mode (dropout 0.1,
             so the flash kernels' dropout runs) at 32 x 128 tokens, 12
-            steps and two of two micro-batches, three steps profiled; and
+            steps and two of two micro-batches, two steps profiled; and
             a tiny BERT trained on the card against the CPU, in fp32, with
             FusedAdam and with FusedLAMB.
 7. bert-large  the BERT-large path on a one-rank NCCL group:
             BertForPretraining(bert_large()) -> O2 + FusedLAMB(lr=1e-3) ->
             DistributedDataParallel, MLM + NSP in train mode (dropout 0.1)
             at 8 x 128 tokens, 12 steps and two of two micro-batches,
-            three steps profiled.
+            two steps profiled.
 8. overflow one fp16 step with an inf in the input, under FusedAdam and
             under FusedLAMB: the loss scale halves and masters, half copy,
             m, v and the step counter stay bitwise.
@@ -121,7 +127,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
             take the most, from a chrome trace the example's --prof window
             writes over two more steps.
 14. l1      tests/L1/run_l1_torch.py's matrix on the card (its configs
-            dealt to 4 spawned processes): ResNet-18 at
+            dealt to 8 spawned processes): ResNet-18 at
             batch 16, 32x32, 50 iterations, under the 48 amp configs, each
             run twice and bitwise the same (trajectory and parameter
             digest), finite and falling; the 12 O0 configs also on the CPU
@@ -162,7 +168,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
             15 holds its paths (TinyLlama's snapshots in host memory),
             the profile of the replayed graph showing the port's attention
             (and for GPT-2 LayerNorm) kernels; then greedy generation of
-            64 tokens from four prompts of 16 to 57 tokens: on the trained
+            32 tokens from four prompts of 16 to 57 tokens: on the trained
             bf16 model generate_cached with a bf16 cache (chunked prefill)
             and an int8 cache, their agreement with the uncached loop
             reported; on the same weights in fp32, generate_cached
@@ -276,8 +282,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
             autograd through GPipe.
 22. legacy  the Apex legacy surface and the sharded checkpoint.  (x)
             examples/dcgan/main_amp_torch.py in process at its defaults
-            (O1, batch 64, nz 100, ngf = ndf = 64, 64x64, 200
-            iterations), then at O2 for 20, each with exact launches an
+            (O1, batch 64, nz 100, ngf = ndf = 64, 64x64) for 50
+            iterations (its default is 200), then at O2 for 20, each with exact launches an
             iteration (scale, l2norm and Adam twice, the syncbn forward 17
             times and backward 13), ms/it and peak memory; then its step in
             fp32 at ngf = ndf = 16, batch 8, 5 iterations, the card against
@@ -355,11 +361,38 @@ Phases, in order; any failure raises and the exit code is non-zero:
             the emergency snapshot, and a fresh model, optimizer, capture
             and trainer resumed from it to 16, bitwise (ae)'s; (ah)
             attribute_step on the captured step, its comm_enabled=False
-            twin and the isolated all-reduce (a copy at world 1), the
+            twin and the isolated all-reduce captured as a CapturedFn (a
+            copy at world 1), with the step's timeline over 3 replays
+            (capture_timeline=True: no NCCL kernel runs at world 1), the
             bench record valid; the captured step with and without the
             monitor and one flush, timed.  Every numerics, run and
             recovery record valid; exact launches (the "kernels_elastic"
             line).
+25. observability  the rest of the observability plane.  (ai) BERT-base
+            O2 + FusedAdam at 32 x 128, dropout 0.1, two micro-batches,
+            captured by make_step (path (b)): the ledger's kernel builds
+            (nvcc:<source>, cache and seconds) and the step's one capture
+            (timed); step_ms and one replay by CUDA events; the graph's
+            memory plan (the pool measured around the capture, the model
+            and optimizer as the donated state; the kind: memory record
+            valid); costmodel.count_cost of one eager step and its MFU
+            against the card's bf16 peak; the same count of one step of
+            BERT at a cut width on the card and on the CPU, equal;
+            timeline.capture over 3 replays against the CUDA events and
+            phase_profile's device time, the port's kernels compute rows
+            by name.  (aj) a GPT-2 small Engine (16 slots, window 8):
+            warmup() traces exactly its compile census, traffic topped
+            up as it drains captures nothing over at least 20 windows
+            (the rest cancelled), and
+            server.serve(engine=, profiler=timeline.make_profiler()) is
+            scraped during them: /healthz 200, /metricsz conformant,
+            /compilez the census, and /profilez three times while the
+            engine steps without pause, its windows opening and closing
+            over windows in flight, each a valid record with device busy
+            time (a watchdog prints every stack and exits 1 on a hang).
+            Each captured training path (a)-(g) of phases 15
+            to 17 prints an "mfu" line: count_cost of one eager step (its
+            launches taken back) over the graph's step_ms.
 
 Phase 3 also times the variants the O1 paths run: Adam without the half
 copy at N = 25,557,032, the LayerNorm forward and backward in fp32 at
@@ -393,7 +426,7 @@ MEM_BYTES_PER_S = 3.35e12
 N_FULL = 25_557_032          # ResNet-50's flat parameter count
 N_ODD = 1_000_003
 SEED = 0
-REPS = 20
+REPS = 10
 DEVICE = "cuda"
 BATCH = 128                  # the bench headline's per-chip batch
 IMAGE = 224
@@ -1997,7 +2030,7 @@ def _drive(opt, step, tag: str, smi: str, items: int, unit: str,
            floor: int):
     """A path's run: 12 steps (the last 10 timed), then two steps of two
     micro-batches (axpby), with the launch counts set to 0 just before and
-    read just after; then three steps profiled.  ``step(micro)`` runs one
+    read just after; then two steps profiled.  ``step(micro)`` runs one
     optimizer step and returns its mean loss; ``items`` (images or
     sequences) make one step's batch.  ``floor`` is ``_mem_floor()`` taken
     before the path built its model: the path's peak memory is the card's
@@ -2145,7 +2178,7 @@ def _category(kernel: str) -> str:
 
 
 def phase_profile(step, step_ms: float, tag: str = "profile",
-                  steps: int = 3, per: int = 1):
+                  steps: int = 2, per: int = 1):
     """Device time of a path's steps by kernel (torch.profiler), after the
     launch counts were read: where the time goes, and how much of the
     unprofiled step the device is busy.  ``step()`` is called ``steps``
@@ -2860,7 +2893,7 @@ def _imagenet_resume(example):
 L1_ITERS, L1_BATCH, L1_IMAGE = 50, 16, 32
 
 
-L1_PROCS = 4        # the matrix's host-bound eager steps, in parallel
+L1_PROCS = 8        # the matrix's host-bound eager steps, in parallel
 
 
 def _l1_part(args):
@@ -3094,7 +3127,53 @@ def _captured_path(tag, model, opt, step_fn, batch, per_step, smi, items,
         del train
         gc.collect()
         torch.cuda.empty_cache()
+    if tag in MFU_PATHS:
+        out["mfu"] = _mfu_line(MFU_PATHS[tag], tag, step_fn, batch,
+                               out["graphs"][1]["step_ms"])
     return counts, out
+
+
+# the captured training paths whose mfu line _captured_path prints
+MFU_PATHS = {"captured-a": "(a)", "captured-b": "(b)", "captured-c": "(c)",
+             "decoder-gpt2": "(d)", "decoder-tinyllama": "(e)",
+             "decoder-tail-t5": "(f)", "decoder-tail-lora": "(g)"}
+
+
+def _mfu_line(path, tag, step_fn, batch, step_ms):
+    """The path's MFU: ``costmodel.count_cost`` of one eager step (which
+    runs, as a step), over the graph's step_ms that this run measured,
+    against the card's peak for the dominant matmul dtype; also the
+    matmul flops alone over the same time.  The counted step's launches
+    are taken back: it is no step of the path's counts."""
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.observability import costmodel
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    cost = costmodel.count_cost(step_fn, batch)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    ops.add_launches(before)
+    kind = torch.cuda.get_device_name(0)
+    dt = cost.dominant_matmul_dtype
+    m = costmodel.mfu(cost.flops, step_ms / 1e3, kind, dt)
+    mm = costmodel.mfu(cost.matmul_flops, step_ms / 1e3, kind, dt)
+    rec = {"path": path, "tag": tag, "step_ms": step_ms,
+           "flops": cost.flops, "matmul_flops": cost.matmul_flops,
+           "matmul_flops_by_dtype": cost.matmul_flops_by_dtype,
+           "transcendentals": cost.transcendentals,
+           "bytes_accessed": cost.bytes_accessed, "mfu_dtype": dt,
+           "mfu": m["mfu"], "matmul_mfu": mm["mfu"],
+           "achieved_tflops": m["achieved_tflops"],
+           "unknown_prims": cost.unknown_prims, "count_s": count_s}
+    assert cost.matmul_flops > 0 and m["mfu"] is not None \
+        and 0.0 < m["mfu"] < 1.0, rec
+    log(f"[{tag}] mfu {path}: {cost.flops:.4e} flops a step "
+        f"({cost.matmul_flops:.4e} in matmuls, {dt}) over {step_ms:.2f} ms: "
+        f"{m['achieved_tflops']:.1f} TFLOP/s, mfu {m['mfu']:.4f} "
+        f"(matmuls alone {mm['mfu']:.4f}); counted in {count_s:.1f} s")
+    log("mfu " + json.dumps(rec))
+    return rec
 
 
 def _resnet_functional(net, opt, ddp=None):
@@ -3321,8 +3400,8 @@ FLASH_TL_HELD = (1, 32, TL_SEQ, 64)
 DECODER_LR = 1e-4
 DECODER_TOKENS = 1000               # the training batch's ids: [0, 1000)
 GEN_PROMPTS = (16, 29, 40, 57)      # four prompts of different lengths
-GEN_NEW = 64
-GEN_BUF = 128                       # generation buffer: prompts + 64 tokens
+GEN_NEW = 32                        # cut from 64 for the clock
+GEN_BUF = 128                       # generation buffer: prompts + new tokens
 DECODER_EXAMPLE_ITERS = 10
 # the examples as a user runs them: (examples/<dir>, command line)
 DECODER_EXAMPLES = {
@@ -6336,7 +6415,8 @@ def phase_sp_pp(smi):
 
 # -- phase 22, the legacy surface and the sharded checkpoint --------------------
 
-DCGAN_ITERS = 200                   # the reference example's default
+DCGAN_ITERS = 50                    # the reference example's default is
+# 200: cut to 50 for the clock (its ms/it settles within the first 50)
 DCGAN_O2_ITERS = 20
 DCGAN_TWIN = ["--opt-level", "O0", "--ngf", "16", "--ndf", "16", "-b", "8"]
 DCGAN_TWIN_STEPS = 5
@@ -7994,16 +8074,33 @@ def _elastic_ah(run, train_on, smi):
     twin(batch)                       # captured with the collectives elided
     run.ddp.comm_enabled = True
     bufs = [torch.zeros_like(p) for p in run.ddp._params]
+    # the isolated all-reduce captured as the step is: a graph replay
+    # against a graph replay (the fetch of bufs[0] waits for the replay)
+    from apex_tpu_torch import _graph
+    comm = _graph.CapturedFn(lambda: run.ddp.allreduce_grads(bufs), dev)
+    comm()
+    comm()                            # the warm-up, the capture
     att = steptime.attribute_step(
-        train_on, twin, lambda b: run.ddp.allreduce_grads(bufs),
-        args=(batch,), plan=run.plan, iters=ELASTIC_ITERS, warmup=1)
+        train_on, twin, lambda b: (comm(), bufs[0])[1],
+        args=(batch,), plan=run.plan, iters=ELASTIC_ITERS, warmup=1,
+        capture_timeline=True, capture_iters=3)
+    tl = att["timeline"]
+    log(f"[elastic-ah] the captured step's timeline over 3 replays: busy "
+        f"{tl['device_busy_ms']} ms of a {tl['span_ms']} ms span a step, "
+        f"compute {tl['compute_ms']}, collective {tl['collective_ms']} "
+        f"(no NCCL kernel runs at world 1), measured overlap "
+        f"{att['measured_overlap_fraction']}; consistency "
+        f"{att['consistency']}")
     rec = exporters.JsonlExporter.enrich({
         "metric": "train_step_attribution_resnet50_elastic",
         "value": att["step_ms"], "unit": "ms", "vs_baseline": None,
         "backend": "gpu", "ndev": 1, "arch": "resnet50",
         **{k: att[k] for k in steptime.ATTRIBUTION_FIELDS},
         **{k: att[k] for k in steptime.OVERLAP_SCHEDULE_FIELDS},
-        "note": "one-rank NCCL group: the all-reduce is a copy"})
+        "note": "one-rank NCCL group: the all-reduce is a copy and no "
+                "NCCL kernel runs (measured collective time 0); "
+                "comm_isolated_ms times the all-reduce captured in a "
+                "CUDA graph, as the step is"})
     errs = exporters.validate_bench_record(rec)
     assert errs == [], errs
     off = run.ddp.make_step(lambda b: run.step_fn(b, monitor=False))
@@ -8022,6 +8119,7 @@ def _elastic_ah(run, train_on, smi):
     # steps of their own)
     steps = (run.calls - 3 + train_on.replays + twin.replays
              + off.replays)
+    del comm
     replay_on, replay_off = _replay_ms(train_on), _replay_ms(off)
     fl_ms = []
     for _ in range(5):
@@ -8145,6 +8243,381 @@ def _check_counts(tag: str, counts, expect) -> None:
     for k, c in counts.items():
         assert c == expect.get(k, 0), \
             f"{tag}: {k} launched {c} times, expected {expect.get(k, 0)}"
+
+
+OBS_CALLS = 10               # timed calls of (ai)'s captured step
+OBS_REPLAYS = 3              # replays under timeline.capture
+OBS_WINDOWS = 20             # (aj): windows of traffic at least
+OBS_SCRAPES = 3              # /profilez scrapes while it runs
+OBS_WINDOW_MS = 500          # each one's window
+OBS_HANG_S = 120             # no window in this long: every stack, exit 1
+RACE_SCRAPES = 20            # --profilez-race: windows of each arm
+# (ai)'s CPU twin: BERT at a cut width (the count is of shapes, so the
+# card and the CPU count one step alike)
+OBS_CUT = dict(vocab_size=1024, hidden_size=128, num_hidden_layers=2,
+               num_attention_heads=2, intermediate_size=512,
+               max_position_embeddings=128)
+OBS_CUT_BATCH, OBS_CUT_SEQ = 4, 64
+# the port's kernels as CUPTI names them (each must be a compute row)
+OBS_PORT_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "ln_fwd",
+                    "ln_bwd", "adam_kernel", "scale_kernel", "l2norm_")
+
+
+def _bert_micro_step(model, opt):
+    """(b)'s step: two micro-batches through scaled_grad_accum."""
+    from apex_tpu_torch import amp
+
+    def step(b):
+        loss, grads = amp.scaled_grad_accum(
+            lambda mb: model.loss(*mb), opt, b)
+        opt.step(grads)
+        return loss
+    return step
+
+
+def _obs_cut_twin(device):
+    """One step of BERT at OBS_CUT's widths on ``device`` (weights and
+    batch from SEED), counted."""
+    from apex_tpu_torch import amp, models, optimizers
+    from apex_tpu_torch.observability import costmodel
+    cfg = models.BertConfig(**OBS_CUT)
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = models.BertForPretraining(
+        cfg, device=dev, generator=torch.Generator().manual_seed(SEED),
+        dropout_generator=gen)
+    model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-4),
+                                opt_level="O2", verbosity=0)
+    model.train()
+    ids, labels, nsp = _bert_batch(cfg.vocab_size,
+                                   np.random.RandomState(SEED),
+                                   OBS_CUT_BATCH, OBS_CUT_SEQ, dev)
+    batch = tuple(t.reshape(2, OBS_CUT_BATCH // 2, *t.shape[1:])
+                  for t in (ids, labels, nsp))
+    return costmodel.count_cost(_bert_micro_step(model, opt), batch)
+
+
+def _obs_ai(smi):
+    """(ai): BERT-base O2 + FusedAdam at 32 x 128 captured (path (b)):
+    the capture ledger, its memory plan, its cost and MFU, the same count
+    on the CPU at a cut width, and its timeline over graph replays."""
+    from apex_tpu_torch import models, ops, optimizers, parallel
+    from apex_tpu_torch.observability import (compilation, costmodel,
+                                              exporters, memory, timeline)
+    from apex_tpu_torch.ops import _build
+    led = compilation.get_ledger()
+    snap = led.snapshot()
+    nvcc = {e: st for e, st in snap["entries"].items()
+            if e.startswith("nvcc:")}
+    assert set(nvcc) == {f"nvcc:{n}" for n in _build.SOURCES}, sorted(nvcc)
+    for e, st in nvcc.items():
+        assert st["traces"] == 1 and st["compiles"] == 1, (e, st)
+    builds = {e: (next(k for k, v in st["cache"].items() if v),
+                  st["compile_wall_s"]) for e, st in sorted(nvcc.items())}
+    log(f"[obs-ai] {smi}: the ledger's kernel builds (cache, seconds): "
+        f"{builds}")
+    cfg = models.bert_base()
+    model, opt, gen = _bert_model(cfg, optimizers.FusedAdam(lr=1e-4))
+    ids, labels, nsp = _bert_batch(cfg.vocab_size,
+                                   np.random.RandomState(SEED), BERT_BATCH,
+                                   BERT_SEQ, DEVICE)
+    batch = tuple(t.reshape(2, BERT_BATCH // 2, *t.shape[1:])
+                  for t in (ids, labels, nsp))
+    step = _bert_micro_step(model, opt)
+    t0 = time.perf_counter()
+    cost = costmodel.count_cost(step, batch)      # one eager step
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    assert not cost.unknown_prims, cost.unknown_prims
+    state = memory.state_bytes(model, opt)
+    before = led.total_traces()
+    train = parallel.make_step(step, model)
+    train(batch)
+    assert led.total_traces() == before          # the warm-up is eager
+    train(batch)                                  # the capture
+    assert led.total_traces() - before == 1, led.total_traces() - before
+    # the step's capture: the entry's newest event, timed
+    ev = led.snapshot()["entries"]["make_step"]["events"][-1]
+    assert ev["cause"] in ("new_entry", "new_closure"), ev
+    assert ev["signature"] == compilation.abstract_signature(
+        (batch,), arg_names=("batch",)), ev
+    cold_ms = ev["wall_s"] * 1e3
+    _, ms = _timed(lambda: train(batch), OBS_CALLS)
+    step_ms = statistics.median(ms)
+    assert led.total_traces() - before == 1      # replays trace nothing
+    replay_ms = _replay_ms(train)
+    plan = memory.memory_plan(train, donated=(model, opt))
+    rec = exporters.JsonlExporter.enrich({
+        "kind": "memory", "metric": "bert_base_o2_step_captured",
+        **cost.to_record(), **plan})
+    errs = exporters.validate_memory_record(rec)
+    assert errs == [], errs
+    assert plan["temp_bytes"] > 0 and plan["alias_bytes"] == state, plan
+    kind = torch.cuda.get_device_name(0)
+    m = costmodel.mfu(cost.flops, step_ms / 1e3, kind, "bfloat16")
+    mm = costmodel.mfu(cost.matmul_flops, step_ms / 1e3, kind, "bfloat16")
+    log(f"[obs-ai] {smi}: make_step's capture traced once (cause "
+        f"{ev['cause']}), capture {cold_ms:.1f} ms; "
+        f"{OBS_CALLS} calls step_ms {step_ms:.2f}, one replay "
+        f"{replay_ms:.2f} ms by CUDA events; memory plan {plan} (pool "
+        f"{plan['pool_bytes'] / 2**30:.2f} GiB against PERF.md's hand "
+        f"read of (b)'s graph peak, 2.42 GiB; state {state} B); cost "
+        f"{cost.flops:.4e} flops ({cost.matmul_flops:.4e} matmul, "
+        f"{cost.matmul_flops_by_dtype}), {cost.transcendentals:.4e} "
+        f"transcendentals, {cost.bytes_accessed:.4e} bytes, counted in "
+        f"{count_s:.1f} s; mfu against bf16 {m['mfu']:.4f} "
+        f"({m['achieved_tflops']:.1f} TFLOP/s; matmuls alone "
+        f"{mm['mfu']:.4f})")
+    # the same step's count on the card and on the CPU, at a cut width
+    card, cpu = _obs_cut_twin(DEVICE), _obs_cut_twin("cpu")
+    for f in ("flops", "transcendentals", "bytes_accessed", "matmul_flops",
+              "matmul_flops_by_dtype", "unknown_prims"):
+        assert getattr(card, f) == getattr(cpu, f), \
+            (f, getattr(card, f), getattr(cpu, f))
+    log(f"[obs-ai] BERT at {OBS_CUT}, {OBS_CUT_BATCH} x {OBS_CUT_SEQ}: "
+        f"one step counts {card.flops:.6e} flops, {card.matmul_flops:.6e} "
+        f"matmul, {card.transcendentals:.6e} transcendentals, "
+        f"{card.bytes_accessed} bytes on the card and the same on the CPU")
+    # the timeline over graph replays, beside CUDA events and the profile
+    tl = timeline.capture(train.graph.replay, iters=OBS_REPLAYS,
+                          top_k=1000)
+    prec = exporters.JsonlExporter.enrich(timeline.profile_record(
+        tl, metric="bert_base_o2_step_captured"))
+    errs = exporters.validate_profile_record(prec)
+    assert errs == [], errs
+    kinds = {}
+    for k in tl["top_kernels"]:
+        for p in OBS_PORT_KERNELS:
+            if p in k["name"]:
+                kinds.setdefault(p, set()).add(k["kind"])
+    assert set(kinds) == set(OBS_PORT_KERNELS) and all(
+        v == {"compute"} for v in kinds.values()), kinds
+    by_cat = phase_profile(train.graph.replay, replay_ms,
+                           tag="obs-ai-profile", steps=OBS_REPLAYS)
+    prof_ms = sum(by_cat.values()) if by_cat else None
+    busy = tl["device_busy_ms"]
+    assert 0.5 * replay_ms < busy <= 1.05 * replay_ms, (busy, replay_ms)
+    log(f"[obs-ai] {smi}: timeline over {OBS_REPLAYS} replays: busy "
+        f"{busy} ms a replay of a {tl['span_ms']} ms span (gap "
+        f"{tl['gap_ms']}), against {replay_ms:.3f} ms by CUDA events and "
+        f"{prof_ms} ms of phase_profile's device time; {tl['kernel_count']}"
+        f" kernels, the port's {sorted(kinds)} all compute; top "
+        f"{[(k['name'][:40], k['total_ms']) for k in tl['top_kernels'][:5]]}")
+    out = {"cold_capture_ms": cold_ms, "nvcc": builds, "step_ms": step_ms,
+           "replay_ms": replay_ms, "memory_plan": plan, "state_bytes": state,
+           "cost": cost.to_record(), "mfu": m["mfu"],
+           "matmul_mfu": mm["mfu"], "achieved_tflops": m["achieved_tflops"],
+           "cut_count": card.to_record(), "timeline_busy_ms": busy,
+           "timeline_span_ms": tl["span_ms"], "profile_device_ms": prof_ms,
+           "count_s": count_s}
+    del train, model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _http_get(url):
+    """(status, body) of one GET on the introspection server."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _obs_top_up(eng, rids, seed):
+    """Keep (aj)'s traffic running: a wave of SRV_SLOTS requests more
+    whenever the queue runs short (ids from ``seed`` and the count so
+    far); the rids go into ``rids``."""
+    if eng.queue_depth() < SRV_SLOTS:
+        rids += [eng.submit(p, max_new_tokens=n, **kw)
+                 for p, n, kw in _srv_traffic(seed + len(rids), SRV_SLOTS,
+                                              (32, 512), (64, 192), 50257)]
+
+
+def _free_running(eng, top_up, scrape, scrapes, min_windows):
+    """Step ``eng`` without pause, its traffic topped up, while
+    ``scrape()`` runs ``scrapes`` times on another thread, so profiler
+    windows open and close over windows in flight; returns (the scrapes'
+    results, windows stepped).  A watchdog prints every thread's stack
+    and exits 1 when no window ends in OBS_HANG_S seconds."""
+    import faulthandler
+    import threading
+    got, errors = [], []
+
+    def scraper():
+        try:
+            for _ in range(scrapes):
+                got.append(scrape())
+        except BaseException as e:          # noqa: BLE001 — re-raised
+            errors.append(e)
+
+    th = threading.Thread(target=scraper, daemon=True)
+    th.start()
+    windows, t0 = 0, time.perf_counter()
+    try:
+        while th.is_alive() or windows < min_windows:
+            faulthandler.dump_traceback_later(OBS_HANG_S, exit=True)
+            assert time.perf_counter() - t0 < scrapes * 60, \
+                f"{len(got)} of {scrapes} scrapes in {scrapes * 60} s"
+            top_up()
+            eng.step()
+            windows += 1
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    th.join(timeout=60)
+    assert not th.is_alive() and not errors, errors
+    return got, windows
+
+
+def _obs_engine(dev):
+    """(aj)'s engine: GPT-2 small, bf16, 16 slots, window 8."""
+    from apex_tpu_torch import serving
+    t16 = _gpt2_small(dev).to(torch.bfloat16)
+    return serving.Engine(t16, slots=SRV_SLOTS, buf_len=GPT2_SRV_BUF,
+                          window=SRV_WINDOW)
+
+
+def _obs_aj(smi):
+    """(aj): a GPT-2 small Engine (16 slots, window 8): warmup() captures
+    exactly the census, its traffic captures nothing, and the
+    introspection server is scraped while the traffic runs free, with
+    /profilez's windows opening and closing over windows in flight."""
+    from apex_tpu_torch.observability import (compilation, exporters,
+                                              server, timeline)
+    dev = torch.device(DEVICE)
+    led = compilation.get_ledger()
+    eng = _obs_engine(dev)
+    census = eng.compile_census()
+    before, t0 = led.counts(), led.total_traces()
+    eng.warmup()
+    after = led.counts()
+    assert led.total_traces() - t0 == len(census), \
+        (led.total_traces() - t0, census)
+    for e in census:
+        assert after.get(e, 0) - before.get(e, 0) == 1, e
+    assert eng.captures == {e: 1 for e in census}, eng.captures
+    log(f"[obs-aj] warmup() traced {sorted(census)}")
+    srv = server.serve(engine=eng, profiler=timeline.make_profiler(
+        subject="engine_gpt2_small_window"), port=0)
+    rids = []
+    try:
+        top_up = lambda: _obs_top_up(eng, rids, SEED + 250)  # noqa: E731
+        t1, caps = led.total_traces(), dict(eng.captures)
+        got = {}
+        for ep in ("healthz", "metricsz", "compilez"):
+            top_up()
+            eng.step()
+            got[ep] = _http_get(srv.url + f"/{ep}")
+        scrapes, windows = _free_running(
+            eng, top_up, lambda: _http_get(
+                srv.url + f"/profilez?duration_ms={OBS_WINDOW_MS}"),
+            OBS_SCRAPES, OBS_WINDOWS)
+        windows += 3
+        assert led.total_traces() == t1 and eng.captures == caps, \
+            (led.total_traces() - t1, eng.captures)
+        code, body = got["healthz"]
+        assert code == 200, (code, body)
+        code, body = got["metricsz"]
+        errs = exporters.validate_prometheus_text(body.decode())
+        assert code == 200 and errs == [], (code, errs)
+        code, body = got["compilez"]
+        cz = json.loads(body)
+        assert code == 200 and set(census) <= set(cz["entries"]), cz
+        profs = []
+        for code, body in scrapes:
+            prof = json.loads(body)
+            errs = exporters.validate_profile_record(prof)
+            assert code == 200 and errs == [], (code, errs, prof)
+            assert prof["device_busy_ms"] > 0, prof
+            profs.append({k: prof[k] for k in (
+                "span_ms", "device_busy_ms", "compute_ms", "gap_ms",
+                "kernel_count", "duration_ms")})
+    finally:
+        srv.stop()
+    # the rest of the traffic is abandoned, not decoded
+    for rid in rids:
+        eng.cancel(rid)
+    assert not (eng.live() or eng.queue_depth())
+    log(f"[obs-aj] {smi}: GPT-2 small Engine ({SRV_SLOTS} slots, window "
+        f"{SRV_WINDOW}): warmup() captured exactly {sorted(census)}; "
+        f"{windows} windows of free-running traffic ({len(rids)} requests "
+        f"submitted) captured nothing (ledger delta 0); scraped in "
+        f"traffic: /healthz 200, /metricsz conformant "
+        f"({len(got['metricsz'][1])} bytes), /compilez the census, "
+        f"/profilez {OBS_SCRAPES} times over {OBS_WINDOW_MS} ms windows "
+        f"opened and closed while the engine stepped: busy "
+        f"{[p['device_busy_ms'] for p in profs]} ms of spans "
+        f"{[p['span_ms'] for p in profs]} ms, "
+        f"{[p['kernel_count'] for p in profs]} kernels")
+    out = {"windows": windows, "census": sorted(census),
+           "requests": len(rids), "profilez": profs}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_profilez_race(smi, arm):
+    """``--profilez-race ARM``: (aj)'s engine stepping free while a
+    thread opens and closes RACE_SCRAPES profiler windows of
+    OBS_WINDOW_MS each: ``guarded`` through ``/profilez`` (the endpoint,
+    whose windows open and close between the engine's launches), ``raw``
+    with ``torch.profiler`` started and stopped directly from the thread,
+    as the endpoint did before it waited for the launches in flight.  A
+    hang prints every thread's stack and exits 1 (the watchdog)."""
+    from apex_tpu_torch.observability import server, timeline
+    eng = _obs_engine(torch.device(DEVICE))
+    eng.warmup()
+    rids = []
+    top_up = lambda: _obs_top_up(eng, rids, SEED + 260)  # noqa: E731
+    if arm == "guarded":
+        srv = server.serve(engine=eng, profiler=timeline.make_profiler(
+            subject="engine_gpt2_small_window"), port=0)
+
+        def scrape():
+            code, body = _http_get(
+                srv.url + f"/profilez?duration_ms={OBS_WINDOW_MS}")
+            assert code == 200, (code, body[:300])
+            return json.loads(body)["kernel_count"]
+    else:
+        assert arm == "raw", arm
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+
+        def scrape():
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+            time.sleep(OBS_WINDOW_MS / 1e3)
+            prof.stop()
+            return None
+    t0 = time.perf_counter()
+    try:
+        got, windows = _free_running(eng, top_up, scrape, RACE_SCRAPES,
+                                     OBS_WINDOWS)
+    finally:
+        if arm == "guarded":
+            srv.stop()
+    log(f"[profilez-race] {smi}: {arm}: {RACE_SCRAPES} windows of "
+        f"{OBS_WINDOW_MS} ms opened and closed over {windows} engine "
+        f"windows in {time.perf_counter() - t0:.1f} s, no hang; kernels "
+        f"a window {got}")
+    for rid in rids:
+        eng.cancel(rid)
+
+
+def phase_observability(smi):
+    """Phase 25: the rest of the observability plane on the card, (ai)
+    and (aj) (see the module doc)."""
+    t0 = time.time()
+    out = {"card": smi, "ai": _obs_ai(smi)}
+    log(f"[time] observability (ai) in {time.time() - t0:.1f} s")
+    out["aj"] = _obs_aj(smi)
+    log(f"[time] observability (aj) in {time.time() - t0:.1f} s")
+    log("observability " + json.dumps(out))
+    return out
 
 
 def _check_elastic_counts(counts, expect) -> None:
@@ -8319,6 +8792,8 @@ def main():
     log(f"[time] phase 23 done at {time.time() - t0:.1f} s")
     counts_elastic, expect_elastic, _ = phase_elastic(smi)
     log(f"[time] phase 24 done at {time.time() - t0:.1f} s")
+    phase_observability(smi)
+    log(f"[time] phase 25 done at {time.time() - t0:.1f} s")
 
     _check_counts("train", counts_train, RESNET_COUNTS)
     _check_counts("ddp", counts_ddp, RESNET_COUNTS)
@@ -8435,6 +8910,16 @@ if __name__ == "__main__":
         phase_build()
         counts_elastic, expect_elastic, _ = phase_elastic(smi)
         _check_elastic_counts(counts_elastic, expect_elastic)
+    elif sys.argv[1:2] == ["--observability"]:
+        # python3 chip_smoke.py --observability: phases 1, 2 and 25 alone
+        _, smi = phase_device()
+        phase_build()
+        phase_observability(smi)
+    elif sys.argv[1:2] == ["--profilez-race"]:
+        # python3 chip_smoke.py --profilez-race guarded|raw
+        _, smi = phase_device()
+        phase_build()
+        phase_profilez_race(smi, sys.argv[2])
     elif sys.argv[1:2] == ["--layer-norm-ab"]:
         # python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
         phase_device()

@@ -2484,3 +2484,106 @@ def test_in_place_rollback_keeps_the_graph(cuda, deterministic):
     assert train.replays == 8          # 9 calls: the warm-up, then graphs
     assert torch.equal(torch.stack(first), torch.stack(again))
     assert float(tele["steps"]) == 6.0
+
+
+# -- the observability plane on the card ---------------------------------------
+
+def _bert_step(device, seed=0):
+    """One O2 + FusedAdam step of a small BERT in train mode (dropout
+    0.1), weights and batch from ``seed``: the step function and its
+    batch (two micro-batches)."""
+    from apex_tpu_torch import amp, models, optimizers
+    cfg = models.BertConfig(vocab_size=512, hidden_size=128,
+                            num_hidden_layers=2, num_attention_heads=2,
+                            intermediate_size=256,
+                            max_position_embeddings=64)
+    dev = torch.device(device)
+    model = models.BertForPretraining(
+        cfg, device=dev, generator=torch.Generator().manual_seed(seed),
+        dropout_generator=torch.Generator(device=dev).manual_seed(seed))
+    model, opt = amp.initialize(model, optimizers.FusedAdam(lr=1e-4),
+                                opt_level="O2", verbosity=0)
+    model.train()
+    rs = np.random.RandomState(seed)
+    ids = _t(rs.randint(5, 512, (4, 64))).long().to(dev)
+    labels = torch.where(torch.rand(4, 64, generator=torch.Generator()
+                                    .manual_seed(seed)) < 0.15,
+                         ids.cpu(), -100).to(dev)
+    nsp = _t(rs.randint(0, 2, (4,))).long().to(dev)
+    batch = tuple(t.reshape(2, 2, *t.shape[1:]) for t in (ids, labels, nsp))
+
+    def step(b):
+        loss, grads = amp.scaled_grad_accum(
+            lambda mb: model.loss(*mb), opt, b)
+        opt.step(grads)
+        return loss
+    return step, batch, model, opt
+
+
+@pytest.mark.cuda
+def test_count_cost_equal_on_the_card_and_the_cpu(cuda):
+    """One step counts the same on the card (the kernels' declarations)
+    and on the CPU (their plain versions hidden)."""
+    from apex_tpu_torch.observability import costmodel
+    got = {}
+    for dev in ("cuda", "cpu"):
+        step, batch, _, _ = _bert_step(dev)
+        got[dev] = costmodel.count_cost(step, batch)
+    for f in ("flops", "transcendentals", "bytes_accessed", "matmul_flops",
+              "matmul_flops_by_dtype", "flops_by_prim", "unknown_prims"):
+        assert getattr(got["cuda"], f) == getattr(got["cpu"], f), f
+    assert got["cuda"].matmul_flops > 0
+
+
+@pytest.mark.cuda
+def test_memory_plan_temp_bytes_against_memory_stats(cuda):
+    """A captured step's pool is what the allocator reserved around its
+    capture: the plan's pool equals the reservation the graph keeps,
+    and the plan reassembles."""
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.observability import memory
+    step, batch, model, opt = _bert_step("cuda")
+    train = parallel.make_step(step, model)
+    train(batch)
+    torch.cuda.synchronize()
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_stats()["reserved_bytes.all.current"]
+    train(batch)                               # the capture
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kept = torch.cuda.memory_stats()["reserved_bytes.all.current"] - reserved
+    plan = memory.memory_plan(train, donated=(model, opt))
+    assert plan["pool_bytes"] > 0 and plan["temp_bytes"] > 0
+    # the pool stays reserved while the graph lives (the returned copy of
+    # the loss may take one small segment of its own beside it)
+    assert 0 <= kept - plan["pool_bytes"] <= 2 * 2**20, \
+        (kept, plan["pool_bytes"])
+    assert plan["peak_bytes"] == (plan["argument_bytes"]
+                                  + plan["output_bytes"]
+                                  + plan["temp_bytes"]
+                                  - plan["alias_bytes"])
+    assert plan["alias_bytes"] == memory.state_bytes(model, opt)
+
+
+@pytest.mark.cuda
+def test_card_capture_lists_the_port_kernels_as_compute(cuda):
+    """A timeline capture on the card lists the kernels of the port that
+    the step launched by name, each a compute row."""
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.observability import timeline
+    step, batch, model, _ = _bert_step("cuda")
+    train = parallel.make_step(step, model)
+    train(batch)
+    train(batch)
+    tl = timeline.capture(train.graph.replay, iters=2, top_k=1000)
+    assert tl["device_busy_ms"] > 0 and tl["collective_ms"] == 0.0
+    found = {}
+    for k in tl["top_kernels"]:
+        for p in ("flash_fwd", "flash_dq", "flash_dkv", "ln_fwd", "ln_bwd",
+                  "adam_kernel", "scale_kernel", "l2norm_"):
+            if p in k["name"]:
+                found.setdefault(p, set()).add(k["kind"])
+    assert len(found) == 8 and all(v == {"compute"}
+                                   for v in found.values()), found

@@ -9,7 +9,9 @@
   bitwise; the full step issues one a bucket; the attribution's fields
   reassemble as ``exporters.validate_bench_record`` requires (checked by
   the port's and the JAX package's validators);
-  ``capture_timeline=True`` raises, naming ROADMAP item 9;
+  ``capture_timeline=True`` carries the measured timeline of the full
+  step (its top-level CPU operators, the all-reduce a collective), the
+  measured overlap fraction and the consistency verdict;
 - ``timeline_consistency`` and the bucket split equal the JAX package's
   on the same dicts, and the field tuples are the same.
 """
@@ -79,8 +81,15 @@ def test_attribution_fields_reassemble(ranks):
         # warm-up and timed calls: (1 + 3) full steps and (1 + 3)
         # isolated reductions, one collective each; the twin none
         assert out["att_calls"] == 8
-        assert "ROADMAP" in out["timeline_error"]
-        assert "item 9" in out["timeline_error"]
+        tl = out["timeline"]
+        assert tl["timeline"]["steps"] == 2
+        assert tl["timeline"]["kernel_count"] > 0
+        # the step's one all-reduce a call, a c10d operator on gloo
+        assert tl["timeline"]["collective_ms"] > 0.0
+        assert 0.0 <= tl["measured_overlap_fraction"] <= 1.0
+        assert set(tl["consistency"]) == {
+            "differenced_comm_fraction", "measured_comm_fraction",
+            "abs_diff", "tol", "consistent"}
         assert "iters >= 1" in out["iters_error"]
 
 

@@ -2136,10 +2136,13 @@ def _steptime(inp, rank, world):
                                                        params))),
             iters=3, warmup=1, schedule=None)
         out["att_calls"] = counter.calls
-        with _Raises(NotImplementedError) as err:
-            steptime.attribute_step(make(True), make(False), make(True),
-                                    capture_timeline=True)
-        out["timeline_error"] = err.message
+        # the measured split: the full step's top-level operators,
+        # captured under torch.profiler on this rank's thread
+        timed = steptime.attribute_step(
+            make(True), make(False), lambda: ddp.allreduce_grads(bufs),
+            iters=2, warmup=1, capture_timeline=True, capture_iters=2)
+        out["timeline"] = {k: timed[k] for k in (
+            "timeline", "measured_overlap_fraction", "consistency")}
         with _Raises(ValueError) as err:
             steptime.blocked_time(make(True), iters=0)
         out["iters_error"] = err.message
