@@ -263,7 +263,8 @@ class ZeroShard:
         if stage >= 2:
             self.ici = self.shards
             self.group, self.dcn_group = topology.hierarchical_groups(
-                self.ici, world)
+                self.ici, world, None if group is None
+                else dist.get_process_group_ranks(group))
         else:
             self.ici = None
             self.group, self.dcn_group = group, None
@@ -400,16 +401,16 @@ class AmpOptimizer:
         through ``torch.func.functional_call`` on
         :func:`zero_gather_params`.
 
-        ``process_group``: stage 1 only, the group whose ranks share the
-        windows (``None``: the default group) — what an elastic run
-        shrunk onto its survivors shards over."""
+        ``process_group``: the group whose ranks share the model (``None``:
+        the default group) — what an elastic run shrunk onto its
+        survivors shards over.  Stage 1 splits the windows over its ranks;
+        stages 2 and 3 over the node groups of ``zero_ici_size`` of its
+        ranks (``topology.hierarchical_groups(..., ranks=)``), so the node
+        shrinks with the world.  Make those groups on every rank before
+        the shrink (see ``fleet.ElasticTrainer``)."""
         self._require_bound()
         self._require_zero_capable()
         _validate_zero_knobs(zero_stage, zero_ici_size, zero_compress_bf16)
-        if process_group is not None and zero_stage != 1:
-            raise ValueError("zero_shard(process_group=) shards stage 1 "
-                             "only; stages 2 and 3 shard over the node "
-                             "groups of the default group")
         if self._zero is not None:
             raise RuntimeError("the optimizer state is already ZeRO-sharded")
         m = self.masters

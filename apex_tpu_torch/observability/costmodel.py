@@ -623,7 +623,7 @@ def _plain_count(body, args, kwargs) -> Dict[str, Any]:
 
 
 def _kernel_hook(wrapper, body, cost, args, kwargs):
-    """``ops._launches.HOOK`` while a count runs: price a kernel wrapper's
+    """An ``ops._launches`` hook while a count runs: price a kernel wrapper's
     call (its declared ``cost``, else its plain version's count) into each
     count of this thread, as one entry under ``kernel:<wrapper>``, and run
     the call with its own operators hidden from them (its plain version on
@@ -672,7 +672,8 @@ def count_cost(fn: Callable, *args, **kwargs) -> Cost:
     mode = _make_mode(counter)
     with _RUNNING_LOCK:
         _RUNNING += 1
-        _launches.HOOK = _kernel_hook
+        if _RUNNING == 1:
+            _launches.add_hook(_kernel_hook)
     try:
         with mode:
             fn(*args, **kwargs)
@@ -680,5 +681,5 @@ def count_cost(fn: Callable, *args, **kwargs) -> Cost:
         with _RUNNING_LOCK:
             _RUNNING -= 1
             if not _RUNNING:
-                _launches.HOOK = None
+                _launches.remove_hook(_kernel_hook)
     return counter.cost

@@ -146,7 +146,10 @@ def graph_live_bytes(fn: Callable, *args, **kwargs) -> Dict[str, Any]:
 
     Walks the call nodes in program order: a node's outputs go live when
     it runs, operands die after their last use, outputs live to the end;
-    a value nothing uses is dead (XLA would drop it) and never charged.
+    a value nothing uses is dead (XLA would drop it) and never charged,
+    and so is a node whose ``meta["aliases"]`` says its outputs lie in an
+    input's storage (a view or an in-place operator of a recorded graph,
+    ``analysis.graphs.Graph.fx``).
     Returns::
 
         {"peak_live_bytes": ...,        # args + peak temps
@@ -180,7 +183,7 @@ def graph_live_bytes(fn: Callable, *args, **kwargs) -> Dict[str, Any]:
             continue
         if node.op != "call_function":
             continue
-        if node in last_use:
+        if node in last_use and not node.meta.get("aliases"):
             for dt, b in _val_bytes(node.meta.get("val")).items():
                 live += b
                 live_by[dt] = live_by.get(dt, 0) + b
@@ -189,7 +192,8 @@ def graph_live_bytes(fn: Callable, *args, **kwargs) -> Dict[str, Any]:
             if b > peak_by.get(dt, 0):
                 peak_by[dt] = b
         for a in set(node.all_input_nodes) | {node}:
-            if a.op != "call_function" or last_use.get(a) != i:
+            if (a.op != "call_function" or last_use.get(a) != i
+                    or a.meta.get("aliases")):
                 continue
             for dt, b in _val_bytes(a.meta.get("val")).items():
                 live -= b

@@ -68,7 +68,7 @@ def _vector_plan(p, m, v, g, half) -> tuple:
     return -1, 0
 
 
-@_launches.priced()
+@_launches.priced(writes=("p", "m", "v", "half"))
 def fused_adam(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                g: torch.Tensor, step_size: torch.Tensor,
                inv_scale: torch.Tensor, beta1: float, beta2: float,

@@ -67,7 +67,7 @@ def _stage1_plain(g, p, m, v, upd, inv_clip, inv_bc1, inv_bc2, beta1, beta2,
     return upd
 
 
-@_launches.priced()
+@_launches.priced(writes=("m", "v", "out"))
 def lamb_stage1(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
                 v: torch.Tensor, inv_clip, inv_bc1, inv_bc2, beta1: float,
                 beta2: float, beta3: float, eps: float, weight_decay: float,
@@ -123,7 +123,7 @@ def _stage2_plain(p, upd, ratio, table, lr, half, noop):
         half.copy_(new_half)
 
 
-@_launches.priced()
+@_launches.priced(writes=("p", "half"))
 def lamb_stage2(p: torch.Tensor, upd: torch.Tensor, ratio: torch.Tensor,
                 table: ChunkTable, lr, half: Optional[torch.Tensor] = None,
                 noop: Optional[torch.Tensor] = None) -> None:

@@ -61,7 +61,7 @@ def _scale_plain(x, scale, out):
     return out, found
 
 
-@_launches.priced()
+@_launches.priced(writes=("out",))
 def multi_tensor_scale(x: torch.Tensor, scale: Scalar,
                        out: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -103,7 +103,7 @@ def _axpby_plain(a, b, x, y, arg_to_check, out):
     return out, found
 
 
-@_launches.priced()
+@_launches.priced(writes=("out",))
 def multi_tensor_axpby(a: Scalar, b: Scalar, x: torch.Tensor,
                        y: torch.Tensor, arg_to_check: int = -1,
                        out: Optional[torch.Tensor] = None

@@ -89,11 +89,9 @@ def adasum_grads(grads: Any, process_group=None, ici_size: int = 1) -> Any:
     # one fp32 exchange buffer a stage, the dots per tensor on its views
     flat = torch.cat([t.detach().float().reshape(-1) for t in leaves])
     if ici > 1:
-        if process_group is not None:
-            raise NotImplementedError("hierarchical adasum over a process "
-                                      "group other than the world is not "
-                                      "wired")
-        ici_group, _ = hierarchical_groups(ici, world)
+        ici_group, _ = hierarchical_groups(
+            ici, world, None if process_group is None
+            else dist.get_process_group_ranks(process_group))
         dist.all_reduce(flat, group=ici_group)
         flat = flat / float(ici)
     sid, j = divmod(idx, ici)

@@ -66,10 +66,10 @@ staged form) gives each bucket's gradient health for a
 ``comm_enabled = False`` makes the compute twin that step-time
 attribution times.
 
-Not ported yet: the analysis expectations (``plan_collective_
-expectations``, ``plan_resharding_expectations``,
-``overlap_collective_expectations``; ROADMAP queue 1 item 10): each
-raises ``NotImplementedError``.
+The analysis expectations (``plan_collective_expectations``,
+``plan_resharding_expectations``, ``overlap_collective_expectations``)
+fold the plans into what ``apex_tpu_torch.analysis``'s collective and
+resharding-census rules hold a traced step against.
 """
 
 from __future__ import annotations
@@ -99,9 +99,6 @@ __all__ = ["DistributedDataParallel", "Reducer", "predivide_factors",
 
 COMM_TOPOLOGIES = ("flat", "hierarchical", "auto")
 OVERLAP_MODES = ("overlapped", "reduce_after_backward")
-
-_ITEM10 = "is not ported yet (ROADMAP queue 1 item 10, the analysis)"
-
 
 class ReduceOp:
     """The reduction names :func:`flat_dist_call` takes (the JAX package's
@@ -356,20 +353,105 @@ def allreduce_comm_plan(grads: Any, message_size: int = 10_000_000,
     return plan
 
 
-def plan_collective_expectations(*args, **kwargs):
-    """The analysis rule's expectations from a plan (the JAX package's
-    ``plan_collective_expectations``)."""
-    raise NotImplementedError(f"plan_collective_expectations {_ITEM10}")
+def plan_collective_expectations(plan: List[dict],
+                                 extra_psums: int = 0,
+                                 extra_psum_bytes: int = 0) -> dict:
+    """Fold an :func:`allreduce_comm_plan` into the ``collectives``
+    expectation dict the analysis rule consumes (the JAX package's
+    :584): exact per-primitive collective counts, the total on-wire
+    payload, and the per-primitive payload split — under the
+    hierarchical topology the bucket's psum (or compressed bf16
+    all_gather) payload is exactly the cross-node hop.
+
+    ``extra_psums`` / ``extra_psum_bytes`` account for the step's scalar
+    all-reduces outside the grad reduction (the loss average)."""
+    counts: Dict[str, int] = {}
+    by_prim: Dict[str, int] = {}
+    total = 0
+    for b in plan:
+        for prim, k in b["eqns"].items():
+            counts[prim] = counts.get(prim, 0) + k
+        for prim, by in b["eqn_payload_bytes"].items():
+            by_prim[prim] = by_prim.get(prim, 0) + by
+        total += b["wire_bytes"]
+    if extra_psums:
+        counts["psum"] = counts.get("psum", 0) + extra_psums
+        by_prim["psum"] = by_prim.get("psum", 0) + extra_psum_bytes
+    return {"counts": counts, "payload_bytes": total + extra_psum_bytes,
+            "payload_bytes_by_primitive": by_prim}
 
 
-def plan_resharding_expectations(*args, **kwargs):
-    """The resharding census's expectations from a plan."""
-    raise NotImplementedError(f"plan_resharding_expectations {_ITEM10}")
+def plan_resharding_expectations(plan: List[dict],
+                                 budget: Optional[Dict[str, int]] = None
+                                 ) -> dict:
+    """Fold a comm plan (:func:`allreduce_comm_plan` buckets, or
+    ``overlap_comm_schedule()["buckets"]``) into the ``resharding``
+    expectation the census rule consumes (the JAX package's :614): the
+    exact per-collective payload list of every placement-changing
+    collective the plan issues.  Per bucket:
+
+    - ``reduce_scatter``: one, the full padded bucket;
+    - ``all_gather``: the in-node gather-back of the 1/ici shard; under
+      bf16 compression the cross-node reduce is itself an all-gather of
+      ``dcn_wire_bytes``, so the bucket contributes two payloads,
+      ``[dcn_wire_bytes, total - dcn_wire_bytes]``.
+
+    ``budget`` declares per-primitive counts of resharding collectives
+    allowed beyond the plan (default: none)."""
+    planned: Dict[str, List[int]] = {}
+    for b in plan:
+        eqns = b.get("eqns", {})
+        payload = b.get("eqn_payload_bytes", {})
+        for prim in ("all_gather", "all_to_all", "reduce_scatter",
+                     "pgather"):
+            k = int(eqns.get(prim, 0))
+            if not k:
+                continue
+            total = int(payload.get(prim, 0))
+            if prim == "all_gather" and k == 2:
+                dcn = int(b.get("dcn_wire_bytes", 0))
+                pays = [dcn, total - dcn]
+            elif k == 1:
+                pays = [total]
+            else:
+                pays = [total // k] * k
+                pays[0] += total - sum(pays)
+            planned.setdefault(prim, []).extend(pays)
+    exp: Dict[str, Any] = {"planned": planned}
+    if budget:
+        exp["budget"] = {k: int(v) for k, v in budget.items()}
+    return exp
 
 
-def overlap_collective_expectations(*args, **kwargs):
-    """The collective rule's expectations from an overlap schedule."""
-    raise NotImplementedError(f"overlap_collective_expectations {_ITEM10}")
+def overlap_collective_expectations(schedule: Dict[str, Any],
+                                    extra_psums: int = 0,
+                                    extra_psum_bytes: int = 0) -> dict:
+    """Fold an :func:`overlap_comm_schedule` into the collective rule's
+    expectation dict (the JAX package's :956): the census of
+    :func:`plan_collective_expectations` over the schedule's buckets and,
+    for the overlapped mode, the interleaving pin — the first issued
+    bucket's reduction ahead of the last conv/matmul of the backward.
+    ``min_payload_bytes`` (the smallest per-level hop any bucket puts on
+    the wire) separates grad buckets from the step's scalar all-reduces,
+    and ``min_collectives_before_last_matmul`` counts the collectives of
+    every stage but the last issued (stage 0: the backward drains back
+    to front), each issued before that stage's backward."""
+    exp = plan_collective_expectations(schedule["buckets"],
+                                       extra_psums=extra_psums,
+                                       extra_psum_bytes=extra_psum_bytes)
+    if schedule["overlap_mode"] == "overlapped" and schedule["buckets"]:
+        min_hop = min(
+            min(b["dcn_wire_bytes"], b["ici_wire_bytes"])
+            for b in schedule["buckets"])
+        last_stage = schedule["issue_order"][-1]
+        n_before = sum(sum(b["eqns"].values())
+                       for b in schedule["buckets"]
+                       if b["stage"] != last_stage)
+        exp["interleaving"] = {
+            "min_payload_bytes": max(int(min_hop), 16),
+            "min_matmuls_after": 1,
+            "min_collectives_before_last_matmul": int(n_before)}
+    return exp
 
 
 def zero_update_comm_plan(params: Any, *, zero_stage: int, world: int,
@@ -889,15 +971,12 @@ class DistributedDataParallel(torch.nn.Module):
         self._ici = 1
         self._groups = (None, None)
         if self._topo == "hierarchical":
-            if process_group is not None:
-                raise NotImplementedError(
-                    "comm_topology='hierarchical' over a process group "
-                    "other than the world is not wired: the hierarchy "
-                    "defines its own node groups")
             self._ici = (int(ici_size) if ici_size is not None
                          else _topology.default_ici_size(self.world))
-            self._groups = _topology.hierarchical_groups(self._ici,
-                                                         self.world)
+            # over a process group the node groups lie inside its ranks
+            self._groups = _topology.hierarchical_groups(
+                self._ici, self.world, None if process_group is None
+                else dist.get_process_group_ranks(process_group))
         self._comm = _CommStream()
 
         by_name = dict(module.named_parameters())

@@ -175,12 +175,26 @@ def _split(rank_lists: Sequence[Sequence[int]]):
     return _GROUPS[key]
 
 
-def hierarchical_groups(ici_size: int, world: Optional[int] = None):
-    """This rank's ``(ici_group, dcn_group)`` over the default group for
-    ``ici_size`` ranks a slice (see :func:`hierarchical_axis_groups`)."""
-    world = _world() if world is None else int(world)
-    ici_groups, dcn_groups = hierarchical_axis_groups(world, int(ici_size))
-    return _split(ici_groups), _split(dcn_groups)
+def hierarchical_groups(ici_size: int, world: Optional[int] = None,
+                        ranks: Optional[Sequence[int]] = None):
+    """This rank's ``(ici_group, dcn_group)`` for ``ici_size`` ranks a slice
+    (see :func:`hierarchical_axis_groups`), over the default group or,
+    with ``ranks``, over those global ranks (a process group's, in its
+    order: the hierarchy of a world shrunk onto its survivors).  A rank
+    outside ``ranks`` gets ``(None, None)``.  Every rank of the default
+    group takes part in making the groups, so an elastic run makes them
+    for every world it can shrink to while every rank is there; the call
+    after the shrink finds them made."""
+    if ranks is None:
+        world = _world() if world is None else int(world)
+        ranks = range(world)
+    ranks = [int(r) for r in ranks]
+    if world is not None and int(world) != len(ranks):
+        raise ValueError(f"world {world} but {len(ranks)} ranks")
+    ici_groups, dcn_groups = hierarchical_axis_groups(len(ranks),
+                                                      int(ici_size))
+    return (_split([[ranks[i] for i in g] for g in ici_groups]),
+            _split([[ranks[i] for i in g] for g in dcn_groups]))
 
 
 class RankMesh:

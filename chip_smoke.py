@@ -13,6 +13,7 @@
     python3 chip_smoke.py --fleet
     python3 chip_smoke.py --elastic
     python3 chip_smoke.py --observability
+    python3 chip_smoke.py --analysis
     python3 chip_smoke.py --profilez-race guarded|raw
     python3 chip_smoke.py --layer-norm-ab PARENT_CHECKOUT
 
@@ -20,7 +21,9 @@ The second form runs phases 1, 2 and 15 alone, the third phases 1, 2 and
 16 (with 16's launch-count checks), the fourth phases 1, 2 and 17, the
 fifth 1, 2 and 18, the sixth 1, 2 and 19, the seventh 1, 2 and 20, the
 eighth 1, 2 and 21, the ninth 1, 2 and 22, the tenth 1, 2 and 23, the
-eleventh 1, 2 and 24, the twelfth 1, 2 and 25.  The thirteenth runs
+eleventh 1, 2 and 24, the twelfth 1, 2 and 25, the thirteenth 1, 2 and
+26 (its launch lint over every wrapper launched once at small shapes,
+phase 3 not running).  The fourteenth runs
 (aj)'s engine without pause while a thread opens and closes 20 profiler
 windows: ``guarded`` through /profilez, ``raw`` with torch.profiler
 started and stopped directly (the hazard the endpoint keeps clear of);
@@ -393,6 +396,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
             Each captured training path (a)-(g) of phases 15
             to 17 prints an "mfu" line: count_cost of one eager step (its
             launches taken back) over the graph's step_ms.
+26. analysis  the analysis plane (apex_tpu_torch.analysis) on the card.
+            (ak) The launch lint over phase 3's kernel launches: each
+            correctness call and the warm-up call of each reading,
+            recorded while they ran (nothing launched again; the timed
+            calls run with no launch hook, so no reading counts the
+            recording): dtypes,
+            contiguity, alignment, element counts, in-place and
+            overlapping operands, the launch configurations the wrappers
+            compute, and the flash and LayerNorm kernels' threads and
+            shared memory from the CUDA runtime.  (al) The registry's
+            single-rank entries (the engines' window, admission and
+            seq2seq bodies) traced with their tensors on the card and
+            linted under every rule: zero findings; the 24 multi-rank
+            entries trace on 8 gloo ranks and are linted on the CPU
+            (tests/test_torch_step_graph_audit.py, python -m
+            apex_tpu_torch.analysis).  (am) host-transfer and donation
+            against the card on (b)'s step (BERT-base O2 + FusedAdam,
+            32 x 128, two micro-batches): the clean step lints clean; a
+            copy with a seeded .item() is flagged, and make_step refuses
+            to capture it; a copy that rebinds a parameter is flagged.
+            It prints the entries, rules, sites and findings.
 
 Phase 3 also times the variants the O1 paths run: Adam without the half
 copy at N = 25,557,032, the LayerNorm forward and backward in fp32 at
@@ -475,19 +499,27 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def untimed_hooks():
+    """No launch hook for the block: phase 26's site capture records the
+    warm-up call of a reading, never the calls it times."""
+    from apex_tpu_torch.ops import _launches
+    return _launches.suspended()
+
+
 def time_ms(fn, reps: int = REPS) -> float:
     """Median of ``reps`` launches, each between two CUDA events."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    with untimed_hooks():
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
@@ -503,7 +535,7 @@ def graph_ms(fn, inner: int = 10, reps: int = REPS) -> float:
         fn()                                   # warm-up outside the capture
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with untimed_hooks(), torch.cuda.graph(graph):
         for _ in range(inner):
             fn()
     ms = time_ms(graph.replay, reps=reps) / inner
@@ -1174,8 +1206,8 @@ def device_split(fn, calls: int = 10) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with untimed_hooks(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -4460,7 +4492,7 @@ SRV_WINDOW = 8
 SRV_REQUESTS = 48                   # three waves of SRV_SLOTS
 SRV_WAVE_AT = 12                    # windows between two waves
 SRV_PLEN = (32, 1024)
-SRV_NEW = (32, 256)
+SRV_NEW = (32, 128)                 # cut from (32, 256) for the clock
 SRV_SOLO = (0, 9, 17, 26, 38, 47)   # greedy requests re-run alone
 SRV_SAMPLED = 16                    # seeded sampled requests, 4 re-run
 SRV_SAMPLED_PLEN, SRV_SAMPLED_NEW = (32, 256), (32, 64)
@@ -8620,6 +8652,132 @@ def phase_observability(smi):
     return out
 
 
+# -- phase 26: the analysis plane ------------------------------------------------
+
+def phase_analysis(smi, sites=None):
+    """Phase 26: the launch lint over ``sites`` (phase 3's launches; with
+    None every wrapper launched once here), the single-rank registry
+    traced on the card, and host-transfer and donation held against the
+    card on (b)'s step (see the module doc)."""
+    from apex_tpu_torch import analysis, models, optimizers, parallel
+    from apex_tpu_torch.analysis import entry_points, pallas_lint
+    t0 = time.time()
+    out = {"card": smi}
+    # (ak) the launch lint
+    if sites is None:
+        sites, problems = pallas_lint.lint_pallas_kernels(device=DEVICE)
+        source = "every wrapper once"
+    else:
+        problems = [p for s in sites for p in pallas_lint.check_site(s)]
+        source = "phase 3's launches"
+    problems += pallas_lint.card_launch_checks(sites)
+    assert not problems, problems[:10]
+    names = {s.name for s in sites}
+    assert names == set(pallas_lint.WRAPPERS), \
+        sorted(set(pallas_lint.WRAPPERS) - names)
+    out["launch_lint"] = {"sites": len(sites), "wrappers": len(names),
+                          "checks": len(pallas_lint.CHECKS),
+                          "source": source, "problems": 0}
+    log(f"[analysis-ak] {smi}: {len(sites)} launch sites of "
+        f"{len(names)} wrappers ({source}) under "
+        f"{len(pallas_lint.CHECKS)} checks: 0 problems "
+        f"[{time.time() - t0:.1f} s]")
+
+    # (al) the registry's single-rank entries, traced on the card
+    entry_points.DEVICE = DEVICE
+    single = [ep for ep in entry_points.select() if ep.ranks == 1]
+    multi = [ep for ep in entry_points.select() if ep.ranks > 1]
+    found = []
+    summary = analysis.run_lint(
+        entry_points=single, emit=lambda r: found.append(r)
+        if r.get("kind") == "graph_lint" else None)
+    assert summary["findings"] == 0, found
+    assert summary["entry_points"] == len(single) == 5, summary
+    nodes = {ep.name: len(ep.graph().nodes) for ep in single}
+    kernels = {ep.name: sum(1 for n in ep.graph().nodes
+                            if n.kind == "kernel") for ep in single}
+    out["registry"] = {"entries": summary["entry_points"],
+                       "rules": summary["rules"], "findings": 0,
+                       "nodes": nodes, "kernel_nodes": kernels,
+                       "linted_on_cpu": len(multi)}
+    log(f"[analysis-al] {smi}: {summary['entry_points']} single-rank "
+        f"entries traced on the card x {summary['rules']} rules: 0 "
+        f"findings (nodes {nodes}, kernel nodes {kernels}); the "
+        f"{len(multi)} multi-rank entries trace on 8 gloo ranks and lint "
+        f"on the CPU [{time.time() - t0:.1f} s]")
+
+    # (am) (b)'s step: clean, a seeded .item(), a rebound parameter
+    cfg = models.bert_base()
+    model, opt, _ = _bert_model(cfg, optimizers.FusedAdam(lr=1e-4))
+    ids, labels, nsp = _bert_batch(cfg.vocab_size,
+                                   np.random.RandomState(SEED), BERT_BATCH,
+                                   BERT_SEQ, DEVICE)
+    batch = tuple(t.reshape(2, BERT_BATCH // 2, *t.shape[1:])
+                  for t in (ids, labels, nsp))
+    step = _bert_micro_step(model, opt)
+    state = entry_points._training_state(model, opt)
+    expect = {"donation": {"expect_donated": ("params", "opt"),
+                           "min_aliased": 0}}
+
+    def lint(name, fn):
+        trace = analysis.trace_call(fn, batch, state=state, cost=False)
+        ep = analysis.EntryPoint(name, lambda ep: analysis.Graph(
+            recorded=trace), expect=dict(expect))
+        return trace, analysis.analyze_entry_point(
+            ep, rules=["host-transfer", "donation"])
+
+    def seeded(b):
+        loss = step(b)
+        float(loss)                  # the seeded host read
+        return loss
+
+    def rebinding(b):
+        loss = step(b)
+        p = next(model.parameters())
+        p.data = p.data.clone()      # the seeded rebound state tensor
+        return loss
+
+    clean_train = parallel.make_step(step, model)
+    trace, clean = lint("b_clean", clean_train)
+    assert clean == [], [str(f) for f in clean]
+    written = sum(1 for f in trace.state if f.in_place)
+    _, host = lint("b_seeded_item", seeded)
+    assert [f.detail.get("primitive") for f in host] == \
+        ["_local_scalar_dense"], [str(f) for f in host]
+    _, rebound = lint("b_rebound", rebinding)
+    assert [f.rule for f in rebound] == ["donation"] and \
+        "partially donated" in rebound[0].message, \
+        [str(f) for f in rebound]
+    # make_step agrees: the clean step captures, the seeded one cannot
+    clean_train(batch)
+    assert clean_train.graph is not None
+    seeded_train = parallel.make_step(seeded, model)
+    seeded_train(batch)              # the eager warm-up
+    try:
+        seeded_train(batch)          # the capture
+        refused = None
+    except RuntimeError as e:
+        refused = str(e).splitlines()[0][:160]
+    assert refused is not None, "make_step captured a step with .item()"
+    torch.cuda.synchronize()
+    assert float(torch.ones(4, device=DEVICE).sum()) == 4.0
+    out["b"] = {"clean_findings": 0, "written_in_place": written,
+                "state_leaves": len(trace.state), "nodes":
+                len(trace.nodes), "item": host[0].message,
+                "rebound": rebound[0].message, "capture_refused": refused}
+    log(f"[analysis-am] {smi}: (b)'s step on the card: clean 0 findings "
+        f"({len(trace.nodes)} nodes, {written} of {len(trace.state)} "
+        f"state leaves written in place); seeded .item(): "
+        f"{host[0].message!r}, make_step's capture refused ({refused}); "
+        f"rebound parameter: {rebound[0].message!r}")
+    out["seconds"] = round(time.time() - t0, 1)
+    log(f"[analysis] entries {summary['entry_points']} (+{len(multi)} on "
+        f"the CPU), rules {summary['rules']}, sites {len(sites)}, "
+        f"findings 0 [{out['seconds']} s]")
+    log("analysis " + json.dumps(out))
+    return out
+
+
 def _check_elastic_counts(counts, expect) -> None:
     """Phase 24: every step of its runs (eager, captured, replayed) ran
     the ResNet path's kernels once a step; the "kernels_elastic" line."""
@@ -8743,13 +8901,18 @@ def main():
     t0 = time.time()
     name, smi = phase_device()
     import apex_tpu_torch  # noqa: F401  (fails outside the repository)
+    from apex_tpu_torch.analysis import pallas_lint
     uncapped, logs = phase_build()
-    rows = phase_kernels()
-    rows.update(phase_syncbn())
-    rows.update(phase_layer_norm(ptxas_resources(logs.get("layer_norm",
-                                                          ""))))
-    rows.update(phase_flash(uncapped))
-    rows.update(phase_lamb())
+    # phase 26 lints the launches phase 3 makes, recorded as they run (the
+    # timed calls of time_ms, graph_ms and device_split run unhooked)
+    sites = []
+    with pallas_lint.capture_kernel_sites(sites):
+        rows = phase_kernels()
+        rows.update(phase_syncbn())
+        rows.update(phase_layer_norm(ptxas_resources(logs.get(
+            "layer_norm", ""))))
+        rows.update(phase_flash(uncapped))
+        rows.update(phase_lamb())
     log(f"[time] phases 1-3 done at {time.time() - t0:.1f} s")
     counts_train, _, train = phase_train(smi)
     phase_reference()
@@ -8794,6 +8957,8 @@ def main():
     log(f"[time] phase 24 done at {time.time() - t0:.1f} s")
     phase_observability(smi)
     log(f"[time] phase 25 done at {time.time() - t0:.1f} s")
+    phase_analysis(smi, sites)
+    log(f"[time] phase 26 done at {time.time() - t0:.1f} s")
 
     _check_counts("train", counts_train, RESNET_COUNTS)
     _check_counts("ddp", counts_ddp, RESNET_COUNTS)
@@ -8915,6 +9080,11 @@ if __name__ == "__main__":
         _, smi = phase_device()
         phase_build()
         phase_observability(smi)
+    elif sys.argv[1:2] == ["--analysis"]:
+        # python3 chip_smoke.py --analysis: phases 1, 2 and 26 alone
+        _, smi = phase_device()
+        phase_build()
+        phase_analysis(smi)
     elif sys.argv[1:2] == ["--profilez-race"]:
         # python3 chip_smoke.py --profilez-race guarded|raw
         _, smi = phase_device()

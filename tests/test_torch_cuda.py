@@ -2587,3 +2587,18 @@ def test_card_capture_lists_the_port_kernels_as_compute(cuda):
                 found.setdefault(p, set()).add(k["kind"])
     assert len(found) == 8 and all(v == {"compute"}
                                    for v in found.values()), found
+
+
+@pytest.mark.cuda
+def test_launch_lint_over_real_launches(cuda):
+    """Every kernel wrapper launched on the card once, each launch linted
+    against its kernel's assumptions (``analysis.pallas_lint``), and the
+    block and shared memory of the flash and LayerNorm kernels read back
+    from the CUDA runtime checked too."""
+    from apex_tpu_torch.analysis import pallas_lint
+    ops.reset_launch_counts()
+    sites, problems = pallas_lint.lint_pallas_kernels(device="cuda")
+    assert problems == []
+    assert {s.name for s in sites} == set(pallas_lint.WRAPPERS)
+    assert all(n >= 1 for n in ops.launch_counts().values())
+    assert pallas_lint.card_launch_checks(sites) == []

@@ -552,9 +552,11 @@ def test_comm_plan_hierarchical_raises_naming_the_roadmap():
             jparallel.allreduce_comm_plan(params, **kw)
     with pytest.raises(ValueError, match="no inner level"):
         parallel.allreduce_comm_plan(meta, allreduce_compress_bf16=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        parallel.plan_collective_expectations(
-            parallel.allreduce_comm_plan(meta))
+    assert parallel.plan_collective_expectations(
+        parallel.allreduce_comm_plan(meta), extra_psums=2,
+        extra_psum_bytes=8) == jparallel.plan_collective_expectations(
+            jparallel.allreduce_comm_plan(params), extra_psums=2,
+            extra_psum_bytes=8)
 
 
 # -- make_step (tests/test_ddp.py:244) ----------------------------------------------

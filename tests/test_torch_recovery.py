@@ -32,6 +32,21 @@ rank 0 writes the snapshots and every rank restores them.
   the JAX package's losses at rtol 1e-6);
 - the three ``RecoveryError`` paths (single process, numpy state) raise
   the JAX package's messages.
+
+A second start of 8 ranks (suite ``elastic_hier``) holds the 8 -> 4
+shrinks in which the node shrinks with the world (4 -> 2), against
+tests/test_recovery.py's scenarios on 8 -> 4 JAX CPU devices:
+
+- ZeRO-2 (tests/test_recovery.py:365) and ZeRO-3 through a torn step-4
+  snapshot (:467): O2 runs, the losses at ``ZERO_RTOL``, steps and
+  worlds exact, the windows re-padded for the node of 2, and the
+  post-shrink losses bitwise an undisturbed world-4 run of the port from
+  the same snapshot;
+- a replica death with a ``DataLoader`` (:684), over hierarchical DDP at
+  both worlds: fp32, the losses at ``RTOL``, every committed step's
+  samples drawn exactly once (160 consumed, the committed sample
+  sequence an undisturbed loader's);
+- hierarchical DDP and hierarchical Adasum over the shrunk world's group.
 """
 
 import json
@@ -479,3 +494,287 @@ def test_config_errors_and_preempt_without_grace_match_jax(tmp_path):
                      _ring(ring.snapshot())))
     assert _json(outs[0]) == _json(outs[1])
     assert outs[0][0] == "preempted"
+
+
+# -- the 8 -> 4 shrinks with the node (suite "elastic_hier") ------------------
+
+def _retree(ost, specs):
+    return jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(specs),
+        jax.tree_util.tree_leaves(ost))
+
+
+def _dedup_slices(ost, padded, dcn):
+    def fix(a):
+        if getattr(a, "ndim", 0) == 1 and a.shape[0] == dcn * padded:
+            return a[:padded]
+        return a
+    return jax.tree_util.tree_map(fix, ost)
+
+
+def _tile_slices(ost, padded, dcn):
+    def fix(a):
+        if getattr(a, "ndim", 0) == 1 and a.shape[0] == padded:
+            return np.concatenate([np.asarray(a)] * dcn)
+        return a
+    return jax.tree_util.tree_map(fix, ost)
+
+
+def _ici_of(world):
+    return max(world // 2, 1)
+
+
+def _jax_zero_hier_run(tmp, batches, stage):
+    """tests/test_recovery.py:365 (stage 2) and :467 (stage 3), on 8 -> 4
+    devices."""
+    net = jnn.Sequential([jnn.Flatten(), jnn.Linear(24, 10)])
+    model, optimizer = jamp.initialize(
+        net, joptim.FusedAdam(lr=1e-2), opt_level="O2", verbosity=0,
+        hard_override=True)
+    params, _ = model.init(jax.random.PRNGKey(0))
+    total = optimizer.init(params).masters.buf.size
+
+    def ospecs_for(world):
+        return jamp.zero_optimizer_specs(
+            optimizer, params, "data", zero_stage=stage,
+            zero_ici_size=_ici_of(world))
+
+    def build_step(world):
+        mesh = Mesh(np.array(jax.devices()[:world]), ("data",))
+        ospecs = ospecs_for(world)
+        if stage == 3:
+            def step(ost, batch):
+                xb, yb = batch
+
+                def loss_fn(m):
+                    out, _ = model.apply(jamp.zero_gather_params(m), xb,
+                                         train=True)
+                    return JF.cross_entropy(out, yb)
+
+                loss, g = jamp.scaled_grad(loss_fn, ost.masters, ost)
+                _, ost, _ = optimizer.step((), ost, g)
+                return ost, lax.pmean(loss, "data")
+            specs = ospecs
+        else:
+            def step(state, batch):
+                p, ost = state
+                xb, yb = batch
+
+                def loss_fn(pp):
+                    out, _ = model.apply(pp, xb, train=True)
+                    return JF.cross_entropy(out, yb)
+
+                loss, g = jamp.scaled_grad(loss_fn, p, ost)
+                p, ost, _ = optimizer.step(p, ost, g)
+                return (p, ost), lax.pmean(loss, "data")
+            specs = (P(), ospecs)
+        return jax.jit(jax.shard_map(
+            step, mesh=mesh, in_specs=(specs, (P("data"), P("data"))),
+            out_specs=(specs, P()), check_vma=False))
+
+    mesh8 = Mesh(np.array(jax.devices()[:8]), ("data",))
+    ost0 = jax.jit(jax.shard_map(
+        lambda pp: optimizer.init(pp, zero_axis="data", zero_stage=stage,
+                                  zero_ici_size=_ici_of(8)),
+        mesh=mesh8, in_specs=(P(),), out_specs=ospecs_for(8),
+        check_vma=False))(params)
+
+    def host_ost(ost):
+        buf_len = ost.masters.buf.shape[0]
+        old_ici = next(i for i in (4, 2, 1)
+                       if buf_len == 2 * (total + (-total) % i))
+        ost = _dedup_slices(ost, buf_len // 2, 2)
+        return _retree(jreshard(ost, total, old_ici, 1), ospecs_for(2))
+
+    def live_ost(ost, world):
+        ici = _ici_of(world)
+        ost = jreshard(ost, total, 1, ici)
+        ost = _tile_slices(ost, total + (-total) % ici, world // ici)
+        return _retree(ost, ospecs_for(world))
+
+    if stage == 3:
+        state0 = ost0
+        to_host = lambda st: host_ost(_np_tree(st))  # noqa: E731
+        from_host = live_ost
+        faults = dict(replica_death=(5, 6), torn_checkpoint=(4, 5))
+        every, steps = 2, 8
+    else:
+        state0 = (params, ost0)
+
+        def to_host(st):
+            p, ost = _np_tree(st)
+            return (p, host_ost(ost))
+
+        def from_host(tree, world):
+            return (tree[0], live_ost(tree[1], world))
+        faults, every, steps = dict(replica_death=(3, 4)), 1, 7
+    ring = jobs.EventRing(256, clock=CLOCK)
+    tr = JTrainer(build_step, state0, world=8,
+                  ckpt_dir=str(tmp / f"zero{stage}"), to_host=to_host,
+                  from_host=from_host,
+                  faults=JFaults(seed=0, ring=ring, **faults),
+                  config=JConfig(checkpoint_every=every, min_world=2),
+                  ring=ring, registry=jobs.MetricsRegistry(),
+                  run=f"zero{stage}_elastic", clock=CLOCK)
+    tr.run(steps, lambda i: batches[i])
+    return tr, ring, total
+
+
+def _jax_loader_run(tmp, images, labels):
+    """tests/test_recovery.py:684 on 8 -> 4 devices."""
+    net, params = _mlp(48, 32, 64)
+    build = _ddp_build_step(net, jparallel.DistributedDataParallel(net))
+    loader = JLoader(images, labels, batch_size=16, shuffle=True, seed=7,
+                     native=False)
+    tr = JTrainer(build, (params, jnp.zeros((), jnp.int32)), world=8,
+                  ckpt_dir=str(tmp / "loader"), to_host=_np_tree,
+                  data=loader, faults=JFaults(replica_death=(5, 6), seed=0),
+                  config=JConfig(checkpoint_every=2, min_world=1),
+                  registry=jobs.MetricsRegistry(), run="death_loader",
+                  clock=CLOCK)
+    tr.run(10)
+    return tr, loader
+
+
+@pytest.fixture(scope="module")
+def hier_ranks(tmp_path_factory):
+    _, mlp48 = _mlp(48, 32, 64)
+    zp, _ = jnn.Sequential([jnn.Flatten(), jnn.Linear(24, 10)]).init(
+        jax.random.PRNGKey(0))
+    images, labels = _uint8_dataset()
+    rs = np.random.RandomState(22)
+    inp = {"mlp48": _np_tree(mlp48),
+           "zero_w": np.asarray(zp["1"]["weight"]),
+           "zero_b": np.asarray(zp["1"]["bias"]),
+           "batches": _batches(10), "images": images, "labels": labels,
+           "g1001": rs.randn(1001).astype(np.float32),
+           "ada_slices": rs.randn(2, 16).astype(np.float32),
+           "ckpt_root": str(tmp_path_factory.mktemp("elastic_hier_ckpt"))}
+    return inp, torch_dist_worker.run(
+        "elastic_hier", inp, tmp_path_factory.mktemp("elastic_hier"),
+        world=8)
+
+
+@pytest.mark.parametrize("stage", [2, 3])
+def test_zero_hier_shards_shrink_with_the_node(hier_ranks, tmp_path, stage):
+    """ZeRO-2 (tests/test_recovery.py:365) and ZeRO-3 through a torn
+    snapshot (:467), 8 -> 4 with the node 4 -> 2; losses at ZERO_RTOL
+    (O2), the port's post-shrink run bitwise its undisturbed one."""
+    inp, outs = hier_ranks
+    jtr, jring, jtotal = _jax_zero_hier_run(tmp_path, inp["batches"], stage)
+    resume = {2: 3, 3: 2}[stage]
+    last = {2: 6, 3: 7}[stage]
+    assert jtr.world == 4 and jtr.resumed_step == resume
+    assert jtr.history[-1][0] == last
+    jbuf = int(jtr._state[1].masters.buf.shape[0] if stage == 2
+               else jtr._state.masters.buf.shape[0])
+    for rank in range(4):
+        got = outs[rank][f"zero{stage}"]
+        assert got["world"] == 4 and got["verdict"] == "completed"
+        assert got["resumed_step"] == resume
+        assert [(s, w) for s, _, w in got["history"]] == \
+            [(s, w) for s, _, w in jtr.history]
+        np.testing.assert_allclose(_losses(got["history"]),
+                                   _losses(jtr.history), rtol=ZERO_RTOL)
+        assert _json(got["record"]) == _json(jtr.record())
+        assert validate_recovery_record(
+            JsonlExporter.enrich(got["record"])) == []
+        # the windows re-padded for the node of 2: the JAX global view is
+        # two nodes' copies of it
+        total = got["total"]
+        assert total == jtotal
+        assert got["shards"] == got["ici"] == _ici_of(4) == 2
+        assert got["padded"] == total + (-total) % 2 == jbuf // 2
+        assert got["buf"] == got["padded"] // 2
+        assert got["group_ranks"] == [2 * (rank // 2), 2 * (rank // 2) + 1]
+        post = [loss for _, loss, w in got["history"] if w == 4]
+        assert post == got["undisturbed"]
+    for rank in range(4, 8):
+        assert outs[rank][f"zero{stage}"]["verdict"] == "left"
+    if stage == 3:
+        for rank in range(8):
+            skipped = [e["step"] for e in outs[rank]["zero3"]["ring"]
+                       if e["kind"] == "snapshot_skipped"]
+            assert skipped == [4]
+        assert [e["step"] for e in jring.snapshot()
+                if e["kind"] == "snapshot_skipped"] == [4]
+
+
+def test_replica_death_with_loader_over_hierarchical_ddp(hier_ranks,
+                                                         tmp_path):
+    """tests/test_recovery.py:684, each of 8 ranks a trainer over
+    hierarchical DDP: fp32 losses at RTOL against the JAX package's flat
+    run (a sum in another order), the census exactly once."""
+    inp, outs = hier_ranks
+    jtr, jloader = _jax_loader_run(tmp_path, inp["images"], inp["labels"])
+    assert jtr.world == 4 and jtr.resumed_step == 4
+    assert jloader.stats()["samples_consumed"] == 10 * 16
+    # an undisturbed loader's first ten batches: what each committed step
+    # must have drawn
+    from apex_tpu_torch.data import DataLoader
+    fleet_loader = DataLoader(inp["images"], inp["labels"], batch_size=16,
+                              shuffle=True, seed=7, native=False)
+    ref = [[int(v) for v in fleet_loader.next_batch()[1]]
+           for _ in range(10)]
+    for rank in range(4):
+        got = outs[rank]["loader"]
+        assert got["world"] == 4 and got["resumed_step"] == 4
+        assert got["verdict"] == "completed"
+        assert [(s, w) for s, _, w in got["history"]] == \
+            [(s, w) for s, _, w in jtr.history]
+        np.testing.assert_allclose(_losses(got["history"]),
+                                   _losses(jtr.history), rtol=RTOL)
+        assert _json(got["record"]) == _json(jtr.record())
+        assert got["consumed"] == 10 * 16 and got["ds_consumed"] == 4 * 16
+        # the draws: steps 0-5 (the one at the death abandoned), then the
+        # rewind to the step-4 cursor and steps 4-9
+        assert got["log"] == ref[:6] + ref[4:]
+        committed = ref[:4] + got["log"][6:]
+        assert committed == ref
+        counts = np.bincount(np.concatenate(committed), minlength=64)
+        # 160 draws over 64 samples: each epoch takes every sample once
+        assert counts.sum() == 160 and set(counts) <= {2, 3}
+        assert list(np.bincount(np.concatenate(ref[:4]), minlength=64)) \
+            == [1] * 64
+        post = [loss for _, loss, w in got["history"] if w == 4]
+        assert post == got["undisturbed"]
+    for rank in range(4, 8):
+        assert outs[rank]["loader"]["verdict"] == "left"
+
+
+def test_hierarchical_ddp_and_adasum_over_a_shrunk_group(hier_ranks):
+    """The first 4 of 8 ranks as a group with nodes of 2: the hierarchical
+    mean is the flat one's, and hierarchical Adasum is the JAX package's
+    on 4 devices with ici_size=2."""
+    from apex_tpu.parallel import adasum as jadasum
+    inp, outs = hier_ranks
+    g = inp["g1001"]
+    per = inp["ada_slices"]
+
+    def fn(_):
+        gg = {"w": jnp.asarray(per)[lax.axis_index("data") // 2]}
+        return jadasum.adasum_grads(gg, "data", ici_size=2)["w"]
+
+    mesh = Mesh(np.array(jax.devices()[:4]), ("data",))
+    want = np.asarray(jax.jit(jax.shard_map(
+        fn, mesh=mesh, in_specs=P("data"), out_specs=P(),
+        check_vma=False))(jnp.arange(4.0)))
+    for rank in range(4):
+        got = outs[rank]["subgroup"]
+        np.testing.assert_allclose(got["hier"][0], g * 2.5, rtol=1e-6)
+        np.testing.assert_allclose(got["hier"][0], got["flat"][0],
+                                   rtol=1e-6)
+        assert [s["topology"] for s in got["hier_stats"]] == \
+            ["hierarchical"]
+        plan = jparallel.allreduce_comm_plan(
+            [jnp.zeros(g.shape)], comm_topology="hierarchical", ici_size=2,
+            world=4, nproc=1)
+        for key in ("wire_elements", "padded_elements", "ici_wire_bytes",
+                    "dcn_wire_bytes"):
+            assert got["hier_stats"][0][key] == plan[0][key], key
+        np.testing.assert_allclose(got["adasum_hier"], want, rtol=2e-5)
+        # node-identical grads: the hierarchy is bitwise the flat butterfly
+        np.testing.assert_array_equal(got["adasum_hier"],
+                                      got["adasum_flat"])
+    for rank in range(4, 8):
+        assert outs[rank]["subgroup"] == {}

@@ -258,11 +258,41 @@ def test_allreduce_comm_plan_equals_the_jax_packages():
 
 
 def test_analysis_and_numerics_hooks_name_their_items():
-    for fn in (parallel.plan_collective_expectations,
-               parallel.plan_resharding_expectations,
-               parallel.overlap_collective_expectations):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fn([])
+    """The analysis folds (ported with apex_tpu_torch.analysis) equal the
+    JAX package's dicts on the same plans and schedules."""
+    shapes = {"a": ((310,), "float32"), "b": ((40, 3), "bfloat16"),
+              "c": ((7,), "float32")}
+    jtree = {k: jax.ShapeDtypeStruct(s, jnp.dtype(d))
+             for k, (s, d) in shapes.items()}
+    ptree = {k: torch.empty(s, dtype=getattr(torch, d), device="meta")
+             for k, (s, d) in shapes.items()}
+    for kw in (dict(comm_topology="hierarchical", ici_size=4, world=8),
+               dict(comm_topology="hierarchical", ici_size=2, world=8,
+                    allreduce_compress_bf16=True)):
+        pplan = parallel.allreduce_comm_plan(ptree, **kw)
+        jplan = jparallel.allreduce_comm_plan(jtree, **kw)
+        assert parallel.plan_collective_expectations(
+            pplan, extra_psums=2, extra_psum_bytes=8) == \
+            jparallel.plan_collective_expectations(
+                jplan, extra_psums=2, extra_psum_bytes=8)
+        assert parallel.plan_resharding_expectations(
+            pplan, budget={"all_gather": 1}) == \
+            jparallel.plan_resharding_expectations(
+                jplan, budget={"all_gather": 1})
+    stages = [{"w": ((32, 32), "float32"), "b": ((32,), "float32")}] * 3
+    jst = [{k: jax.ShapeDtypeStruct(s, jnp.dtype(d))
+            for k, (s, d) in st.items()} for st in stages]
+    pst = [{k: torch.empty(s, dtype=getattr(torch, d), device="meta")
+            for k, (s, d) in st.items()} for st in stages]
+    for overlap in (True, False):
+        kw = dict(comm_topology="hierarchical", ici_size=4, world=8,
+                  nproc=1, overlap=overlap)
+        assert parallel.overlap_collective_expectations(
+            parallel.overlap_comm_schedule(pst, **kw), extra_psums=2,
+            extra_psum_bytes=8) == \
+            jparallel.overlap_collective_expectations(
+                jparallel.overlap_comm_schedule(jst, **kw), extra_psums=2,
+                extra_psum_bytes=8)
 
 
 # -- Adasum (tests/test_adasum.py) --------------------------------------------

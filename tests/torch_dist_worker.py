@@ -1787,17 +1787,19 @@ def _mlp_model(params):
     return net
 
 
-def _ddp_build_step(model, rank, lr=0.05):
+def _ddp_build_step(model, rank, lr=0.05, ddp_kw=None):
     """``build_step(world)`` over the first ``world`` ranks: each rank
     takes its slice of the global batch, the grads are averaged by DDP,
     SGD, the loss averaged over the group; ``nan_steps`` counts the
     nonfinite losses the state trained through (tests/test_recovery.py's
-    probe)."""
+    probe).  ``ddp_kw(world)`` gives the wrapper's other knobs."""
     def build_step(world):
         group = _world_group(world)
         if rank >= world:
             return None
-        ddp = parallel.DistributedDataParallel(model, process_group=group)
+        ddp = parallel.DistributedDataParallel(
+            model, process_group=group,
+            **(ddp_kw(world) if ddp_kw is not None else {}))
         by_name = dict(model.named_parameters())
         params = [by_name[n] for n in ddp._names]
 
@@ -2088,6 +2090,355 @@ def _elastic(inp, rank, world):
     return out
 
 
+# -- suite "elastic_hier" -----------------------------------------------------
+
+def _ici_of(world):
+    """tests/test_recovery.py's node width: half the world."""
+    return max(world // 2, 1)
+
+
+def _hier_groups(worlds):
+    """Every group the 8 -> 4 runs use, made while all ranks are there: the
+    first ``w`` ranks and their node groups, for each world ``w``."""
+    from apex_tpu_torch.parallel import topology
+    for w in worlds:
+        _world_group(w)
+        topology.hierarchical_groups(_ici_of(w), w, range(w))
+
+
+def _zero_hier_pair(inp, world, stage):
+    """tests/test_recovery.py's ZeRO net (Flatten, Linear(24, 10)) under O2
+    + FusedAdam, sharded at ``stage`` over the node groups of the first
+    ``world`` ranks."""
+    from apex_tpu_torch import amp as pamp
+    net = torch.nn.Sequential(torch.nn.Flatten(),
+                              torch.nn.Linear(24, 10))
+    with torch.no_grad():
+        net[1].weight.copy_(torch.from_numpy(inp["zero_w"]))
+        net[1].bias.copy_(torch.from_numpy(inp["zero_b"]))
+    model, opt = pamp.initialize(net, optimizers.FusedAdam(lr=1e-2),
+                                 opt_level="O2", verbosity=0)
+    opt.zero_shard(zero_stage=stage, zero_ici_size=_ici_of(world),
+                   process_group=_world_group(world))
+    return model, opt
+
+
+def _elastic_zero_hier(inp, rank, ck, stage):
+    """ZeRO-2 (a death at observed step 3, a snapshot a step) or ZeRO-3 (a
+    torn step-4 snapshot, then a death at observed step 5, a snapshot
+    every two steps) under an 8 -> 4 shrink, the node 4 -> 2."""
+    from apex_tpu_torch import observability as obs
+    from apex_tpu_torch.fleet import (ElasticConfig, ElasticTrainer,
+                                      TrainingFaults, reshard_flat_state)
+    from apex_tpu_torch.utils import checkpoint as ckpt
+    live = {8: _zero_hier_pair(inp, 8, stage)}
+    total = live[8][1].masters.layout.total
+    to_host = _zero_io(total)
+
+    def from_host(tree, world):
+        model, opt = live[world]
+        z = opt._zero
+        padded = reshard_flat_state(tree["flat"], total, 1, z.shards)
+        win = {k: torch.from_numpy(np.asarray(v)[z.index * z.shard_n:
+                                                  (z.index + 1) * z.shard_n]
+                                   .copy())
+               for k, v in padded.items()}
+        inner = {k: torch.from_numpy(np.array(v))
+                 for k, v in tree["rest"].items()}
+        inner.update({k: v for k, v in win.items() if k != "masters"})
+        opt.load_state_dict({"masters": win["masters"], "inner": inner,
+                             "scalers": [{k: torch.from_numpy(np.array(v))
+                                          for k, v in s.items()}
+                                         for s in tree["scalers"]]})
+        return (model, opt, world)
+
+    def build_step(world):
+        group = _world_group(world)
+        if rank >= world:
+            return None
+        if world not in live:
+            live[world] = _zero_hier_pair(inp, world, stage)
+
+        def step(state, batch):
+            model, opt, _ = state
+            xb, yb = (torch.from_numpy(np.asarray(b)) for b in batch)
+            n = xb.shape[0] // world
+            xs, ys = xb[rank * n:(rank + 1) * n], yb[rank * n:(rank + 1) * n]
+            if stage == 3:
+                # the just-in-time gather: the model holds no parameters
+                def loss_fn(x, y):
+                    out = torch.func.functional_call(
+                        model, amp.zero_gather_params(opt), (x,))
+                    return cross_entropy(out.float(), y.long())
+            else:
+                def loss_fn(x, y):
+                    return cross_entropy(model(x).float(), y.long())
+            loss, grads = amp.scaled_grad(loss_fn, opt, xs, ys)
+            opt.step(grads)
+            avg = loss.detach().float().clone()
+            torch.distributed.all_reduce(avg, group=group)
+            return state, avg / world
+        return step
+
+    if stage == 2:
+        faults, every, steps, resume = dict(replica_death=(3, 4)), 1, 7, 3
+    else:
+        faults, every, steps, resume = (dict(replica_death=(5, 6),
+                                             torn_checkpoint=(4, 5)),
+                                        2, 8, 2)
+    ring = obs.EventRing(256, clock=lambda: 0.0)
+    tr = ElasticTrainer(build_step, (*live[8], 8), world=8, ckpt_dir=ck,
+                        to_host=to_host, from_host=from_host,
+                        faults=TrainingFaults(seed=0, ring=ring, **faults),
+                        config=ElasticConfig(checkpoint_every=every,
+                                             min_world=2),
+                        ring=ring, registry=obs.MetricsRegistry(),
+                        run=f"zero{stage}_elastic", clock=lambda: 0.0)
+    tr.run(steps, lambda i: inp["batches"][i])
+    out = _trainer_out(tr, ring)
+    if rank < 4:
+        opt = tr._state[1]
+        z = opt._zero
+        out.update(buf=int(opt.masters.buf.shape[0]), padded=int(z.padded),
+                   total=total, shards=z.shards, ici=z.ici,
+                   group_ranks=torch.distributed.get_process_group_ranks(
+                       z.group))
+        # the undisturbed world-4 run from the same snapshot
+        template = to_host(tr._state)
+        live[4] = _zero_hier_pair(inp, 4, stage)
+        st = from_host(ckpt.restore_checkpoint(ck, template, step=resume),
+                       4)
+        step4 = build_step(4)
+        out["undisturbed"] = [float(step4(st, inp["batches"][i])[1])
+                              for i in range(resume, steps)]
+    return out
+
+
+def _elastic_loader_hier(inp, rank, ck):
+    """tests/test_recovery.py:684's replica death with a ``DataLoader``
+    across an 8 -> 4 shrink, each rank a trainer over hierarchical DDP (the
+    node 4 -> 2 with the world); rank 0's cursor goes in the snapshot."""
+    from apex_tpu_torch import observability as obs
+    from apex_tpu_torch.data import DataLoader
+    from apex_tpu_torch.fleet import (ElasticConfig, ElasticTrainer,
+                                      TrainingFaults)
+    from apex_tpu_torch.utils import checkpoint as ckpt
+    model = _mlp_model(inp["mlp48"])
+    state, to_host, from_host = _mlp_io(model)
+    hier = dict(comm_topology="hierarchical")
+    build = _ddp_build_step(model, rank,
+                            ddp_kw=lambda w: {**hier, "ici_size": _ici_of(w)})
+
+    def loader():
+        return DataLoader(inp["images"], inp["labels"], batch_size=16,
+                          shuffle=True, seed=7, native=False)
+    data = loader()
+    log = []
+    draw = data.next_batch
+
+    def logged():
+        b = draw()
+        log.append([int(v) for v in b[1]])
+        return b
+    data.next_batch = logged
+    tr = ElasticTrainer(build, state, world=8, ckpt_dir=ck,
+                        to_host=to_host, from_host=from_host, data=data,
+                        faults=TrainingFaults(replica_death=(5, 6), seed=0),
+                        config=ElasticConfig(checkpoint_every=2,
+                                             min_world=1),
+                        registry=obs.MetricsRegistry(), run="death_loader",
+                        clock=lambda: 0.0)
+    tr.run(10)
+    out = _trainer_out(tr)
+    out["consumed"] = int(data.stats()["samples_consumed"])
+    out["log"] = log
+    if rank < 4:
+        ds = ckpt.load_data_state(ck, step=4)
+        out["ds_consumed"] = int(ds["samples_consumed"])
+        st, _, fh = _mlp_io(model)
+        fh(ckpt.restore_checkpoint(ck, to_host(st), step=4), 4)
+        fresh = loader()
+        fresh.load_state_dict(ds)
+        step4 = build(4)
+        und = []
+        for _ in range(4, 10):
+            imgs, lbls, _ = fresh.next_batch()
+            und.append(float(step4(st, (imgs, lbls))[1]))
+        out["undisturbed"] = und
+    return out
+
+
+def _subgroup_hier(inp, rank):
+    """Hierarchical DDP and hierarchical Adasum over the shrunk world's
+    group (the first 4 of 8 ranks, nodes of 2), beside flat DDP over it."""
+    from apex_tpu_torch.parallel import adasum_grads
+    if rank >= 4:
+        return {}
+    g4 = _world_group(4)
+    g = inp["g1001"]
+    out = {"flat": _reduce_with(_rank_grads(g, rank), process_group=g4)[0]}
+    red, _, stats = _reduce_with(_rank_grads(g, rank), process_group=g4,
+                                 comm_topology="hierarchical", ici_size=2)
+    out["hier"], out["hier_stats"] = red, stats
+    sl = torch.from_numpy(inp["ada_slices"][rank // 2])
+    out["adasum_hier"] = _np(adasum_grads([sl], g4, ici_size=2)[0])
+    out["adasum_flat"] = _np(adasum_grads([sl], g4)[0])
+    return out
+
+
+def _elastic_hier(inp, rank, world):
+    root = inp["ckpt_root"]
+    _hier_groups((8, 4, 2, 1))
+    out = {"subgroup": _subgroup_hier(inp, rank)}
+    torch.distributed.barrier()
+    for stage in (2, 3):
+        out[f"zero{stage}"] = _elastic_zero_hier(
+            inp, rank, os.path.join(root, f"zero{stage}"), stage)
+        torch.distributed.barrier()
+    out["loader"] = _elastic_loader_hier(inp, rank,
+                                         os.path.join(root, "loader"))
+    return out
+
+
+# -- suite "analysis" ---------------------------------------------------------
+
+def _analysis_mutants(inp, rank, world):
+    """Steps seeded with what the analysis rules must flag, and their
+    honest twins, traced on 8 ranks (each rank 0's trace comes back)."""
+    from apex_tpu_torch.analysis import entry_points as E
+    from apex_tpu_torch.parallel import topology
+    dist = torch.distributed
+    ici_g, dcn_g = topology.hierarchical_groups(4, world)
+    n = 1024
+    out = {}
+
+    def traced(name, step, *args, state=None, sharded=(), **kw):
+        g = E.trace_ranked(step, *args, group=None,
+                           mesh_axes={"data": world}, sharded=sharded,
+                           state=state or (lambda: {}), **kw)
+        if rank == 0:
+            out[name] = g.trace
+
+    # collective counts and payloads: one or two all-reduces, a smuggled
+    # all-gather, and a step with no matmul
+    x8 = torch.ones(4, 8)
+
+    def psums(k):
+        def step():
+            y = x8.clone()
+            for _ in range(k):
+                dist.all_reduce(y)
+            return y
+        return step
+    traced("psum1", psums(1))
+    traced("psum2", psums(2))
+
+    def gather():
+        o = torch.empty(world * 4, 8)
+        dist.all_gather_into_tensor(o, x8.clone())
+        return o
+    traced("all_gather", gather)
+
+    # the hierarchical reduce of one flat tensor, honest and with the
+    # full-size cross-node all-reduce / a smuggled world all-gather /
+    # the flat all-reduce under hierarchical expectations
+    holder = _holder([(n,)])
+    hier = parallel.DistributedDataParallel(
+        holder, comm_topology="hierarchical", ici_size=4,
+        gradient_average=False)
+    w = torch.arange(n, dtype=torch.float32) * (rank + 1)
+
+    def honest():
+        return hier.allreduce_grads([w])[0]
+
+    def sneaky():
+        shard = torch.empty(n // 4)
+        dist.reduce_scatter_tensor(shard, w.clone(), group=ici_g)
+        full = torch.empty(n)
+        dist.all_gather_into_tensor(full, shard, group=ici_g)
+        dist.all_reduce(full, group=dcn_g)      # n elements cross-node
+        return full
+
+    def gathered():
+        y = honest()
+        g = torch.empty(world * n)
+        dist.all_gather_into_tensor(g, y)
+        return y + g[:n]
+
+    def flat():
+        y = w.clone()
+        dist.all_reduce(y)
+        return y
+    for name, fn in (("hier_honest", honest), ("hier_fat_dcn", sneaky),
+                     ("hier_gathered", gathered), ("flat", flat)):
+        traced(name, fn)
+
+    # the overlapped staged steps against their reduce-after-backward
+    # twins (the same census, only the positions differ)
+    for name, kw in (("overlap_hier_off", dict(overlap=False)),
+                     ("zero2_overlap_off", dict(overlap=False,
+                                                zero2=True))):
+        ep = E.EntryPoint(name, lambda ep, kw=kw: E._staged_mlp_graph(
+            ep, **kw))
+        gr = ep.graph()
+        if rank == 0:
+            out[name] = gr.trace
+
+    # sharding: a state leaf written with rank-local values under a
+    # replicated claim, then re-synced; a replicated and a sharded leaf
+    # of 4 KB for the ledger
+    leaf = torch.ones(n)
+
+    def diverge():
+        leaf.mul_(float(rank + 1))
+
+    def resync():
+        dist.all_reduce(leaf)
+    traced("divergent", diverge, state=lambda: {"state": {"leaf": leaf}})
+    traced("synced", resync, state=lambda: {"state": {"leaf": leaf}})
+    rep = torch.ones(n)
+    traced("replicated_leaf", lambda: dist.all_reduce(rep.clone()),
+           state=lambda: {"state": {"leaf": rep}})
+    traced("sharded_leaf", lambda: dist.all_reduce(rep.clone()),
+           state=lambda: {"state": {"leaf": rep}},
+           sharded=("state.leaf",))
+
+    # numerics and the supervisor: a base step (a matmul, its grad
+    # all-reduced), an instrumented twin with the digest's one extra
+    # all-reduce, one that also reads a value back, one with a second
+    # extra all-reduce, and a "disabled" twin with residue
+    wt = torch.ones(8, 8, requires_grad=True)
+
+    def base_step(extra=0, sync=False, residue=False):
+        def step():
+            y = (x8 @ wt).tanh().sum()
+            (gw,) = torch.autograd.grad(y, [wt])
+            dist.all_reduce(gw)
+            if residue:
+                gw = gw * 1.0
+            for _ in range(extra):
+                d = gw.sum().reshape(1)
+                dist.all_reduce(d)
+                if sync:
+                    float(d)
+            return gw
+        return step
+    traced("num_base", base_step())
+    traced("num_on", base_step(extra=1))
+    traced("num_sync", base_step(extra=1, sync=True))
+    traced("num_extra", base_step(extra=2))
+    traced("num_residue", base_step(residue=True))
+    return out
+
+
+def _analysis(inp, rank, world):
+    from apex_tpu_torch.analysis import entry_points as E
+    out = {"entries": E.rank_job(inp["names"])}
+    if inp.get("mutants"):
+        out["mutants"] = _analysis_mutants(inp, rank, world)
+    return out
+
+
 # -- suite "steptime" ---------------------------------------------------------
 
 def _steptime(inp, rank, world):
@@ -2171,7 +2522,9 @@ class _Raises:
 SUITES = {"syncbn": _syncbn, "ddp": _ddp, "make_step": _make_step,
           "wide_ddp": _wide_ddp, "zero": _zero, "tp": _tp, "ep": _ep,
           "pp": _pp, "sp": _sp, "dcp": _dcp, "numerics": _numerics,
-          "elastic": _elastic, "steptime": _steptime}
+          "elastic": _elastic, "elastic_hier": _elastic_hier,
+          "analysis": _analysis,
+          "steptime": _steptime}
 WORLD = 2
 
 
